@@ -1,0 +1,167 @@
+"""Persistent flat-buffer substrate for fused ("tensor") collectives.
+
+The paper's core object is the *group of vectors treated as one*: the whole
+gradient pytree rides a single bucket algorithm. A ``FlatBuffer`` is the
+static packing spec of one pytree, computed ONCE per model: per-leaf
+offsets, shapes and dtypes, every leaf padded to a lane-aligned start.
+``pack`` and ``unpack`` are static-slice copies.
+
+The layout is the reference's exactly (``repro/core/flatbuf.py``): leaves
+in sorted-key order (``repro_torch.tree``), offsets aligned to ``LANE``,
+the total a multiple of ``LANE * SUBLANE``. The buffer is f32 whatever the
+param dtype: ``pack`` widens and ``unpack`` rounds back.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.kernels.common import LANE, SUBLANE
+from repro_torch.tree import TreeDef, tree_flatten, tree_unflatten
+
+#: the int8 wire codec's scale-group width (``repro/kernels/quant_bucket``)
+WIRE_BLOCK = 128
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+@dataclass(frozen=True)
+class FlatBuffer:
+    """Static packing spec for one pytree: the fused tensor object."""
+
+    treedef: TreeDef
+    shapes: tuple
+    dtypes: tuple
+    sizes: tuple      # true element count per leaf
+    offsets: tuple    # lane-aligned start of each leaf in the buffer
+    size: int         # padded total length (multiple of LANE*SUBLANE)
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    @property
+    def payload(self) -> int:
+        """True (unpadded) element count across leaves."""
+        return sum(self.sizes)
+
+    def _leaves(self, tree: Any) -> list:
+        leaves, treedef = tree_flatten(tree)
+        if treedef != self.treedef:
+            raise ValueError(f"tree structure {treedef} does not match the "
+                             f"spec's {self.treedef}")
+        return leaves
+
+    def pack(self, tree: Any, total: int | None = None) -> torch.Tensor:
+        """Pytree -> one ``(size,)`` buffer (zero-extended to ``total``
+        when that is longer). Static slices only."""
+        leaves = self._leaves(tree)
+        buf = torch.zeros((max(total or 0, self.size),), dtype=self.dtype,
+                          device=leaves[0].device)
+        for off, n, leaf in zip(self.offsets, self.sizes, leaves):
+            buf[off:off + n].copy_(leaf.reshape(-1))
+        return buf
+
+    def unpack(self, buf: torch.Tensor) -> Any:
+        """Inverse of ``pack``: restore leaf shapes and dtypes."""
+        leaves = [
+            buf[off:off + n].view(shape).to(dt)
+            for off, n, shape, dt in zip(
+                self.offsets, self.sizes, self.shapes, self.dtypes)
+        ]
+        return tree_unflatten(self.treedef, leaves)
+
+    def leaf_view(self, buf: torch.Tensor, index: int) -> torch.Tensor:
+        """Leaf ``index`` of a packed buffer, reshaped (buffer dtype: a
+        view, no copy)."""
+        off, n = self.offsets[index], self.sizes[index]
+        return buf[off:off + n].view(self.shapes[index])
+
+
+def make_flatbuf(tree: Any, dtype: torch.dtype = torch.float32, *,
+                 align: int = LANE) -> FlatBuffer:
+    """Build the spec from a pytree of tensors (``meta`` tensors do: only
+    shapes and dtypes are read)."""
+    leaves, treedef = tree_flatten(tree)
+    shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+    dtypes = tuple(leaf.dtype for leaf in leaves)
+    sizes = tuple(math.prod(s) if s else 1 for s in shapes)
+    offsets, off = [], 0
+    for n in sizes:
+        offsets.append(off)
+        off += _align(max(n, 1), align)
+    total = _align(max(off, align), LANE * SUBLANE)
+    return FlatBuffer(treedef, shapes, dtypes, sizes, tuple(offsets), total,
+                      dtype)
+
+
+def spec_for(tree: Any, dtype: torch.dtype = torch.float32) -> FlatBuffer:
+    """The spec of ``tree``. The reference memoizes it for its eager
+    drivers; here the sync engine builds it once per model and keeps it."""
+    return make_flatbuf(tree, dtype)
+
+
+# --------------------------------------------------------------------------
+# Shard geometry: how a flat buffer splits across p devices × R rings
+# --------------------------------------------------------------------------
+
+def edge_grid() -> int:
+    """The grid every schedule-bucket edge sits on: the least common
+    multiple of LANE and the int8 wire codec's WIRE_BLOCK."""
+    return LANE * WIRE_BLOCK // math.gcd(LANE, WIRE_BLOCK)
+
+
+def align_edge(n: int, *, align: int | None = None) -> int:
+    """Round a schedule-bucket edge (or shard chunk) up to the LANE ×
+    WIRE_BLOCK grid (or to ``align``)."""
+    a = align if align is not None else edge_grid()
+    if n < 0:
+        raise ValueError(f"bucket edge must be >= 0, got {n}")
+    return _align(n, a)
+
+
+def shard_geometry(n: int, p: int, num_rings: int = 1,
+                   *, align: int = LANE) -> tuple[int, int]:
+    """(per-ring chunk, padded total) for a length-``n`` buffer split over
+    ``p`` devices × ``num_rings`` ring schedules; the chunk is
+    lane-aligned."""
+    r = max(num_rings, 1)
+    chunk = align_edge(-(-n // (p * r * align)) * align if n else align,
+                       align=align)
+    chunk = max(chunk, align)
+    return chunk, p * r * chunk
+
+
+def effective_rings(nbytes: int, num_rings: int = 1,
+                    bucket_bytes: int | None = None, *,
+                    max_rings: int = 32) -> int:
+    """Compose the explicit ring count with byte-sized bucketing
+    (ceil(nbytes/bucket_bytes) schedules); the larger wins, capped at
+    ``max_rings``."""
+    r = max(num_rings, 1)
+    if bucket_bytes:
+        r = max(r, -(-int(nbytes) // int(bucket_bytes)))
+    return min(r, max_rings)
+
+
+def pack_padded(spec: FlatBuffer, tree: Any, total: int) -> torch.Tensor:
+    """``spec.pack`` zero-extended to a ring geometry's ``total`` length."""
+    return spec.pack(tree, total)
+
+
+def shard_size(spec: FlatBuffer, p: int = 1, num_rings: int = 1,
+               bucket_bytes: int | None = None) -> int:
+    """Per-device shard length (= optimizer-state length) for a spec."""
+    r = effective_rings(spec.nbytes, num_rings, bucket_bytes)
+    _, total = shard_geometry(spec.size, p, r)
+    return total // p

@@ -1,0 +1,98 @@
+"""Client ↔ device mapping: the paper's ``#clients`` knob.
+
+C = 1 is the pure-MPI mode (mpi-SGD): one communicator, gradients fully
+reduced every step. Slice 1 runs C = 1 in one process; C > 1 (mpi-ESGD,
+one replica per client) arrives with slice 3.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import InitVar, dataclass
+from typing import Any, Optional
+
+from repro_torch.core.comm import CollectivePolicy, filter_mirrors, resolve_policy
+
+#: the flat-field defaults SyncConfig ships — the base point the
+#: deprecation shim resolves non-default flat kwargs against
+_SYNC_BASE = CollectivePolicy(method="psum", num_rings=2)
+
+
+@dataclass(frozen=True)
+class SyncConfig:
+    """Production gradient-sync mode (``repro/core/hierarchy.py``).
+
+    The collective policy is ONE ``CollectivePolicy`` (``policy=`` in,
+    ``.policy`` out); the flat fields mirror it, and writing one that
+    changes the policy goes through the ``resolve_policy`` shim.
+    """
+
+    mode: str = "mpi_sgd"       # "mpi_sgd" | "mpi_esgd"
+    num_clients: int = 1        # C
+    esgd_alpha: float = 0.5
+    esgd_interval: int = 64
+    # -- flat mirrors of ``policy`` ----------------------------------------
+    allreduce_method: str = "psum"
+    num_rings: int = 2
+    # sharded fused step: pack grads into the persistent FlatBuffer, run
+    # the fused optimizer kernel on this device's shard, unpack
+    fused_update: bool = True
+    flat_exchange: bool = True
+    bucket_bytes: Optional[int] = None
+    wire_dtype: Optional[str] = None
+    fsdp: bool = False
+    overlap: bool = False
+    overlap_buckets: int = 4
+    # the policy the mirrors were backfilled from (never pass it yourself)
+    policy_src: Optional[CollectivePolicy] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    policy: InitVar[Optional[CollectivePolicy]] = None
+
+    def __post_init__(self, policy: Optional[CollectivePolicy]) -> None:
+        flat = {
+            "method": self.allreduce_method, "num_rings": self.num_rings,
+            "bucket_bytes": self.bucket_bytes, "wire_dtype": self.wire_dtype,
+            "overlap": self.overlap, "overlap_buckets": self.overlap_buckets,
+        }
+        flat = filter_mirrors(
+            flat, defaults={k: getattr(_SYNC_BASE, k) for k in flat},
+            prior=self.policy_src)
+        pol = resolve_policy(policy, flat, base=_SYNC_BASE,
+                             where="SyncConfig")
+        object.__setattr__(self, "policy", pol)
+        object.__setattr__(self, "policy_src", pol)
+        object.__setattr__(self, "allreduce_method", pol.method)
+        object.__setattr__(self, "num_rings", pol.num_rings)
+        object.__setattr__(self, "bucket_bytes", pol.bucket_bytes)
+        object.__setattr__(self, "wire_dtype", pol.wire_dtype)
+        object.__setattr__(self, "overlap", pol.overlap)
+        object.__setattr__(self, "overlap_buckets", pol.overlap_buckets)
+
+    def validate(self, mesh: None = None) -> None:
+        """Check the config before any step runs (``mesh=None``: the
+        single-process drivers; no mesh exists in the port yet)."""
+        if mesh is not None:
+            raise NotImplementedError("not yet ported: device meshes")
+        if self.mode not in ("mpi_sgd", "mpi_esgd"):
+            raise ValueError(f"lowerable modes are mpi_sgd/mpi_esgd, got {self.mode}")
+        self.policy.validate(where="SyncConfig")
+        if self.overlap:
+            if not self.fused_update:
+                raise ValueError(
+                    "overlap=True rides the fused flat path; set "
+                    "fused_update=True")
+            if self.mode != "mpi_sgd":
+                raise ValueError(
+                    f"overlap=True is the mpi_sgd (C=1) gradient leg, got "
+                    f"mode={self.mode!r}")
+            if self.fsdp:
+                raise ValueError(
+                    "overlap=True assumes replicated params; fsdp=True "
+                    "shards them — pick one")
+
+
+def clientize(params: Any, num_clients: int) -> Any:
+    """Give every client its own replica (C = 1: the params themselves)."""
+    if num_clients <= 1:
+        return params
+    raise NotImplementedError(
+        "slice 3: C > 1 replicas (mpi-ESGD) are not ported yet")

@@ -1,0 +1,158 @@
+"""SyncEngine: the strategy layer behind the lowerable sync modes.
+
+The step builder (``launch/train.py``) drives one interface and the choice
+of HOW a step syncs and updates is made once, here (``make_sync_engine``):
+
+  init_opt          optimizer-state layout (flat state buffer vs per-leaf
+                    pytree)
+  update            the sync+update leg (pack -> fused kernel -> unpack,
+                    vs per-leaf ``Optimizer.update``)
+  check_opt_layout  loud guard that the state factory and the step
+                    factory agreed on the layout
+
+Slice 1 ports the update leg of mpi-SGD; the elastic exchange (mpi-ESGD)
+and the backward-overlapped leg come with later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import comm as comm_lib, flatbuf
+from repro_torch.core.hierarchy import SyncConfig
+from repro_torch.optim.sgd import (
+    FLAT_STATE_STREAMS,
+    Optimizer,
+    flat_hp,
+    optstate_shard_init,
+    scatter_update_gather,
+)
+from repro_torch.tree import tree_leaves
+
+
+def flat_update_supported(optimizer: Optimizer, sync: SyncConfig,
+                          mesh=None) -> bool:
+    """Whether the packed fused-kernel update can replace per-leaf:
+    a lowerable optimizer (momentum SGD with f32 state, AdaGrad or AdamW)
+    and no ambient mesh."""
+    hyper = optimizer.hyper
+    if not (sync.fused_update and sync.mode in ("mpi_sgd", "mpi_esgd")
+            and mesh is None):
+        return False
+    name = hyper.get("name", "")
+    name = name[5:] if name.startswith("flat_") else name
+    if name == "sgd":
+        return (hyper.get("momentum", 0.0) > 0.0
+                and hyper.get("state_dtype") in (None, torch.float32))
+    return name in FLAT_STATE_STREAMS
+
+
+@dataclass(frozen=True)
+class SyncEngine:
+    """Per-leaf strategy (custom optimizers, SGD with a bf16 momentum)."""
+
+    optimizer: Optimizer
+    sync: SyncConfig
+    comm: comm_lib.Communicator = comm_lib.LOCAL
+    spec: Optional[flatbuf.FlatBuffer] = None
+
+    fused = False  # class attr, not a field: FlatEngine overrides
+
+    def init_opt(self, params: Any) -> Any:
+        return self.optimizer.init(params)
+
+    def update(self, grads: Any, opt_state: Any, params: Any):
+        return self.optimizer.update(grads, opt_state, params)
+
+    def check_opt_layout(self, opt_state: Any, num_clients: int = 1) -> None:
+        if isinstance(opt_state, torch.Tensor) or _is_flat_adamw_state(opt_state):
+            raise ValueError(
+                "per-leaf update got a flat fused state buffer — build the "
+                "train state and the step from the same SyncConfig, or set "
+                "SyncConfig.fused_update=False for both")
+
+
+def _is_flat_adamw_state(opt_state: Any) -> bool:
+    """The flat AdamW layout ({"mv": (2, n), "t": ()}) — distinct from the
+    per-leaf adamw pytree ({"m": tree, "v": tree, "t": ()})."""
+    return isinstance(opt_state, dict) and set(opt_state) == {"mv", "t"}
+
+
+@dataclass(frozen=True)
+class FlatEngine(SyncEngine):
+    """Flat-buffer strategy: the whole gradient pytree rides one packed
+    buffer and ONE fused kernel, with the optimizer-state streams stored
+    as flat buffers in the declared stream dtype."""
+
+    fused = True
+    # the step-invariant kernel hyperparameters, one f32 vector per device
+    _hp: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def _num_rings(self) -> int:
+        return self.comm.rings_for(self.spec.nbytes)
+
+    def init_opt(self, params: Any) -> Any:
+        device = tree_leaves(params)[0].device
+        return optstate_shard_init(self.optimizer.hyper, self.spec, 1,
+                                   self._num_rings(), device=device)
+
+    def update(self, grads: Any, opt_state: Any, params: Any):
+        device = tree_leaves(params)[0].device
+        hp = self._hp.get(device)
+        if hp is None:
+            hp = self._hp[device] = flat_hp(self.optimizer.hyper, device)
+        return scatter_update_gather(
+            self.spec, grads, params, opt_state,
+            hyper=self.optimizer.hyper, comm=self.comm, hp=hp)
+
+    def check_opt_layout(self, opt_state: Any, num_clients: int = 1) -> None:
+        if self.optimizer.hyper.get("name", "").endswith("adamw"):
+            if not _is_flat_adamw_state(opt_state):
+                raise ValueError(
+                    "fused adamw sync path expects the flat {'mv', 't'} "
+                    "state, but the train state carries a per-leaf opt "
+                    "state — build both from the same SyncConfig")
+            buf, streams = opt_state["mv"], 2
+        else:
+            if not isinstance(opt_state, torch.Tensor):
+                raise ValueError(
+                    "fused sync path expects the flat state buffer, but the "
+                    "train state carries a per-leaf opt state — build both "
+                    "from the same SyncConfig")
+            buf, streams = opt_state, 1
+        p = self.comm.resolve_size()
+        want = flatbuf.shard_size(self.spec, p, self.sync.num_rings,
+                                  self.sync.bucket_bytes)
+        per_client = buf.numel() // (streams * max(num_clients, 1))
+        if per_client != want:
+            raise ValueError(
+                f"fused state shard has {per_client} elements per stream "
+                f"but the {p}-way geometry needs {want} — state for a "
+                "sharded run comes from optim.sgd.optstate_shard_init("
+                "hyper, spec, p, ...)")
+
+
+def make_sync_engine(optimizer: Optimizer, sync: SyncConfig, mesh=None, *,
+                     comm: Optional[comm_lib.Communicator] = None,
+                     spec: Optional[flatbuf.FlatBuffer] = None,
+                     ) -> SyncEngine:
+    """Resolve the strategy for (optimizer, sync) once. ``spec`` (the
+    param-tree FlatBuffer, ``launch.train.grad_spec``) is required when
+    the flat leg engages."""
+    if mesh is not None:
+        raise NotImplementedError("not yet ported: device meshes")
+    if sync.mode != "mpi_sgd" or sync.num_clients > 1:
+        raise NotImplementedError(
+            f"not yet ported: mode={sync.mode!r} num_clients="
+            f"{sync.num_clients} (slice 1 is mpi_sgd with one client)")
+    if sync.overlap:
+        raise NotImplementedError("not yet ported: backward overlap")
+    if comm is None:
+        comm = comm_lib.from_sync(sync)
+    if flat_update_supported(optimizer, sync, mesh):
+        if spec is None:
+            raise ValueError("flat-update engine needs the FlatBuffer spec")
+        return FlatEngine(optimizer, sync, comm=comm, spec=spec)
+    return SyncEngine(optimizer, sync, comm=comm, spec=spec)

@@ -1,0 +1,67 @@
+"""Block composition: pre-norm dense transformer blocks and the layer stack.
+
+The layer params stay stacked — every leaf has a leading ``(L, …)`` dim —
+so the param tree, and with it the FlatBuffer layout, is the reference's
+(``repro/models/transformer.py``). A Python loop over ``L`` replaces
+``lax.scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import AttnSpec, init_attention, multi_head_attention
+from repro_torch.models.layers import ffn, init_ffn, rms_norm
+from repro_torch.tree import tree_map
+
+
+def attn_spec(cfg: ModelConfig, *, causal: bool = True,
+              prefix_len: int = 0) -> AttnSpec:
+    return AttnSpec(
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        qk_norm=cfg.qk_norm,
+        qkv_bias=cfg.qkv_bias,
+        sliding_window=cfg.sliding_window if causal else 0,
+        use_rope=cfg.use_rope,
+        rope_theta=cfg.rope_theta,
+        causal=causal,
+        prefix_len=prefix_len,
+    )
+
+
+def init_block(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
+    """Params of ``layers`` stacked dense blocks (leading dim ``layers``)."""
+    zeros = lambda: torch.zeros((layers, cfg.d_model), dtype=dtype, device=device)
+    return {
+        "attn_norm": zeros(),
+        "attn": init_attention(gen, cfg.d_model, attn_spec(cfg), dtype, device,
+                               layers),
+        "ffn_norm": zeros(),
+        "mlp": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device, layers),
+    }
+
+
+def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    spec = attn_spec(cfg, prefix_len=prefix_len)
+    h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
+    x = x + multi_head_attention(params["attn"], h, spec)
+    h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn(params["mlp"], h), aux
+
+
+def init_stack(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return init_block(gen, cfg, dtype, device, layers=cfg.num_layers)
+
+
+def apply_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        layer = tree_map(lambda a: a[i], stacked)
+        x, a = apply_block(layer, x, cfg, prefix_len=prefix_len)
+        aux = aux + a
+    return x, aux

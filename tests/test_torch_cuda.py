@@ -1,0 +1,140 @@
+"""Card-only checks of the port: each Triton kernel against its plain
+PyTorch version on the same CUDA tensors, and the reduced train step on
+the card against the same step on the CPU.
+
+These need a CUDA device and skip without one. This module imports no
+JAX, so on a machine without it run it with the repo's conftest off:
+
+  python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
+from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
+
+SIZES = (1, 127, 128, 4097, 70000)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16_within_one_ulp(got, want, atol=1e-7):
+    """Within 1 bf16 ulp beyond the f32 tolerance of the value before
+    rounding: FMA contraction in the kernel moves a result that cancels to
+    near zero by up to ``atol``, which can be many bf16 ulps of it."""
+    got, want = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    ulp = torch.clamp(ulp, min=2.0 ** -133)
+    assert bool(torch.all((got - want).abs() <= ulp + atol))
+
+
+def _inputs(n, device, state_dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda: torch.randn(n, generator=gen, device=device)
+    return r(), r(), (r().abs() * 0.01).to(state_dtype), (r() * 0.1).to(state_dtype)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_sgd_kernel_matches_plain(cuda, n):
+    p, g, _, v = _inputs(n, cuda, torch.float32, n)
+    hp = torch.tensor([0.1, 0.9], device=cuda)
+    before = fs.sgd_momentum_flat.launches
+    kp, kv = fs.sgd_momentum_flat(p, v, g, hp)
+    torch.cuda.synchronize()
+    assert fs.sgd_momentum_flat.launches == before + 1
+    rp, rv = fs.sgd_momentum_flat_plain(p, v, g, hp)
+    torch.testing.assert_close(kp, rp, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(kv, rv, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SIZES)
+def test_adagrad_kernel_matches_plain(cuda, n, state_dtype):
+    p, g, s, _ = _inputs(n, cuda, state_dtype, 10 + n)
+    hp = torch.tensor([0.01, 1e-10], device=cuda)
+    before = fo.adagrad_flat.launches
+    kp, ks = fo.adagrad_flat(p, s, g, hp)
+    torch.cuda.synchronize()
+    assert fo.adagrad_flat.launches == before + 1
+    rp, rs = fo.adagrad_flat_plain(p, s, g, hp)
+    torch.testing.assert_close(kp, rp, rtol=1e-5, atol=1e-7)
+    if state_dtype == torch.float32:
+        torch.testing.assert_close(ks, rs, rtol=1e-5, atol=1e-7)
+    else:
+        _bf16_within_one_ulp(ks, rs)
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SIZES)
+def test_adamw_kernel_matches_plain(cuda, n, state_dtype):
+    p, g, v, m = _inputs(n, cuda, state_dtype, 20 + n)
+    mv = torch.stack([m, v])
+    t = 3
+    c1, c2 = 1 - 0.9 ** t, 1 - 0.95 ** t
+    hp = torch.tensor([3e-3, 0.9, 0.95, 1e-8, 0.1, c1, c2], device=cuda)
+    before = fo.adamw_flat.launches
+    kp, kmv = fo.adamw_flat(p, mv, g, hp)
+    torch.cuda.synchronize()
+    assert fo.adamw_flat.launches == before + 1
+    rp, rmv = fo.adamw_flat_plain(p, mv, g, hp)
+    torch.testing.assert_close(kp, rp, rtol=1e-5, atol=1e-7)
+    if state_dtype == torch.float32:
+        torch.testing.assert_close(kmv, rmv, rtol=1e-5, atol=1e-7)
+    else:
+        _bf16_within_one_ulp(kmv, rmv)
+
+
+def test_wrappers_reject_bad_layouts(cuda):
+    p = torch.zeros(10, device=cuda)
+    hp = torch.zeros(2, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        fs.sgd_momentum_flat(p, torch.zeros(10), p, hp)
+    with pytest.raises(ValueError, match="shape"):
+        fs.sgd_momentum_flat(p, torch.zeros(11, device=cuda), p, hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.sgd_momentum_flat(p, torch.zeros(20, device=cuda)[::2], p, hp)
+    with pytest.raises(ValueError, match="rows|shape"):
+        fo.adamw_flat(p, torch.zeros(3, 10, device=cuda), p,
+                      torch.zeros(7, device=cuda))
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw", "adagrad"])
+def test_reduced_train_step_card_matches_cpu(cuda, optimizer):
+    """Three steps of the reduced model on the card (kernels) and on the
+    CPU (plain versions) from the same weights: f32, TF32 off."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.hierarchy import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import get_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    kw = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=3e-3, eps=1e-5),
+          "adagrad": dict(lr=1e-2, eps=1e-4)}[optimizer]
+    opt = get_optimizer(optimizer, **kw)
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=64, batch_size=8))
+    states, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        state = make_train_state(model, opt, SyncConfig(), device="cpu")
+        state = tree_map(lambda a: a.to(dev), state)
+        step = make_train_step(model, opt, SyncConfig(), device=dev)
+        losses[dev] = []
+        for i in range(3):
+            state, met = step(state, pipe.batch_at(0, i))
+            losses[dev].append(float(met["loss"]))
+        states[dev] = state
+    torch.testing.assert_close(torch.tensor(losses["cuda"]),
+                               torch.tensor(losses["cpu"]), rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(states["cuda"]["params"]),
+                    tree_leaves(states["cpu"]["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5)

@@ -1,0 +1,87 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the reference package, at run time or in their source,
+and the chip smoke refuses to report without a card."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+STEP = """
+import sys
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs.base import TrainSettings, get_config, reduced
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.launch.train import make_train_state, make_train_step
+from repro_torch.models.model import build_model
+from repro_torch import bridge, tree
+from repro_torch.checkpoint import checkpoint
+from repro_torch.core import comm, flatbuf, hierarchy, sync_engine
+from repro_torch.kernels import common
+from repro_torch.kernels.fused_optim import fused_optim
+from repro_torch.kernels.fused_sgd import fused_sgd
+from repro_torch.optim import sgd
+model = build_model(reduced(get_config("qwen2-0.5b")))
+s = TrainSettings(optimizer_name="adamw", lr=1e-3)
+state = make_train_state(model, s.optimizer(), s.sync_config(), device="cpu")
+step = make_train_step(model, s.optimizer(), s.sync_config(), device="cpu")
+batch = TokenPipeline(DataConfig(vocab_size=256, seq_len=16, batch_size=2)).batch_at(0, 0)
+state, met = step(state, batch)
+assert torch.isfinite(met["loss"])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "repro.")))
+print("BAD", bad)
+"""
+
+
+def test_port_runs_a_step_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", STEP], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _imports(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_or_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No CUDA device: non-zero exit and no result line. Alone in a
+    directory (no port beside it): the same."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    runs = [(ROOT, ROOT / "chip_smoke.py")]
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs.append((tmp_path, lone))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
