@@ -6,12 +6,12 @@
 Phases (any failure exits non-zero; no phase carries on past its own):
 
   1. device   require CUDA, print the card's name and power limit, TF32 off
-  2. kernels  build each Triton kernel of the main path from this
-              checkout (cache in build/), run it at the main path's shape
-              (the full-width qwen2-0.5b state shard, n = 494,147,584) and
-              hold it against its plain PyTorch version on the same
-              tensors; time kernel, plain version and a one-call PyTorch
-              yardstick the port never calls (torch._fused_*)
+  2. kernels  build each Triton kernel of the paths from this checkout
+              (cache in build/), run it at the shape its path gives it (the
+              full-width qwen2-0.5b buffers, n = 494,147,584 per device)
+              and hold it against its plain PyTorch version on the same
+              tensors; time kernel, plain version and, where one exists, a
+              one-call PyTorch yardstick the port never calls
   3. slice    a) the reduced model, 3 steps per optimizer on the card
                  against the same steps on the CPU (a small reference)
               b) full-width qwen2-0.5b in bf16, batch 8 x seq 512, through
@@ -20,12 +20,26 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  kernels' launch counts set to 0 just before and read just
                  after; step time, its breakdown, and peak memory
   4. ckpt     npz checkpoint round trip of the trained params
+  5. esgd     slice 2, mpi-ESGD and mpi-SGD across emulated devices:
+              a) the reduced model, 3 steps of the (2, 2) shard driver
+                 (mpi_esgd, int8 wire) and of the C = 2 multi-client step,
+                 card against CPU
+              b) full-width qwen2-0.5b in bf16, 6 momentum-SGD steps per
+                 run, each run's launch counts set to 0 just before it and
+                 read just after: the C = 2 multi-client train step; the
+                 (2, 2) shard driver (mpi_esgd, f32 wire, then int8); the
+                 p = 4 shard driver (mpi_sgd, int8 wire); step time, its
+                 split, peak memory, and the wire bytes the emulated hops
+                 counted against the cost model; after each run, the SGD
+                 kernel on that run's stacked param / momentum / grad
+                 shards held against its plain version
 
 Prints a ``kernels`` JSON line, the card line, and last the ok line.
 """
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -40,14 +54,20 @@ import torch  # noqa: E402
 # the port itself: fails here (exit 1) outside a checkout of the repo
 from repro_torch.checkpoint.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.base import TrainSettings, get_config, reduced  # noqa: E402
-from repro_torch.core import flatbuf  # noqa: E402
+from repro_torch.core import cost_model, flatbuf  # noqa: E402
+from repro_torch.core.collectives import WireMeter  # noqa: E402
+from repro_torch.core.comm import CollectivePolicy, sync_comms  # noqa: E402
+from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
 from repro_torch.core.sync_engine import make_sync_engine  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
+from repro_torch.launch import shard_driver as sd  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
-    grad_spec, make_grad_fn, make_train_state, make_train_step)
+    grad_spec, make_grad_fn, make_train_state, make_train_step, stacked_grads)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim.sgd import flat_hp, sgd as sgd_optimizer  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
@@ -77,6 +97,31 @@ KERNELS = {
 }
 OPT_KERNEL = {"sgd": "sgd_momentum_flat", "adamw": "adamw_flat",
               "adagrad": "adagrad_flat"}
+#: slice 2's kernels; ``rtol``/``atol`` hold the f32 outputs (FMA and
+#: f64-emulated FMA agree but for a rare double rounding), bf16 outputs
+#: are held to 1 bf16 ulp beyond ``atol``
+ELASTIC_KERNELS = {
+    "elastic_client_diff_flat": dict(
+        wrapper=fe.elastic_client_diff_flat, plain=fe.elastic_client_diff_flat_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:114",
+        rtol=1e-6, atol=1e-7),
+    "elastic_center_flat": dict(
+        wrapper=fe.elastic_center_flat, plain=fe.elastic_center_flat_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:131",
+        rtol=1e-6, atol=1e-7),
+    "elastic_exchange_flat_mc": dict(
+        wrapper=fe.elastic_exchange_flat_mc, plain=fe.elastic_exchange_flat_mc_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:151",
+        rtol=1e-6, atol=1e-7),
+}
+ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS}
+#: slice 2's full-width runs: 6 momentum-SGD steps each, global batch
+#: 8 x 512 (C = 2 clients of 4 x 512; 4 devices of 2 x 512)
+ESGD_STEPS = 6
+ESGD_LR = 0.1
 
 
 def log(msg: str) -> None:
@@ -84,12 +129,12 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
+    for k in ALL_KERNELS.values():
         k["wrapper"].launches = 0
 
 
-def counts() -> dict:
-    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+def counts(kernels=KERNELS) -> dict:
+    return {name: k["wrapper"].launches for name, k in kernels.items()}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -368,14 +413,407 @@ def phase_checkpoint(params) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (slice 2): the elastic kernels at the shapes their paths give them
+# ---------------------------------------------------------------------------
+
+def _elastic_inputs(name, spec, w_dtype, dev):
+    """The operands a main-path launch gets: the (2, 2) driver's stacked
+    (4, total) packed params and centers (client-diff), its (4, total/2)
+    center shards and reduce-scattered difference sums (center), the
+    C = 2 step's (2, size) packed replicas and (size,) center (mc)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    _, total = flatbuf.shard_geometry(spec.size, 2, 2)   # the pod group, R = 2
+    if name == "elastic_client_diff_flat":
+        w = randn(4, total)
+        c = (w + 0.01 * randn(4, total)).to(w_dtype)
+        return (w.to(w_dtype), c), torch.tensor(0.5 / 2, device=dev)
+    if name == "elastic_center_flat":
+        c = randn(4, total // 2).to(w_dtype)
+        return (c, 0.01 * randn(4, total // 2)), torch.tensor(0.5 / 2, device=dev)
+    w = randn(2, spec.size)
+    c = (w[0] + 0.01 * randn(spec.size)).to(w_dtype)
+    return (w.to(w_dtype), c), torch.tensor(0.5 / 2, device=dev)
+
+
+def _hold(got, want, rtol, atol, dtype) -> float:
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    else:
+        bf16_within_one_ulp(got, want, atol)
+    return float((got.float() - want.float()).abs().max())
+
+
+def _plain_rows(plain, args, alpha):
+    """The plain version over the stacked operands, one leading row per
+    call: its f64 fused-multiply-add temporaries for a whole (4, n)
+    buffer would not fit on the card beside the kernel's operands."""
+    if args[0].dim() == 1 or plain is fe.elastic_exchange_flat_mc_plain:
+        return plain(*args, alpha)
+    outs = [plain(*(a[i] for a in args), alpha) for i in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def phase_elastic_kernels(spec, dev) -> dict:
+    results = {}
+    for name, k in ELASTIC_KERNELS.items():
+        wrapper, plain = k["wrapper"], k["plain"]
+        for w_dtype in (torch.float32, torch.bfloat16):
+            args, alpha = _elastic_inputs(name, spec, w_dtype, dev)
+            t0 = time.perf_counter()
+            got = wrapper(*args, alpha)        # first call builds the kernel
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            want = _plain_rows(plain, args, alpha)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(_hold(g, w, k["rtol"], k["atol"], g.dtype)
+                      for g, w in zip(got, want))
+            moved = nbytes(*args) + nbytes(*got)
+            del got, want
+            ms = cuda_ms(lambda: wrapper(*args, alpha), reps=10)
+            plain_ms = cuda_ms(lambda: _plain_rows(plain, args, alpha),
+                               reps=2, warmup=1)
+            library_ms = None
+            if name == "elastic_center_flat":
+                a = float(alpha)
+                library_ms = cuda_ms(lambda: torch.add(args[0], args[1], alpha=a),
+                                     reps=10)
+            elems = args[0].numel()
+            flops = {"elastic_client_diff_flat": 3, "elastic_center_flat": 2,
+                     "elastic_exchange_flat_mc": 4}[name] * elems
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOPS_PER_S * 1e3
+            tag = "f32" if w_dtype == torch.float32 else "bf16"
+            log(f"[kernels] {name} w={tag} shape={tuple(args[0].shape)} first "
+                f"call {build_s:.2f} s (build + run) max_abs_err={err:.3e} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
+                f"bytes={moved} bound_ms={max(bytes_ms, ops_ms):.4f}")
+            if w_dtype == torch.float32:
+                results[name] = {
+                    "name": name, "route": "triton", "source": k["source"],
+                    "replaces": k["replaces"], "launches": None,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "library_ms": library_ms,
+                }
+            del args, alpha
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: slice 2 — mpi-ESGD and mpi-SGD across emulated devices
+# ---------------------------------------------------------------------------
+
+def _esgd_sync(mode, clients, wire):
+    return SyncConfig(mode=mode, num_clients=clients, esgd_interval=2,
+                      esgd_alpha=0.5,
+                      policy=CollectivePolicy(method="ring", num_rings=2,
+                                              wire_dtype=wire))
+
+
+def _close_trees(got, want, tol) -> None:
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), **tol)
+
+
+def phase_small_esgd(dev) -> None:
+    """Reduced model, f32: 3 steps of the (2, 2) shard driver (mpi_esgd,
+    int8 wire, interval 2) and of the C = 2 multi-client step on the card
+    against the same steps on the CPU, from the same weights. Over the
+    int8 wire a value next to a rounding boundary can take the
+    neighbouring code on one device and not the other (the card's and the
+    CPU's gradients differ in the last bits), so its params are held to
+    the reference's band for a quantized leg (rtol 1e-2, atol 2e-3); the
+    C = 2 step to rtol 1e-3 / atol 1e-5."""
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=64, batch_size=8))
+    opt = sgd_optimizer(0.1, momentum=0.9)
+    runs = {
+        "driver (2, 2) mpi_esgd int8": (
+            _esgd_sync("mpi_esgd", 2, "int8"),
+            lambda sync, d: sd.make_driver_state(model, opt, sync, (2, 2), device="cpu"),
+            lambda sync, d: sd.make_emulated_step(model, opt, sync, (2, 2)),
+            lambda b: sd.shard_batch(b, (2, 2)), dict(rtol=1e-2, atol=2e-3)),
+        "train C=2 mpi_esgd": (
+            _esgd_sync("mpi_esgd", 2, None),
+            lambda sync, d: make_train_state(model, opt, sync, device="cpu"),
+            lambda sync, d: make_train_step(model, opt, sync, device=d),
+            lambda b: sd.shard_batch(b, 2), dict(rtol=1e-3, atol=1e-5)),
+    }
+    for label, (sync, init, mk_step, split, tol) in runs.items():
+        out = []
+        for d in ("cpu", dev):
+            state = tree_map(lambda a: a.to(d), init(sync, d))
+            step = mk_step(sync, d)
+            losses = []
+            for i in range(3):
+                state, met = step(state, split(pipe.batch_at(0, i)))
+                losses.append(float(met["loss"]))
+            out.append((losses, state))
+        (cl, cs), (gl, gs) = out
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl),
+                                   rtol=1e-4, atol=0)
+        for key in ("params", "center"):
+            _close_trees(gs[key], cs[key], tol)
+        log(f"[esgd:small] {label}: card {gl} == cpu {cl} (rtol 1e-4); "
+            f"params and center within {tol}")
+
+
+def _wire_per_step(spec, sync, p) -> tuple[float, float]:
+    """(every step's grad + param leg bytes, an exchange step's extra
+    elastic leg bytes) per device, from the cost model."""
+    world = sd.driver_world(sync, p)
+    grad_comm, ex_comm = sync_comms(sync, world)
+    wire = grad_comm.wire
+    gp = grad_comm.static_size
+    _, gtotal = flatbuf.shard_geometry(spec.size, gp, grad_comm.rings_for(spec.nbytes))
+    legs = (cost_model.grad_leg_bytes(gtotal * 4, gp, wire)
+            + cost_model.param_leg_bytes(gtotal * 4, gp, wire))
+    exch = 0.0
+    if ex_comm is not None:
+        ep = ex_comm.static_size
+        _, etotal = flatbuf.shard_geometry(spec.size, ep, ex_comm.rings_for(spec.nbytes))
+        exch = cost_model.elastic_leg_bytes(etotal * 4, ep, wire)
+    return legs, exch
+
+
+def _hold_stacked_sgd(label, p, v, g, hp) -> float:
+    """``sgd_momentum_flat`` on the stacked operands a run's update hands
+    it (flattened, as the path launches it) against its plain version,
+    row by row (one row per emulated device or client: the plain
+    version's f32 temporaries for the whole buffer would not fit beside
+    the run's state), at phase 2's tolerances."""
+    k = KERNELS["sgd_momentum_flat"]
+    rows, n = math.prod(p.shape[:-1]), p.shape[-1]
+    new_p, new_v = fs.sgd_momentum_flat(p.reshape(-1), v.reshape(-1),
+                                        g.reshape(-1), hp)
+    err = 0.0
+    for i in range(rows):
+        want = fs.sgd_momentum_flat_plain(p.reshape(rows, n)[i], v.reshape(rows, n)[i],
+                                          g.reshape(rows, n)[i], hp)
+        for got, w in zip((new_p.view(rows, n)[i], new_v.view(rows, n)[i]), want):
+            torch.testing.assert_close(got, w, rtol=k["rtol"], atol=k["atol"])
+            err = max(err, float((got.float() - w.float()).abs().max()))
+    log(f"[esgd] {label}: sgd_momentum_flat on the stacked {tuple(p.shape)} "
+        f"{p.dtype} shard == plain, row by row (rtol {k['rtol']}, atol "
+        f"{k['atol']}): max_abs_err={err:.3e}")
+    return err
+
+
+def _driver_split(model, opt, sync, p, state, shard, spec, label) -> dict:
+    """One driver step's pieces, each timed alone: forward + backward of
+    every device, the gradient leg's collectives (reduce-scatter +
+    allgather), the fused update kernel on the stacked shard, and the
+    whole elastic exchange (packs, kernels, its collectives)."""
+    shape, _ = sd._factorize(p)
+    world = sd.driver_world(sync, p)
+    grad_comm, _ = sync_comms(sync, world)
+    to_world = lambda t: t.reshape(shape + tuple(t.shape[1:]))
+    params = tree_map(to_world, state["params"])
+    wbatch = {k: to_world(v.to(state["step"].device)) for k, v in shard.items()}
+    grad_fn = make_grad_fn(model)
+    out = {"grad_ms": cuda_ms(lambda: stacked_grads(grad_fn, params, wbatch,
+                                                    len(shape)), reps=2, warmup=1)}
+    _, _, grads = stacked_grads(grad_fn, params, wbatch, len(shape))
+    nr = grad_comm.rings_for(spec.nbytes)
+    _, total = flatbuf.shard_geometry(spec.size, grad_comm.static_size, nr)
+    g_buf = flatbuf.pack_padded(spec, grads, total)
+    del grads
+    if grad_comm.static_size > 1:
+        out["collectives_ms"] = cuda_ms(
+            lambda: grad_comm.allgather(grad_comm.reduce_scatter(g_buf, num_rings=nr),
+                                        num_rings=nr), reps=2, warmup=1)
+        g_shard = grad_comm.reduce_scatter(g_buf, num_rings=nr)
+    else:
+        out["collectives_ms"] = 0.0
+        g_shard = g_buf
+    del g_buf
+    p_shard = flatbuf.pack_padded(spec, params, total)
+    if grad_comm.static_size > 1:
+        p_shard = grad_comm.shard_select(p_shard, num_rings=nr)
+    mom = to_world(state["opt"])
+    hp = flat_hp(opt.hyper, g_shard.device)
+    out["sgd_max_abs_err"] = _hold_stacked_sgd(label, p_shard, mom, g_shard, hp)
+    out["kernel_ms"] = cuda_ms(lambda: fs.sgd_momentum_flat(
+        p_shard.reshape(-1), mom.reshape(-1), g_shard.reshape(-1), hp), reps=5)
+    del g_shard, p_shard
+    _, dev_ex = sd.make_device_step(model, opt, sync, world=world)
+    if dev_ex is not None:
+        wstate = tree_map(to_world, state)
+        out["exchange_ms"] = cuda_ms(lambda: dev_ex(wstate), reps=2, warmup=1)
+    else:
+        out["exchange_ms"] = 0.0
+    return out
+
+
+def _train_split(model, opt, sync, state, batch, spec, label) -> dict:
+    """The C = 2 step's pieces, each timed alone: forward + backward of
+    both clients, the update leg (packs + ONE kernel over both clients +
+    unpack), the update kernel alone, and the flat exchange."""
+    engine = make_sync_engine(opt, sync, spec=spec)
+    grad_fn = make_grad_fn(model)
+    out = {"grad_ms": cuda_ms(lambda: stacked_grads(grad_fn, state["params"], batch),
+                              reps=2, warmup=1)}
+    _, _, grads = stacked_grads(grad_fn, state["params"], batch)
+    out["update_leg_ms"] = cuda_ms(lambda: engine.update(grads, state["opt"],
+                                                         state["params"]), reps=3, warmup=1)
+    g, w = spec.pack(grads), spec.pack(state["params"])
+    hp = flat_hp(opt.hyper, g.device)
+    out["sgd_max_abs_err"] = _hold_stacked_sgd(label, w, state["opt"], g, hp)
+    out["kernel_ms"] = cuda_ms(lambda: fs.sgd_momentum_flat(
+        w.reshape(-1), state["opt"].reshape(-1), g.reshape(-1), hp), reps=5)
+    del g, w, grads
+    out["collectives_ms"] = 0.0
+    out["exchange_ms"] = cuda_ms(lambda: engine.exchange_multiclient(
+        state["params"], state["center"], sync.esgd_alpha / sync.num_clients),
+        reps=3, warmup=1)
+    return out
+
+
+def _device_busy(step, state, batch) -> tuple:
+    """One more step under ``torch.profiler``: (device busy share, device
+    ms summed over the kernels and copies on the card, wall ms with the
+    profiler on), or Nones when the trace shows no device time. The
+    share is of the profiled wall clock, which the profiler lengthens."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an op's own row repeats its kernels' time
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy_ms:
+        return None, None, wall_ms
+    return busy_ms / wall_ms, busy_ms, wall_ms
+
+
+def _check_launches(label, got, want) -> None:
+    for name, c in got.items():
+        if c != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {c} times in "
+                                 f"{ESGD_STEPS} steps, want {want.get(name, 0)}")
+
+
+def phase_esgd(dev) -> tuple[dict, dict]:
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    spec = grad_spec(model)
+    opt = sgd_optimizer(ESGD_LR, momentum=0.9)
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512,
+                                    batch_size=8), device=dev)
+    batches = [pipe.batch_at(0, i) for i in range(ESGD_STEPS)]
+    half = ESGD_STEPS // 2    # exchanges at steps 0, 2, 4 (interval 2)
+    runs = [
+        ("train C=2 mpi_esgd", "train", _esgd_sync("mpi_esgd", 2, None), 2,
+         {"elastic_exchange_flat_mc": half, "sgd_momentum_flat": ESGD_STEPS}),
+        ("driver (2, 2) mpi_esgd f32", "driver", _esgd_sync("mpi_esgd", 2, None), (2, 2),
+         {"elastic_client_diff_flat": half, "elastic_center_flat": half,
+          "sgd_momentum_flat": ESGD_STEPS}),
+        ("driver (2, 2) mpi_esgd int8", "driver", _esgd_sync("mpi_esgd", 2, "int8"), (2, 2),
+         {"elastic_client_diff_flat": half, "elastic_center_flat": half,
+          "sgd_momentum_flat": ESGD_STEPS}),
+        ("driver p=4 mpi_sgd int8", "driver", _esgd_sync("mpi_sgd", 1, "int8"), 4,
+         {"sgd_momentum_flat": ESGD_STEPS}),
+    ]
+    log(f"[esgd] full-width {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+        f"{cfg.dtype}; FlatBuffer size={spec.size}; global batch 8 x 512 "
+        f"(C=2: 4 x 512 per client; 4 devices: 2 x 512 per device); "
+        f"momentum SGD lr {ESGD_LR}, alpha 0.5, interval 2, {ESGD_STEPS} steps")
+    launches, report = {}, {}
+    for label, kind, sync, p, want in runs:
+        meter = WireMeter()
+        if kind == "train":
+            state = make_train_state(model, opt, sync, device=dev)
+            step = make_train_step(model, opt, sync, device=dev)
+            split = lambda b: sd.shard_batch(b, 2)
+            legs, exch = 0.0, 0.0    # one process, local geometry: no wire
+        else:
+            state = sd.make_driver_state(model, opt, sync, p, device=dev)
+            step = sd.make_emulated_step(model, opt, sync, p, meter=meter)
+            split = lambda b, p=p: sd.shard_batch(b, p)
+            legs, exch = _wire_per_step(spec, sync, p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, wire = [], [], []
+        reset_counts()
+        for i, batch in enumerate(batches):
+            meter.reset()
+            t0 = time.perf_counter()
+            state, met = step(state, split(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            wire.append(meter.bytes)
+            want_bytes = legs + (exch if i % 2 == 0 else 0.0)
+            if meter.bytes != want_bytes:
+                raise AssertionError(f"{label} step {i}: {meter.bytes} wire "
+                                     f"bytes counted, cost model {want_bytes}")
+        got = counts(ALL_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(label, got, want)
+        if not all(x == x and abs(x) != float("inf") for x in losses):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: loss did not fall {losses}")
+        for name, c in want.items():
+            launches.setdefault(name, c)
+        if kind == "train":
+            br = _train_split(model, opt, sync, state, split(batches[0]), spec, label)
+        else:
+            br = _driver_split(model, opt, sync, p, state, split(batches[0]), spec, label)
+        # an exchange step (the state's step count is even)
+        share, busy_ms, wall_ms = _device_busy(step, state, split(batches[0]))
+        br.update(device_busy_share=share, device_busy_ms=busy_ms,
+                  profiled_step_ms=wall_ms)
+        steady = step_ms[1:]
+        report[label] = {"losses": losses, "step_ms": step_ms,
+                         "steady_step_ms": sum(steady) / len(steady),
+                         "peak_mem_bytes": peak, "wire_bytes_per_step": wire,
+                         "launches": {k: v for k, v in got.items() if v}, **br}
+        log(f"[esgd] {label}: losses {[round(x, 4) for x in losses]} step_ms "
+            f"{[round(x, 2) for x in step_ms]} peak_mem {peak / 2**30:.2f} GiB "
+            f"launches {report[label]['launches']} wire bytes/step {wire} "
+            f"(cost model: {legs:.0f} + {exch:.0f} on exchange steps)")
+        log(f"[esgd] {label} split: fwd+bwd {br['grad_ms']:.2f} ms, collectives "
+            f"(RS + AG) {br['collectives_ms']:.2f} ms, update kernel "
+            f"{br['kernel_ms']:.3f} ms, exchange {br['exchange_ms']:.2f} ms; "
+            f"profiled exchange step {wall_ms:.1f} ms, device busy "
+            f"{busy_ms} ms (share {share})")
+        del state, step
+        torch.cuda.empty_cache()
+    log("[esgd] " + json.dumps({"esgd": report}))
+    return launches, report
+
+
 def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
-    n = flatbuf.shard_size(grad_spec(build_model(get_config("qwen2-0.5b"))), 1, 2)
+    spec = grad_spec(build_model(get_config("qwen2-0.5b")))
+    n = flatbuf.shard_size(spec, 1, 2)
     kernels = phase_kernels(n, dev)
+    kernels.update(phase_elastic_kernels(spec, dev))
     phase_small_reference(dev)
     launches, _, params = phase_slice(dev)
     phase_checkpoint(params)
+    del params
+    torch.cuda.empty_cache()
+    phase_small_esgd(dev)
+    esgd_launches, report = phase_esgd(dev)
+    for name, c in esgd_launches.items():
+        launches.setdefault(name, c)
+    sgd_row = kernels["sgd_momentum_flat"]    # worst hold: phase 2 or a run's shards
+    sgd_row["max_abs_err"] = max([sgd_row["max_abs_err"]]
+                                 + [r["sgd_max_abs_err"] for r in report.values()])
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -1,37 +1,56 @@
-"""Communicator: the paper's MPI-groups-in-KVStore model as an object.
+"""Communicator: the paper's MPI-groups-in-KVStore model as an object
+(``repro/core/comm.py``).
 
-Slice 1 carries the trivial group only: ``LOCAL`` (MPI_COMM_SELF, size 1),
-whose collectives are the identity, plus the one ``CollectivePolicy``
-value every config layer carries (``repro/core/comm.py``). A group of
-size > 1 raises: its ring collectives arrive with slice 2, and returning
-an unreduced buffer in their place would be silently wrong.
+A ``Communicator`` owns its **group** (a tuple of named device axes; ``()``
+is the trivial size-1 group, MPI_COMM_SELF) and its **collective policy**
+(bucket algorithm, ring count, byte bucketing, the bf16/int8 wire).
+``Communicator.world(axes, sizes)`` builds the top-level group and
+``split``/``complement``/``local`` carve sub-groups the way
+``MPI_Comm_split`` carves the paper's groups: ``split("data")`` is the
+intra-pod gradient group, ``split("pod")`` the cross-pod PS tier. Every
+carve inherits the policy.
+
+**Backend: single-process emulation.** The reference runs one program per
+device under ``shard_map`` or nested ``jax.vmap``; here one program runs
+the whole emulated world on stacked tensors (``core/collectives.py``).
+``frame`` is the world's axes: every per-device value this group touches
+is a tensor whose leading ``len(frame)`` dims are the world's device
+axes, in that order (pod-major), so a sub-group's collective runs along
+its own axes' dims and batches over the rest. The world of a trivial
+group has no frame, and its values are plain per-device tensors.
+
+Multi-axis groups compose collectives hierarchically: a reduce-scatter
+over ``("pod", "data")`` reduce-scatters over ``pod`` first, then over
+``data`` on the shard — (p−1)/p·n wire bytes in all, the single-axis
+geometry. A ``WireMeter`` on the world (``meter=``) counts the bytes
+every ring hop puts on the wire; carved groups share it.
+
+Not ported yet, and raising ``NotImplementedError`` naming their slice:
+``resized`` (elastic membership), the schedule-bucketed legs of backward
+overlap, and the tensor (pytree) collectives of the PS tier. A real
+multi-GPU backend (``torch.distributed``) is queued in ROADMAP.
 """
 from __future__ import annotations
 
+import math
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
-from repro_torch.core import flatbuf
+import torch
 
-#: the collective methods and wire dtypes of the reference
-#: (``repro/core/collectives.py``)
-METHODS = ("ring", "multi_ring", "tree", "psum", "per_leaf", "scatter_gather")
-WIRE_DTYPES = (None, "f32", "bf16", "int8")
-RING_METHODS = ("ring", "multi_ring", "scatter_gather")
+from repro_torch.core import collectives as C, flatbuf
+from repro_torch.core.collectives import (  # noqa: F401 (re-exported)
+    METHODS,
+    RING_METHODS,
+    WIRE_DTYPES,
+    WireMeter,
+    check_wire_dtype,
+)
 
 #: the policy knob names, in canonical order
 _POLICY_FIELDS = ("method", "num_rings", "bucket_bytes", "wire_dtype",
                   "overlap", "overlap_buckets")
-
-
-def check_wire_dtype(wire_dtype, *, where: str) -> "str | None":
-    """Validate + normalize a wire dtype ("f32" -> None)."""
-    if wire_dtype not in WIRE_DTYPES:
-        raise ValueError(
-            f"{where}: wire_dtype must be one of {WIRE_DTYPES}, "
-            f"got {wire_dtype!r}")
-    return None if wire_dtype == "f32" else wire_dtype
 
 
 @dataclass(frozen=True)
@@ -149,32 +168,64 @@ def resolve_policy(policy: Optional[CollectivePolicy], flat: dict, *,
 
 @dataclass(frozen=True)
 class Communicator:
-    """One MPI-style group + its collective policy. Slice 1: the trivial
-    group only (``axes == ()``)."""
+    """One MPI-style group + its collective policy, over an emulated
+    world whose axes are ``frame`` (see the module docstring).
+
+    ``axes`` are the named axes the group spans (order = hierarchy order
+    for nested collectives: ``axes[0]`` is the outermost level) and
+    ``sizes`` their static sizes."""
 
     axes: tuple[str, ...] = ()
-    sizes: Optional[tuple[int, ...]] = ()
+    sizes: tuple[int, ...] = ()
     policy: CollectivePolicy = CollectivePolicy()
+    frame: tuple[str, ...] = ()
+    meter: Optional[WireMeter] = field(default=None, compare=False)
 
-    def __post_init__(self) -> None:
-        if self.axes:
-            raise NotImplementedError(
-                f"slice 2: a communicator over axes {self.axes} needs the "
-                "ring collectives, which are not ported yet")
-
+    # -- construction -------------------------------------------------------
     @classmethod
     def world(cls, axes=(), sizes=None, *,
-              policy: Optional[CollectivePolicy] = None) -> "Communicator":
-        """The top-level group; only the trivial (no-axis) world exists
-        in this slice."""
-        return cls(axes=tuple(axes), sizes=(), policy=policy or CollectivePolicy())
+              policy: Optional[CollectivePolicy] = None,
+              meter: Optional[WireMeter] = None, **flat) -> "Communicator":
+        """The top-level group over emulated axes of static ``sizes``;
+        the policy rides ``policy=`` (flat knobs shim through
+        ``resolve_policy``)."""
+        axes = tuple(axes)
+        if axes and sizes is None:
+            raise ValueError(
+                f"Communicator.world({axes}) needs static sizes: the port "
+                "emulates the world in one process")
+        sizes = tuple(int(s) for s in (sizes or ()))
+        if len(sizes) != len(axes):
+            raise ValueError(f"{len(axes)} axes but {len(sizes)} sizes")
+        pol = resolve_policy(policy, flat, where="Communicator.world")
+        return cls(axes=axes, sizes=sizes, policy=pol, frame=axes,
+                   meter=meter)
 
-    def resolve_size(self) -> int:
-        return 1
+    def split(self, *axes: str) -> "Communicator":
+        """The sub-communicator spanning ``axes`` (``MPI_Comm_split``:
+        the implicit color is each device's rank along every other axis).
+        Policy, frame and meter are inherited."""
+        unknown = [a for a in axes if a not in self.axes]
+        if unknown:
+            raise ValueError(
+                f"cannot split {unknown} out of communicator over "
+                f"{self.axes}; valid axes: {self.axes}")
+        keep = tuple(a for a in self.axes if a in axes)
+        sizes = tuple(s for a, s in zip(self.axes, self.sizes) if a in axes)
+        return replace(self, axes=keep, sizes=sizes)
+
+    def complement(self, *axes: str) -> "Communicator":
+        """The sub-communicator over every axis NOT named."""
+        return self.split(*(a for a in self.axes if a not in axes))
 
     def local(self) -> "Communicator":
         """The trivial (size-1, MPI_COMM_SELF) group with this policy."""
         return replace(self, axes=(), sizes=())
+
+    def resized(self, size: int, axis: Optional[str] = None) -> "Communicator":
+        raise NotImplementedError(
+            "not yet ported: Communicator.resized belongs to the elastic "
+            "membership slice (core/membership.py)")
 
     def with_policy(self, policy: Optional[CollectivePolicy] = None,
                     **kw) -> "Communicator":
@@ -187,17 +238,179 @@ class Communicator:
             return replace(self, policy=policy)
         return replace(self, policy=self.policy.replace(**kw))
 
+    # -- geometry -----------------------------------------------------------
+    @property
+    def is_trivial(self) -> bool:
+        return not self.axes
+
+    @property
+    def static_size(self) -> int:
+        return math.prod(self.sizes)
+
+    def resolve_size(self) -> int:
+        return self.static_size
+
+    @property
+    def wire(self) -> Optional[str]:
+        """Normalized wire dtype (None for the full-precision "f32")."""
+        return check_wire_dtype(self.policy.wire_dtype, where="Communicator")
+
+    def _require_plain_wire(self, what: str) -> None:
+        if self.wire is not None:
+            raise ValueError(
+                f"wire_dtype={self.policy.wire_dtype!r} only rides the "
+                f"explicit ring hops (methods {RING_METHODS}), but this "
+                f"group dispatches {what}")
+
     def rings_for(self, nbytes: int) -> int:
         """The policy's effective ring count for an ``nbytes`` buffer."""
         return flatbuf.effective_rings(nbytes, self.policy.num_rings,
                                        self.policy.bucket_bytes)
+
+    def shard_geometry(self, n: int, num_rings: Optional[int] = None,
+                       *, itemsize: int = 4) -> tuple[int, int]:
+        """(per-device shard length, padded total) for a length-``n``
+        buffer sharded over the whole group under the full ring policy."""
+        p = self.resolve_size()
+        nr = self.rings_for(n * itemsize) if num_rings is None else num_rings
+        _, total = flatbuf.shard_geometry(n, p, nr)
+        return total // p, total
+
+    def _dim(self, axis: str) -> int:
+        return self.frame.index(axis)
+
+    def _flat(self, x: torch.Tensor) -> torch.Tensor:
+        """A stacked per-device value as ``(*world, payload)``."""
+        return x.reshape(tuple(x.shape[:len(self.frame)]) + (-1,))
+
+    def _nbytes(self, x: torch.Tensor) -> int:
+        """One device's bytes of the stacked value ``x``."""
+        return math.prod(x.shape[len(self.frame):]) * x.element_size()
+
+    # -- collectives over stacked per-device values --------------------------
+    def allreduce(self, x: torch.Tensor, *, mean: bool = False) -> torch.Tensor:
+        """Policy-dispatched allreduce (sum) over the whole group.
+        Multi-axis ring-family groups and every quantized wire run the
+        hierarchical reduce-scatter + allgather composition; ``tree``
+        reduces one axis at a time."""
+        out = x
+        if not self.axes:
+            pass
+        elif self.policy.method == "psum":
+            self._require_plain_wire("a native psum")
+            dims = tuple(self._dim(a) for a in self.axes)
+            out = x.sum(dims, keepdim=True).expand(x.shape).clone()
+        elif self.policy.method == "tree" or (
+                len(self.axes) == 1 and self.wire is None):
+            if self.policy.method == "tree":
+                self._require_plain_wire("full-buffer binomial-tree hops")
+            nr = self.rings_for(self._nbytes(x))
+            flat = self._flat(x)
+            for a in self.axes:
+                flat = C.allreduce(flat, self._dim(a), self.policy.method,
+                                   num_rings=nr, meter=self.meter)
+            out = flat.reshape(x.shape)
+        else:
+            if self.policy.method == "per_leaf":
+                self._require_plain_wire("the per-leaf baseline")
+            flat = self._flat(x)
+            n = flat.shape[-1]
+            nr = self.rings_for(self._nbytes(x))
+            _, total = flatbuf.shard_geometry(n, self.resolve_size(), nr)
+            shard = self.reduce_scatter(C._pad_to(flat, total), num_rings=nr)
+            full = self.allgather(shard, num_rings=nr)[..., :n]
+            out = full.reshape(x.shape).to(x.dtype)
+        if mean:
+            out = out / self.resolve_size()
+        return out
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the group (metrics leg), replicated to every member:
+        cheap scalar traffic, not part of any byte-accounted leg."""
+        if self.is_trivial:
+            return x
+        dims = tuple(self._dim(a) for a in self.axes)
+        return x.mean(dims, keepdim=True).expand(x.shape)
+
+    def reduce_scatter(self, buf: torch.Tensor, *,
+                       num_rings: Optional[int] = None) -> torch.Tensor:
+        """Hierarchical ring reduce-scatter of a stacked flat buffer:
+        level k reduce-scatters level k-1's shard over ``axes[k]``. The
+        final shard is 1/(prod sizes) of the padded buffer; the default
+        ring count resolves from the whole buffer's bytes."""
+        out = self._flat(buf)
+        nr = self.rings_for(self._nbytes(out)) if num_rings is None else num_rings
+        for a in self.axes:
+            out = C.ring_reduce_scatter(out, self._dim(a), num_rings=nr,
+                                        wire_dtype=self.wire, meter=self.meter)
+        return out
+
+    def allgather(self, shard: torch.Tensor, *,
+                  num_rings: Optional[int] = None) -> torch.Tensor:
+        """Inverse of ``reduce_scatter``: gather level by level, innermost
+        axis first. The default ring count resolves from the gathered
+        buffer's bytes."""
+        out = self._flat(shard)
+        nr = (self.rings_for(self._nbytes(out) * self.resolve_size())
+              if num_rings is None else num_rings)
+        for a in reversed(self.axes):
+            out = C.ring_allgather(out, self._dim(a), num_rings=nr,
+                                   wire_dtype=self.wire, meter=self.meter)
+        return out
+
+    def shard_select(self, buf: torch.Tensor, *,
+                     num_rings: Optional[int] = None) -> torch.Tensor:
+        """Each device's shard of a *replicated* stacked flat buffer —
+        the slice ``reduce_scatter`` with the same geometry leaves there."""
+        out = self._flat(buf)
+        nr = self.rings_for(self._nbytes(out)) if num_rings is None else num_rings
+        for a in self.axes:
+            out = C.shard_select(out, self._dim(a), num_rings=nr)
+        return out
+
+    # -- later slices --------------------------------------------------------
+    def reduce_scatter_bucket(self, *args, **kw):
+        raise NotImplementedError(
+            "not yet ported: schedule-bucketed legs (backward overlap)")
+
+    allgather_sched = shard_select_sched = reduce_scatter_bucket
+
+    def tensor_allreduce(self, *args, **kw):
+        raise NotImplementedError(
+            "not yet ported: tensor (pytree) collectives belong to the "
+            "PS-tier slice")
+
+    pushpull = emulate_reduce = tensor_allreduce
 
 
 #: module-level trivial group (MPI_COMM_SELF with the default policy)
 LOCAL = Communicator()
 
 
-def from_sync(sync, axes=()) -> Communicator:
-    """Build the gradient group from a ``SyncConfig`` recipe: its resolved
+def from_sync(sync, axes=(), sizes=None, *,
+              meter: Optional[WireMeter] = None) -> Communicator:
+    """Build a communicator from a ``SyncConfig`` recipe: its resolved
     ``CollectivePolicy`` becomes the group's policy verbatim."""
-    return Communicator.world(axes, policy=sync.policy)
+    return Communicator.world(axes, sizes, policy=sync.policy, meter=meter)
+
+
+def sync_comms(sync, world: Communicator
+               ) -> tuple[Communicator, Optional[Communicator]]:
+    """A SyncConfig's (gradient group, exchange group) over a world — the
+    paper's mode table as group algebra:
+
+      mpi_sgd   one communicator spanning every axis (C = 1 pure-MPI
+                mode); no exchange
+      mpi_esgd  the 'pod' axis is the PS tier: the gradient group is
+                everything BUT 'pod', the exchange group IS 'pod'. A world
+                without a 'pod' axis maps device == client: the whole
+                world is the exchange group, the gradient group trivial.
+    """
+    if sync.mode == "mpi_sgd":
+        return world, None
+    if sync.mode != "mpi_esgd":
+        raise ValueError(f"lowerable modes are mpi_sgd/mpi_esgd, "
+                         f"got {sync.mode!r}")
+    if "pod" in world.axes:
+        return world.complement("pod"), world.split("pod")
+    return world.local(), world

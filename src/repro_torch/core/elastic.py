@@ -1,0 +1,139 @@
+"""Elastic Averaging SGD (paper §2.2, eqs. (2)/(3); ``repro/core/elastic.py``).
+
+The PS stores *center variables* w̃. Every INTERVAL iterations a client
+exchanges with the PS:
+
+    server (Elastic1):  w̃ ← w̃ + α (w − w̃)        eq. (2)
+    client (Elastic2):  w  ← w  − α (w − w̃_old)    eq. (3)
+
+Both use the same pre-update difference (w − w̃).
+
+Two substrates implement the exchange:
+
+  per-leaf  a ``tree_map`` of the f32 update over every leaf — the
+            readable reference
+  flat      the whole pytree packed through ``core.flatbuf`` and ONE fused
+            kernel pass (``elastic_exchange_multiclient_flat``), and the
+            sharded cross-pod leg (``elastic_exchange_sharded``) that ring
+            reduce-scatters the packed differences, so the exchange waits
+            on (p−1)/p·n bytes instead of an allreduce's 2·(p−1)/p·n
+
+The packed one-shot forms of the PS tier (``elastic_exchange_packed``,
+``elastic_client_packed``, ``elastic_server_packed``, ``wire_packed``,
+``scale_packed``) come with that slice and its kernels.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import comm as comm_lib, flatbuf
+from repro_torch.kernels.fused_elastic.fused_elastic import (
+    elastic_center_flat,
+    elastic_client_diff_flat,
+    elastic_exchange_flat_mc,
+)
+from repro_torch.tree import tree_map
+
+
+def _alpha(alpha, device) -> torch.Tensor:
+    """α as the one f32 device value the kernels read (rounded from the
+    Python float once, as the reference's ``jnp.asarray(α, f32)``)."""
+    return torch.tensor(float(alpha), dtype=torch.float32, device=device)
+
+
+def elastic_server_update(center: Any, client_params: Any, alpha: float) -> Any:
+    """Eq. (2): move the center toward the client's params."""
+    return tree_map(
+        lambda c, w: (c.float() + alpha * (w.float() - c.float())).to(c.dtype),
+        center, client_params)
+
+
+def elastic_client_update(params: Any, center: Any, alpha: float) -> Any:
+    """Eq. (3): pull the client's params toward the (old) center."""
+    return tree_map(
+        lambda w, c: (w.float() - alpha * (w.float() - c.float())).to(w.dtype),
+        params, center)
+
+
+def elastic_exchange(params: Any, center: Any, alpha: float) -> tuple[Any, Any]:
+    """One full exchange: both updates computed from the same (w − w̃)."""
+    new_center = elastic_server_update(center, params, alpha)
+    new_params = elastic_client_update(params, center, alpha)
+    return new_params, new_center
+
+
+def elastic_exchange_multiclient(client_params: Any, center: Any,
+                                 alpha: float) -> tuple[Any, Any]:
+    """Exchange for params with a leading client dim C: the simultaneous
+    EASGD generalization w̃ ← w̃ + α Σ_c (w_c − w̃); each client applies
+    eq. (3) with the shared old center."""
+    def server(c, w):
+        c32 = c.float()
+        return (c32 + alpha * (w.float() - c32).sum(0)).to(c.dtype)
+
+    new_center = tree_map(server, center, client_params)
+    new_params = tree_map(
+        lambda w, c: (w.float() - alpha * (w.float() - c.float())).to(w.dtype),
+        client_params, center)
+    return new_params, new_center
+
+
+def elastic_exchange_multiclient_flat(client_params: Any, center: Any, alpha,
+                                      spec: Optional[flatbuf.FlatBuffer] = None
+                                      ) -> tuple[Any, Any]:
+    """Flat-substrate ``elastic_exchange_multiclient``: pack the C client
+    replicas into one ``(C, size)`` buffer, run ONE fused kernel for every
+    client's eq. (3) and the summed eq. (2) center move, unpack. ``spec``
+    is the per-client param FlatBuffer (built from ``center`` when
+    omitted)."""
+    spec = spec or flatbuf.spec_for(center)
+    w = spec.pack(client_params)
+    c = spec.pack(center)
+    new_w, new_c = elastic_exchange_flat_mc(w, c, _alpha(alpha, c.device))
+    return spec.unpack(new_w), spec.unpack(new_c)
+
+
+def elastic_exchange_sharded(spec: flatbuf.FlatBuffer, params: Any,
+                             center: Any, alpha, *,
+                             comm: comm_lib.Communicator = comm_lib.LOCAL
+                             ) -> tuple[Any, Any]:
+    """The cross-client exchange over the exchange group ``comm`` (the
+    PS tier, e.g. ``world.split("pod")``); each member is one client and
+    the center is replicated:
+
+      1. pack w and w̃; ONE kernel pass computes eq. (3)'s new w AND the
+         f32 difference (w − w̃)
+      2. ring reduce-scatter the differences over the group
+      3. fused eq. (2) kernel on each member's 1/p shard of the center
+      4. ring allgather of the updated center shards
+
+    The group's policy supplies the ring count, bucketing and the wire
+    protocol. A trivial group degenerates to the local exchange: both
+    kernels over the whole buffer, no collective. Under emulation the
+    trees carry the world's leading device dims. Returns
+    ``(new_params, new_center)``, both full trees.
+    """
+    p = comm.resolve_size()
+    nr = comm.rings_for(spec.nbytes)
+    _, total = flatbuf.shard_geometry(spec.size, p, nr)
+    w = flatbuf.pack_padded(spec, params, total)
+    c = flatbuf.pack_padded(spec, center, total)
+    a = _alpha(alpha, w.device)
+
+    new_w, diff = elastic_client_diff_flat(w, c, a)
+    del w
+    if p == 1:
+        diff_sum, c_shard = diff, c
+    else:
+        diff_sum = comm.reduce_scatter(diff, num_rings=nr)
+        c_shard = comm.shard_select(c, num_rings=nr)
+    del diff, c
+    new_c_shard = elastic_center_flat(c_shard, diff_sum, a)
+    del diff_sum, c_shard
+    new_c = (new_c_shard if p == 1
+             else comm.allgather(new_c_shard, num_rings=nr))
+    return (spec.unpack(new_w[..., :spec.size]),
+            spec.unpack(new_c[..., :spec.size]))
+

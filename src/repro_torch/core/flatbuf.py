@@ -62,20 +62,41 @@ class FlatBuffer:
                              f"spec's {self.treedef}")
         return leaves
 
+    def _lead(self, leaves: list) -> tuple:
+        """The leading (stacked device/client) dims the leaves carry ahead
+        of the spec's shapes — ``()`` for one unstacked tree."""
+        lead = None
+        for leaf, shape in zip(leaves, self.shapes):
+            k = leaf.dim() - len(shape)
+            if k < 0 or tuple(leaf.shape[k:]) != shape:
+                raise ValueError(f"leaf shape {tuple(leaf.shape)} does not "
+                                 f"end in the spec's {shape}")
+            if lead is None:
+                lead = tuple(leaf.shape[:k])
+            elif tuple(leaf.shape[:k]) != lead:
+                raise ValueError(f"leaves stacked over {lead} and "
+                                 f"{tuple(leaf.shape[:k])}")
+        return lead or ()
+
     def pack(self, tree: Any, total: int | None = None) -> torch.Tensor:
         """Pytree -> one ``(size,)`` buffer (zero-extended to ``total``
-        when that is longer). Static slices only."""
+        when that is longer). Static slices only. A tree whose leaves all
+        carry the same leading dims (stacked devices or clients) packs to
+        ``(*lead, size)``, one row per member."""
         leaves = self._leaves(tree)
-        buf = torch.zeros((max(total or 0, self.size),), dtype=self.dtype,
-                          device=leaves[0].device)
+        lead = self._lead(leaves)
+        buf = torch.zeros(lead + (max(total or 0, self.size),),
+                          dtype=self.dtype, device=leaves[0].device)
         for off, n, leaf in zip(self.offsets, self.sizes, leaves):
-            buf[off:off + n].copy_(leaf.reshape(-1))
+            buf[..., off:off + n].copy_(leaf.reshape(lead + (n,)))
         return buf
 
     def unpack(self, buf: torch.Tensor) -> Any:
-        """Inverse of ``pack``: restore leaf shapes and dtypes."""
+        """Inverse of ``pack``: restore leaf shapes and dtypes (a stacked
+        ``(*lead, m)`` buffer unpacks to leaves stacked over ``lead``)."""
+        lead = tuple(buf.shape[:-1])
         leaves = [
-            buf[off:off + n].view(shape).to(dt)
+            buf[..., off:off + n].reshape(lead + shape).to(dt)
             for off, n, shape, dt in zip(
                 self.offsets, self.sizes, self.shapes, self.dtypes)
         ]

@@ -1,8 +1,9 @@
 """Client ↔ device mapping: the paper's ``#clients`` knob.
 
 C = 1 is the pure-MPI mode (mpi-SGD): one communicator, gradients fully
-reduced every step. Slice 1 runs C = 1 in one process; C > 1 (mpi-ESGD,
-one replica per client) arrives with slice 3.
+reduced every step. C > 1 is mpi-ESGD: params carry a leading client dim
+(one replica per client), each client syncs its gradients inside its own
+group, and every INTERVAL steps the elastic exchange crosses clients.
 """
 from __future__ import annotations
 
@@ -10,7 +11,10 @@ import dataclasses
 from dataclasses import InitVar, dataclass
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.core.comm import CollectivePolicy, filter_mirrors, resolve_policy
+from repro_torch.tree import tree_map
 
 #: the flat-field defaults SyncConfig ships — the base point the
 #: deprecation shim resolves non-default flat kwargs against
@@ -91,8 +95,20 @@ class SyncConfig:
 
 
 def clientize(params: Any, num_clients: int) -> Any:
-    """Give every client its own replica (C = 1: the params themselves)."""
+    """Give every client its own replica: leading dim C on every leaf."""
     if num_clients <= 1:
         return params
-    raise NotImplementedError(
-        "slice 3: C > 1 replicas (mpi-ESGD) are not ported yet")
+    return tree_map(
+        lambda p: p.unsqueeze(0).expand((num_clients,) + tuple(p.shape)).clone(),
+        params)
+
+
+def declientize(params: Any, num_clients: int) -> Any:
+    """Consensus model: mean over the client dim (end of training)."""
+    if num_clients <= 1:
+        return params
+    return tree_map(lambda p: p.float().mean(0).to(p.dtype), params)
+
+
+def should_elastic_sync(step: torch.Tensor, interval: int) -> torch.Tensor:
+    return (step % interval) == 0

@@ -3,15 +3,17 @@
 The step builder (``launch/train.py``) drives one interface and the choice
 of HOW a step syncs and updates is made once, here (``make_sync_engine``):
 
-  init_opt          optimizer-state layout (flat state buffer vs per-leaf
-                    pytree)
-  update            the sync+update leg (pack -> fused kernel -> unpack,
-                    vs per-leaf ``Optimizer.update``)
-  check_opt_layout  loud guard that the state factory and the step
-                    factory agreed on the layout
+  init_opt              optimizer-state layout (flat state buffer vs
+                        per-leaf pytree)
+  update                the sync+update leg (pack -> reduce-scatter ->
+                        fused kernel -> allgather -> unpack, vs per-leaf
+                        ``Optimizer.update``)
+  exchange_multiclient  the elastic leg for C stacked replicas (packed
+                        single-launch kernel vs per-leaf tree maps)
+  check_opt_layout      loud guard that the state factory and the step
+                        factory agreed on the layout
 
-Slice 1 ports the update leg of mpi-SGD; the elastic exchange (mpi-ESGD)
-and the backward-overlapped leg come with later slices.
+The backward-overlapped leg comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import comm as comm_lib, flatbuf
+from repro_torch.core.elastic import (
+    elastic_exchange_multiclient,
+    elastic_exchange_multiclient_flat,
+)
 from repro_torch.core.hierarchy import SyncConfig
 from repro_torch.optim.sgd import (
     FLAT_STATE_STREAMS,
@@ -49,13 +55,21 @@ def flat_update_supported(optimizer: Optimizer, sync: SyncConfig,
     return name in FLAT_STATE_STREAMS
 
 
+def flat_exchange_active(sync: SyncConfig, mesh=None) -> bool:
+    """Whether the elastic leg runs packed (FlatBuffer + fused kernel)."""
+    return sync.mode == "mpi_esgd" and sync.flat_exchange and mesh is None
+
+
 @dataclass(frozen=True)
 class SyncEngine:
-    """Per-leaf strategy (custom optimizers, SGD with a bf16 momentum)."""
+    """Per-leaf strategy (custom optimizers, SGD with a bf16 momentum).
+
+    ``comm`` is the gradient group the update leg syncs over."""
 
     optimizer: Optimizer
     sync: SyncConfig
     comm: comm_lib.Communicator = comm_lib.LOCAL
+    flat_exchange: bool = False
     spec: Optional[flatbuf.FlatBuffer] = None
 
     fused = False  # class attr, not a field: FlatEngine overrides
@@ -72,6 +86,13 @@ class SyncEngine:
                 "per-leaf update got a flat fused state buffer — build the "
                 "train state and the step from the same SyncConfig, or set "
                 "SyncConfig.fused_update=False for both")
+
+    def exchange_multiclient(self, client_params: Any, center: Any, alpha):
+        """One elastic exchange over C stacked replicas (eqs. 2+3)."""
+        if self.flat_exchange:
+            return elastic_exchange_multiclient_flat(client_params, center,
+                                                     alpha, spec=self.spec)
+        return elastic_exchange_multiclient(client_params, center, alpha)
 
 
 def _is_flat_adamw_state(opt_state: Any) -> bool:
@@ -122,7 +143,8 @@ class FlatEngine(SyncEngine):
                     "train state carries a per-leaf opt state — build both "
                     "from the same SyncConfig")
             buf, streams = opt_state, 1
-        p = self.comm.resolve_size()
+        # C > 1 updates every client in its local (p=1) geometry
+        p = 1 if num_clients > 1 else self.comm.resolve_size()
         want = flatbuf.shard_size(self.spec, p, self.sync.num_rings,
                                   self.sync.bucket_bytes)
         per_client = buf.numel() // (streams * max(num_clients, 1))
@@ -138,21 +160,21 @@ def make_sync_engine(optimizer: Optimizer, sync: SyncConfig, mesh=None, *,
                      comm: Optional[comm_lib.Communicator] = None,
                      spec: Optional[flatbuf.FlatBuffer] = None,
                      ) -> SyncEngine:
-    """Resolve the strategy for (optimizer, sync) once. ``spec`` (the
-    param-tree FlatBuffer, ``launch.train.grad_spec``) is required when
-    the flat leg engages."""
+    """Resolve the strategy for (optimizer, sync) once. ``comm`` is the
+    gradient group the update leg syncs over (trivial when omitted).
+    ``spec`` (the param-tree FlatBuffer, ``launch.train.grad_spec``) is
+    required when a flat leg engages."""
     if mesh is not None:
         raise NotImplementedError("not yet ported: device meshes")
-    if sync.mode != "mpi_sgd" or sync.num_clients > 1:
-        raise NotImplementedError(
-            f"not yet ported: mode={sync.mode!r} num_clients="
-            f"{sync.num_clients} (slice 1 is mpi_sgd with one client)")
     if sync.overlap:
         raise NotImplementedError("not yet ported: backward overlap")
     if comm is None:
         comm = comm_lib.from_sync(sync)
+    flat_ex = flat_exchange_active(sync, mesh)
     if flat_update_supported(optimizer, sync, mesh):
         if spec is None:
             raise ValueError("flat-update engine needs the FlatBuffer spec")
-        return FlatEngine(optimizer, sync, comm=comm, spec=spec)
-    return SyncEngine(optimizer, sync, comm=comm, spec=spec)
+        return FlatEngine(optimizer, sync, comm=comm, flat_exchange=flat_ex,
+                          spec=spec)
+    return SyncEngine(optimizer, sync, comm=comm, flat_exchange=flat_ex,
+                      spec=spec)

@@ -18,8 +18,10 @@ ratio. The design is one masked, vectorised pass over a 1-D grid, one
 ``BLOCK`` per program, the tail masked (no padding copy), f32 math in
 registers, each output stored once in its own dtype (f32 or bf16 state).
 AdamW's ``(2, n)`` m/v buffer is read and written whole through its row
-stride, never re-stacked. Square roots and divisions are the IEEE
-round-to-nearest forms (``sqrt_rn``, ``div_rn``): plain ``tl.sqrt`` and
+stride, never re-stacked; stacked rows (one per emulated device or
+client: ``(R, n)`` params, ``(R, 2, n)`` m/v) are one launch over a 2-D
+grid (blocks × rows) sharing one hp vector, since every member steps
+together. Square roots and divisions are the IEEE round-to-nearest forms (``sqrt_rn``, ``div_rn``): plain ``tl.sqrt`` and
 ``/`` lower to approximate instructions.
 """
 from __future__ import annotations
@@ -54,11 +56,12 @@ def adamw_flat_plain(p: torch.Tensor, mv: torch.Tensor, g: torch.Tensor,
                      hp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     lr, b1, b2, eps, wd, c1, c2 = hp.unbind()
     g32 = g.float()
-    m32 = b1 * mv[0].float() + (1.0 - b1) * g32
-    v32 = b2 * mv[1].float() + (1.0 - b2) * g32 * g32
+    m32 = b1 * mv[..., 0, :].float() + (1.0 - b1) * g32
+    v32 = b2 * mv[..., 1, :].float() + (1.0 - b2) * g32 * g32
     p32 = p.float()
     upd = (m32 / c1) / (torch.sqrt(v32 / c2) + eps) + wd * p32
-    return (p32 - lr * upd).to(p.dtype), torch.stack([m32, v32]).to(mv.dtype)
+    return ((p32 - lr * upd).to(p.dtype),
+            torch.stack([m32, v32], -2).to(mv.dtype))
 
 
 # -- Triton kernels ----------------------------------------------------------
@@ -97,10 +100,16 @@ def _adamw_kernel():
 
     @tr.jit
     def adamw_kernel(hp_ptr, p_ptr, mv_ptr, g_ptr, p_out_ptr, mv_out_ptr, n,
-                     mv_stride, BLOCK: tl.constexpr):
+                     BLOCK: tl.constexpr):
         pid = tl.program_id(0).to(tl.int64)
+        row = tl.program_id(1).to(tl.int64)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
+        p_ptr += row * n
+        g_ptr += row * n
+        p_out_ptr += row * n
+        mv_ptr += row * 2 * n
+        mv_out_ptr += row * 2 * n
         lr = tl.load(hp_ptr)
         b1 = tl.load(hp_ptr + 1)
         b2 = tl.load(hp_ptr + 2)
@@ -110,12 +119,12 @@ def _adamw_kernel():
         c2 = tl.load(hp_ptr + 6)
         g = tl.load(g_ptr + offs, mask=mask).to(tl.float32)
         m = tl.load(mv_ptr + offs, mask=mask).to(tl.float32)
-        v = tl.load(mv_ptr + mv_stride + offs, mask=mask).to(tl.float32)
+        v = tl.load(mv_ptr + n + offs, mask=mask).to(tl.float32)
         m_new = b1 * m + (1.0 - b1) * g
         v_new = b2 * v + (1.0 - b2) * g * g
         out_ty = mv_out_ptr.dtype.element_ty
         tl.store(mv_out_ptr + offs, m_new.to(out_ty), mask=mask)
-        tl.store(mv_out_ptr + mv_stride + offs, v_new.to(out_ty), mask=mask)
+        tl.store(mv_out_ptr + n + offs, v_new.to(out_ty), mask=mask)
         p = tl.load(p_ptr + offs, mask=mask).to(tl.float32)
         denom = tl.sqrt_rn(tl.div_rn(v_new, c2)) + eps
         upd = tl.div_rn(tl.div_rn(m_new, c1), denom) + wd * p
@@ -157,21 +166,32 @@ def adamw_flat(p: torch.Tensor, mv: torch.Tensor, g: torch.Tensor,
                hp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One fused AdamW step on a flat ``(n,)`` param/grad pair and the
     ``(2, n)`` stacked m/v buffer, carried whole in and out. ``hp`` is
-    the f32 ``(lr, b1, b2, eps, wd, c1, c2)`` vector. Returns new
-    ``(p', mv')``. CPU tensors take the plain version; CUDA tensors
-    launch the Triton kernel."""
+    the f32 ``(lr, b1, b2, eps, wd, c1, c2)`` vector. Stacked rows —
+    ``(R, n)`` p and g, ``(R, 2, n)`` mv — update in one launch under
+    the one ``hp``. Returns new ``(p', mv')``. CPU tensors take the plain
+    version; CUDA tensors launch the Triton kernel."""
     if on_cpu(p, mv, g, hp):
         return adamw_flat_plain(p, mv, g, hp)
-    n = p.shape[0]
-    check_flat("p", p, n)
-    check_flat("g", g, n)
-    check_flat("mv", mv, n, rows=2)
-    _check_hp(hp, 7)
+    if p.dim() not in (1, 2):
+        raise ValueError(f"p: want (n,) or (R, n), got {tuple(p.shape)}")
+    rows = p.shape[0] if p.dim() == 2 else 0
+    lead = (rows,) if rows else ()
+    n = p.shape[-1]
+    for name, t, shape in (("p", p, lead + (n,)), ("g", g, lead + (n,)),
+                           ("mv", mv, lead + (2, n)), ("hp", hp, (7,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+        if not t.is_floating_point():
+            raise ValueError(f"{name}: dtype {t.dtype} is not floating")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    if hp.dtype != torch.float32:
+        raise ValueError(f"hp: dtype {hp.dtype}, want float32")
     p_out, mv_out = torch.empty_like(p), torch.empty_like(mv)
-    if n:
-        grid = (triton().cdiv(n, BLOCK),)
-        _adamw_kernel()[grid](hp, p, mv, g, p_out, mv_out, n, mv.stride(0),
-                              BLOCK=BLOCK, num_warps=NUM_WARPS)
+    if n and p.numel():
+        grid = (triton().cdiv(n, BLOCK), max(rows, 1))
+        _adamw_kernel()[grid](hp, p, mv, g, p_out, mv_out, n, BLOCK=BLOCK,
+                              num_warps=NUM_WARPS)
         adamw_flat.launches += 1
     return p_out, mv_out
 

@@ -1,11 +1,19 @@
-"""Production train step + training-loop driver (mpi-SGD, one client).
+"""Production train step + training-loop driver (``repro/launch/train.py``).
 
-``make_train_step`` builds the step the reference's ``step_c1`` is
-(``repro/launch/train.py``): gradients of the model's loss, then the
-``SyncEngine``'s update leg — on the default path the FlatEngine packs the
-gradient pytree into the persistent f32 ``FlatBuffer``, runs ONE fused
-optimizer kernel over it, and unpacks the updated params (bf16 params are
-rounded back every step; there is no f32 master copy).
+``make_train_step`` builds the step for both lowerable sync modes:
+
+  mpi_sgd   C = 1 (``step_c1``): gradients of the model's loss, then the
+            ``SyncEngine``'s update leg — on the default path the
+            FlatEngine packs the gradient pytree into the persistent f32
+            ``FlatBuffer``, runs ONE fused optimizer kernel over it, and
+            unpacks the updated params (bf16 params are rounded back every
+            step; there is no f32 master copy)
+  mpi_esgd  C > 1 (``step_multiclient``): params carry a leading client
+            dim; each client's grads come from its own batch slice, the
+            update runs for every client at once (one kernel launch over
+            the stacked buffer, each client in local p = 1 geometry), and
+            every INTERVAL steps the elastic exchange (eqs. 2/3, one fused
+            kernel) pulls the replicas and the center together
 
 Entry points default to the CUDA device and raise when there is none,
 unless the caller passes ``device="cpu"``.
@@ -15,16 +23,21 @@ unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import argparse
+import math
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import comm as comm_lib, flatbuf
-from repro_torch.core.hierarchy import SyncConfig, clientize
-from repro_torch.core.sync_engine import flat_update_supported, make_sync_engine
+from repro_torch.core.hierarchy import SyncConfig, clientize, should_elastic_sync
+from repro_torch.core.sync_engine import (
+    flat_exchange_active,
+    flat_update_supported,
+    make_sync_engine,
+)
 from repro_torch.models.model import Model
 from repro_torch.optim.sgd import Optimizer
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -45,26 +58,31 @@ def grad_spec(model: Model) -> flatbuf.FlatBuffer:
 
 
 def _engine_spec(model: Model, optimizer: Optimizer, sync: SyncConfig):
-    """The FlatBuffer spec, when the flat leg will engage (else None)."""
-    if flat_update_supported(optimizer, sync):
+    """The FlatBuffer spec, when any flat leg will engage (else None)."""
+    if flat_update_supported(optimizer, sync) or flat_exchange_active(sync):
         return grad_spec(model)
     return None
 
 
 def make_train_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
                      seed: int = 0, *, device="cuda", mesh=None) -> dict:
-    """Initial state ``{"params", "opt", "step"}``. On the fused path the
-    optimizer state is the flat state buffer (momentum / AdaGrad
-    accumulator / AdamW ``{"mv", "t"}``) in local (p=1) geometry."""
+    """Initial state ``{"params", "opt", "step"}`` (+ ``"center"``, the
+    center variables w̃, for mpi_esgd). On the fused path the optimizer
+    state is the flat state buffer (momentum / AdaGrad accumulator /
+    AdamW ``{"mv", "t"}``) in local (p=1) geometry — one per client when
+    C > 1."""
     device = resolve_device(device)
     engine = make_sync_engine(optimizer, sync, mesh,
                               spec=_engine_spec(model, optimizer, sync))
     params = model.init(device=device, seed=seed)
-    return {
+    state = {
         "params": clientize(params, sync.num_clients),
-        "opt": engine.init_opt(params),
+        "opt": clientize(engine.init_opt(params), sync.num_clients),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if sync.mode == "mpi_esgd":
+        state["center"] = params
+    return state
 
 
 def make_grad_fn(model: Model, microbatch: int = 1) -> Callable:
@@ -109,14 +127,47 @@ def make_grad_fn(model: Model, microbatch: int = 1) -> Callable:
     return accum_grad
 
 
+def stacked_grads(grad_fn: Callable, params: Any, batch: dict, ndim: int = 1):
+    """Run ``grad_fn`` once per member of params and batch stacked over
+    ``ndim`` leading dims (clients, or emulated devices), one member at a
+    time so only one member's activations are live; returns the losses
+    and metrics stacked over those dims and the grads stacked as the
+    params are."""
+    lead = tuple(tree_flatten(params)[0][0].shape[:ndim])
+    n = math.prod(lead)
+    flat = lambda t: t.reshape((n,) + tuple(t.shape[ndim:]))
+    p_rows = tree_map(flat, params)
+    b_rows = {k: flat(v) for k, v in batch.items()}
+    losses, metrics, out = [], {}, None
+    for i in range(n):
+        loss, met, grads = grad_fn(tree_map(lambda t: t[i], p_rows),
+                                   {k: v[i] for k, v in b_rows.items()})
+        if out is None:
+            out = tree_map(lambda g: g.new_empty((n,) + tuple(g.shape)), grads)
+        tree_map(lambda o, g: o[i].copy_(g), out, grads)
+        del grads
+        losses.append(loss)
+        for k, v in met.items():
+            metrics.setdefault(k, []).append(v)
+    unflat = lambda t: t.reshape(lead + tuple(t.shape[1:]))
+    return (unflat(torch.stack(losses)),
+            {k: unflat(torch.stack(v)) for k, v in metrics.items()},
+            tree_map(unflat, out))
+
+
 def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
                     mesh=None, *, microbatch: int = 1,
                     comm: comm_lib.Communicator | None = None,
                     device="cuda") -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
-    mpi-SGD step with one client (the reference's ``step_c1``)."""
+    reference's ``step_c1`` for C = 1, ``step_multiclient`` for C > 1
+    (batch leaves then carry a leading client dim C)."""
     device = resolve_device(device)
     sync.validate(mesh)
+    C = sync.num_clients
+    if C > 1:
+        # each client updates in its local (p=1) geometry
+        comm = comm.local() if comm is not None else None
     engine = make_sync_engine(optimizer, sync, mesh, comm=comm,
                               spec=_engine_spec(model, optimizer, sync))
     grad_fn = make_grad_fn(model, microbatch)
@@ -131,7 +182,24 @@ def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
             {"loss": loss, **metrics},
         )
 
-    return step_c1
+    def step_multiclient(state, batch):
+        engine.check_opt_layout(state["opt"], C)
+        batch = {k: v.to(device) for k, v in batch.items()}
+        loss, metrics, grads = stacked_grads(grad_fn, state["params"], batch)
+        new_p, new_o = engine.update(grads, state["opt"], state["params"])
+        del grads
+        new_state = dict(state, params=new_p, opt=new_o,
+                         step=state["step"] + 1)
+        # the pre-increment step gates the exchange, after the update
+        if sync.mode == "mpi_esgd" and bool(
+                should_elastic_sync(state["step"], sync.esgd_interval)):
+            p2, c2 = engine.exchange_multiclient(
+                new_state["params"], new_state["center"], sync.esgd_alpha / C)
+            new_state = dict(new_state, params=p2, center=c2)
+        return new_state, {"loss": loss.mean(),
+                           **{k: v.mean() for k, v in metrics.items()}}
+
+    return step_c1 if C <= 1 else step_multiclient
 
 
 def train_loop(model: Model, optimizer: Optimizer, sync: SyncConfig,

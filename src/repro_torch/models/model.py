@@ -70,7 +70,10 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["embedding"][tokens.long()]
+    # F.embedding, not ``emb[tokens]``: on the CPU the indexing backward
+    # accumulates repeated tokens with parallel atomic adds (run-to-run
+    # different sums); embedding's backward sums each row in token order
+    return torch.nn.functional.embedding(tokens.long(), p["embedding"])
 
 
 def _xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

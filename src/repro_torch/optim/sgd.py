@@ -5,11 +5,15 @@ Beyond the per-leaf optimizers, this module owns the **fused flat step**
 (``scatter_update_gather``): pack the gradient pytree into the FlatBuffer,
 run ONE hand-written fused optimizer kernel — momentum SGD, AdaGrad or
 AdamW (``FLAT_STATE_STREAMS``) — on this device's shard, and unpack the
-updated params. Slice 1 runs the trivial (p = 1) group: the shard is the
-whole buffer and no collective runs.
+updated params, with the ring reduce-scatter and allgather over the
+gradient Communicator between them when the group has p > 1 members.
+Stacked inputs (a leading device or client dim on every leaf, as the
+shard driver and the multi-client step hold them) run the same way, with
+ONE kernel launch over the whole stacked buffer.
 """
 from __future__ import annotations
 
+import math
 import types
 from typing import Any, Callable, Mapping, NamedTuple, Optional
 
@@ -193,20 +197,26 @@ def flat_hp(hyper, device) -> torch.Tensor:
 def _fused_shard_update(name: str, hp: torch.Tensor, p_shard: torch.Tensor,
                         opt_state: Any, g_shard: torch.Tensor
                         ) -> tuple[torch.Tensor, Any]:
-    """Launch the ONE fused update on this device's shard: the K state
-    streams ride the same pass as (param, grad)."""
-    if name == "sgd":
-        return sgd_momentum_flat(p_shard, opt_state, g_shard, hp)
-    if name == "adagrad":
-        return adagrad_flat(p_shard, opt_state, g_shard, hp)
+    """Launch the ONE fused update on this shard (or on every stacked
+    member's shard at once): the K state streams ride the same pass as
+    (param, grad)."""
+    shape = p_shard.shape
+    if name in ("sgd", "adagrad"):
+        kernel = sgd_momentum_flat if name == "sgd" else adagrad_flat
+        new_p, new_s = kernel(p_shard.reshape(-1), opt_state.reshape(-1),
+                              g_shard.reshape(-1), hp)
+        return new_p.view(shape), new_s.view(shape)
     if name == "adamw":
         t = opt_state["t"] + 1
-        tf = t.float()
-        # bias corrections on the device: no host sync per step
-        c = 1.0 - torch.pow(hp[1:3], tf)
-        new_p, new_mv = adamw_flat(p_shard, opt_state["mv"], g_shard,
-                                   torch.cat([hp, c]))
-        return new_p, {"mv": new_mv, "t": t}
+        # every stacked member steps together: one t, one hp for all rows;
+        # bias corrections on the device, no host sync per step
+        c = 1.0 - torch.pow(hp[1:3], t.reshape(-1)[0].float())
+        rows, n = math.prod(shape[:-1]), shape[-1]   # one row per member
+        new_p, new_mv = adamw_flat(
+            p_shard.reshape(rows, n), opt_state["mv"].reshape(rows, 2, n),
+            g_shard.reshape(rows, n), torch.cat([hp, c]))
+        return new_p.view(shape), {"mv": new_mv.view(opt_state["mv"].shape),
+                                   "t": t}
     raise ValueError(
         f"flat fused update knows {sorted(FLAT_STATE_STREAMS)}, got {name!r}")
 
@@ -219,18 +229,23 @@ def scatter_update_gather(spec: flatbuf.FlatBuffer, grads: Any, params: Any,
                           mean: bool = True,
                           hp: Optional[torch.Tensor] = None
                           ) -> tuple[Any, Any]:
-    """One fused sync+update step on this device:
+    """One fused sync+update step:
 
       1. pack grads and params into the persistent flat buffer
-      2. (p > 1: ring reduce-scatter — slice 2)
+      2. p > 1: ring reduce-scatter the grads over ``comm`` (each member
+         owns a fully-reduced 1/p shard) and select the matching param
+         shard
       3. ONE fused optimizer kernel over (param shard, state shard(s),
          grad shard)
-      4. (p > 1: ring allgather — slice 2); unpack the new params
+      4. p > 1: ring allgather the updated param shards; unpack
 
-    ``hyper`` selects the optimizer (sgd / adagrad / adamw); the
-    positional ``lr``/``momentum`` form is the momentum-SGD shorthand.
-    ``hp`` is the cached ``flat_hp`` vector on the device (built here when
-    omitted). Returns ``(new_params_tree, new_opt_state_shard)``.
+    ``comm`` is the gradient group; its policy supplies the ring count,
+    bucketing and the wire protocol. Under emulation the params, grads
+    and state carry the world's leading device dims. ``hyper`` selects
+    the optimizer (sgd / adagrad / adamw); the positional
+    ``lr``/``momentum`` form is the momentum-SGD shorthand. ``hp`` is the
+    cached ``flat_hp`` vector on the device (built here when omitted).
+    Returns ``(new_params_tree, new_opt_state_shard)``.
     """
     if hyper is None:
         hyper = {"name": "sgd", "lr": lr, "momentum": momentum,
@@ -248,8 +263,11 @@ def scatter_update_gather(spec: flatbuf.FlatBuffer, grads: Any, params: Any,
 
     g_shard = flatbuf.pack_padded(spec, grads, total)
     p_shard = flatbuf.pack_padded(spec, params, total)
-    if mean and p > 1:
-        g_shard = g_shard / p
+    if p > 1:
+        g_shard = comm.reduce_scatter(g_shard, num_rings=nr)
+        p_shard = comm.shard_select(p_shard, num_rings=nr)
+        if mean:
+            g_shard = g_shard / p
     wd = hyper.get("weight_decay", 0.0) or 0.0
     if name == "sgd" and wd:
         # coupled L2, as per-leaf sgd; adamw decays decoupled in its kernel
@@ -259,7 +277,10 @@ def scatter_update_gather(spec: flatbuf.FlatBuffer, grads: Any, params: Any,
         hp = flat_hp(hyper, p_shard.device)
     new_p_shard, new_state = _fused_shard_update(
         name, hp, p_shard, opt_state, g_shard)
-    return spec.unpack(new_p_shard[:spec.size]), new_state
+    del g_shard, p_shard
+    new_p = (comm.allgather(new_p_shard, num_rings=nr) if p > 1
+             else new_p_shard)
+    return spec.unpack(new_p[..., :spec.size]), new_state
 
 
 def _flat_optimizer(hyper: dict, spec: flatbuf.FlatBuffer,

@@ -143,12 +143,17 @@ def test_local_communicator_and_unported_groups():
         jcomm.LOCAL.with_policy(num_rings=2, bucket_bytes=1000).rings_for(10_000)
     assert wide.local() == wide
     assert tcomm.from_sync(thier.SyncConfig()).policy == thier.SyncConfig().policy
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tcomm.Communicator.world(("data",), (8,))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        thier.clientize({"w": torch.zeros(2)}, 2)
+    # a group of size > 1 is the emulated ring world now; the group
+    # operations of later slices raise, naming theirs
+    world = tcomm.Communicator.world(("data",), (8,))
+    assert world.resolve_size() == 8 and world.local().resolve_size() == 1
+    with pytest.raises(NotImplementedError, match="membership"):
+        world.resized(4)
+    with pytest.raises(NotImplementedError, match="PS-tier"):
+        world.pushpull({})
     params = {"w": torch.zeros(2)}
     assert thier.clientize(params, 1) is params
+    assert tuple(thier.clientize(params, 2)["w"].shape) == (2, 2)
 
 
 @pytest.mark.parametrize("epoch,step,shard", [(0, 0, 0), (0, 7, 0), (3, 2, 1)])

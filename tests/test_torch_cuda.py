@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
 
@@ -92,6 +93,110 @@ def test_adamw_kernel_matches_plain(cuda, n, state_dtype):
         _bf16_within_one_ulp(kmv, rmv)
 
 
+def test_adamw_kernel_stacked_rows_match_plain(cuda):
+    """(R, n) params and (R, 2, n) m/v under one hp vector: one launch
+    over every row, the ragged tail of each row masked."""
+    R, n = 3, 4099
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=cuda)
+    p, g = r(R, n), r(R, n)
+    mv = torch.stack([r(R, n) * 0.1, r(R, n).abs() * 0.01], 1)
+    base = torch.tensor([3e-3, 0.9, 0.95, 1e-8, 0.1], device=cuda)
+    hp = torch.cat([base, 1 - base[1:3] ** 7])
+    before = fo.adamw_flat.launches
+    kp, kmv = fo.adamw_flat(p, mv, g, hp)
+    torch.cuda.synchronize()
+    assert fo.adamw_flat.launches == before + 1
+    rp, rmv = fo.adamw_flat_plain(p, mv, g, hp)
+    torch.testing.assert_close(kp, rp, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(kmv, rmv, rtol=1e-5, atol=1e-7)
+
+
+def _elastic_inputs(shape, device, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(shape, generator=gen, device=device)
+    c = w.reshape(-1, shape[-1])[0] + 0.1 * torch.randn(
+        shape[-1], generator=gen, device=device)
+    return w.to(dtype), c.to(dtype)
+
+
+ELASTIC_SIZES = (1, 1000, 4099, 131072)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ELASTIC_SIZES)
+def test_elastic_client_diff_kernel_matches_plain(cuda, n, dtype):
+    w, c = _elastic_inputs((n,), cuda, dtype, n)
+    alpha = torch.tensor(0.25, device=cuda)
+    before = fe.elastic_client_diff_flat.launches
+    kw, kd = fe.elastic_client_diff_flat(w, c, alpha)
+    torch.cuda.synchronize()
+    assert fe.elastic_client_diff_flat.launches == before + 1
+    rw, rd = fe.elastic_client_diff_flat_plain(w, c, alpha)
+    assert kd.dtype == torch.float32 and kw.dtype == dtype
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(kw, rw, rtol=1e-6, atol=1e-7)
+    else:
+        _bf16_within_one_ulp(kw, rw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ELASTIC_SIZES)
+def test_elastic_center_kernel_matches_plain(cuda, n, dtype):
+    c, _ = _elastic_inputs((n,), cuda, dtype, 50 + n)
+    ds = torch.randn(n, device=cuda)
+    alpha = torch.tensor(0.25, device=cuda)
+    before = fe.elastic_center_flat.launches
+    kc = fe.elastic_center_flat(c, ds, alpha)
+    torch.cuda.synchronize()
+    assert fe.elastic_center_flat.launches == before + 1
+    rc = fe.elastic_center_flat_plain(c, ds, alpha)
+    if dtype == torch.float32:
+        torch.testing.assert_close(kc, rc, rtol=1e-6, atol=1e-7)
+    else:
+        _bf16_within_one_ulp(kc, rc)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ELASTIC_SIZES)
+def test_elastic_multiclient_kernel_matches_plain(cuda, n, dtype, C):
+    w, c = _elastic_inputs((C, n), cuda, dtype, 90 + n + C)
+    alpha = torch.tensor(0.5 / C, device=cuda)
+    before = fe.elastic_exchange_flat_mc.launches
+    kw, kc = fe.elastic_exchange_flat_mc(w, c, alpha)
+    torch.cuda.synchronize()
+    assert fe.elastic_exchange_flat_mc.launches == before + 1
+    rw, rc = fe.elastic_exchange_flat_mc_plain(w, c, alpha)
+    for got, want in ((kw, rw), (kc, rc)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+        else:
+            _bf16_within_one_ulp(got, want)
+
+
+def test_emulated_int8_reduce_scatter_card_equals_cpu(cuda):
+    """One emulated int8 reduce-scatter over a (2, 4) world: the card's
+    per-device shards equal the CPU's (the codec is plain PyTorch, and
+    its division rounds as IEEE on both)."""
+    from repro_torch.core.comm import CollectivePolicy, Communicator
+    from repro_torch.core.collectives import WireMeter
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 2 * 8 * 4096, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        meter = WireMeter()
+        comm = Communicator.world(("pod", "data"), (2, 4), meter=meter,
+                                  policy=CollectivePolicy(method="ring",
+                                                          num_rings=2,
+                                                          wire_dtype="int8"))
+        out[dev] = (comm.reduce_scatter(x.to(dev)), meter.bytes)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+
+
 def test_wrappers_reject_bad_layouts(cuda):
     p = torch.zeros(10, device=cuda)
     hp = torch.zeros(2, device=cuda)
@@ -104,6 +209,14 @@ def test_wrappers_reject_bad_layouts(cuda):
     with pytest.raises(ValueError, match="rows|shape"):
         fo.adamw_flat(p, torch.zeros(3, 10, device=cuda), p,
                       torch.zeros(7, device=cuda))
+    alpha = torch.tensor(0.5, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        fe.elastic_client_diff_flat(p, torch.zeros(11, device=cuda), alpha)
+    with pytest.raises(ValueError, match="alpha"):
+        fe.elastic_center_flat(p, p, torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        fe.elastic_exchange_flat_mc(torch.zeros(2, 10, device=cuda),
+                                    torch.zeros(9, device=cuda), alpha)
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adamw", "adagrad"])
@@ -138,3 +251,43 @@ def test_reduced_train_step_card_matches_cpu(cuda, optimizer):
     for a, b in zip(tree_leaves(states["cuda"]["params"]),
                     tree_leaves(states["cpu"]["params"])):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-5)
+
+
+def test_reduced_shard_driver_card_matches_cpu(cuda):
+    """Three steps of the (2, 2) shard driver (mpi_esgd, interval 2, int8
+    wire) on the card and on the CPU from the same weights. A value next
+    to an int8 rounding boundary can take the neighbouring code on one
+    device and not the other (the gradients differ in the last bits), so
+    params are held to the reference's band for a quantized leg (rtol
+    1e-2, atol 2e-3) and the losses to rtol 1e-4."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.comm import CollectivePolicy
+    from repro_torch.core.hierarchy import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import shard_driver as sd
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    opt = sgd(0.1, momentum=0.9)
+    sync = SyncConfig(mode="mpi_esgd", num_clients=2, esgd_interval=2,
+                      policy=CollectivePolicy(method="ring", num_rings=2,
+                                              wire_dtype="int8"))
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=64, batch_size=8))
+    states, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        state = tree_map(lambda a: a.to(dev), sd.make_driver_state(
+            model, opt, sync, (2, 2), device="cpu"))
+        step = sd.make_emulated_step(model, opt, sync, (2, 2))
+        losses[dev] = []
+        for i in range(3):
+            state, met = step(state, sd.shard_batch(pipe.batch_at(0, i), (2, 2)))
+            losses[dev].append(float(met["loss"]))
+        states[dev] = state
+    torch.testing.assert_close(torch.tensor(losses["cuda"]),
+                               torch.tensor(losses["cpu"]), rtol=1e-4, atol=0)
+    for key in ("params", "center"):
+        for a, b in zip(tree_leaves(states["cuda"][key]),
+                        tree_leaves(states["cpu"][key])):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-2, atol=2e-3)

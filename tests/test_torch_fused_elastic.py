@@ -1,0 +1,108 @@
+"""The port's fused elastic kernels (plain PyTorch versions, the CPU path
+of each wrapper) held against the reference's Pallas kernels run in
+interpret mode on the same numpy inputs.
+
+Tolerances: f32 outputs exactly equal for ``elastic_client_diff_flat``,
+``elastic_center_flat`` and ``elastic_exchange_flat_mc`` at C <= 2;
+rtol 1e-6 for the center at C = 4, because the reference's sum over the
+C rows is an XLA reduction whose order is not fixed (the port sums
+c = 0 … C-1); bf16 outputs within 1 bf16 ulp."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.fused_elastic import fused_elastic as jfe  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.kernels.fused_elastic import fused_elastic as tfe  # noqa: E402
+
+torch.set_num_threads(2)
+
+SIZES = (1000, 4099, 131072)
+DTYPES = ("float32", "bfloat16")
+ALPHA = np.float32(0.5 / 3)
+
+
+def _t(a):
+    return params_from_numpy(np.asarray(a))
+
+
+def _alpha():
+    return torch.tensor(ALPHA, dtype=torch.float32)
+
+
+def _check(got, want, *, rtol=0.0):
+    want = np.asarray(want)
+    if want.dtype == jnp.bfloat16:
+        assert got.dtype == torch.bfloat16
+        g, w = got.float().numpy(), want.astype(np.float32)
+        _, e = np.frexp(w)
+        ulp = np.maximum(np.ldexp(np.float32(1.0), e - 8), np.float32(2.0 ** -133))
+        assert np.all(np.abs(g - w) <= ulp)
+    elif rtol:
+        np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=0)
+    else:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _wc(rng, shape, dtype):
+    w = rng.standard_normal(shape).astype(np.float32)
+    c = (w.reshape(-1, shape[-1])[0] + 0.1 * rng.standard_normal(shape[-1])
+         ).astype(np.float32)
+    return jnp.asarray(w).astype(dtype), jnp.asarray(c).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_client_diff_plain_matches_pallas(n, dtype):
+    w, c = _wc(np.random.default_rng(n), (n,), dtype)
+    jw, jd = jfe.elastic_client_diff_flat(w, c, ALPHA)
+    before = tfe.elastic_client_diff_flat.launches
+    tw, td = tfe.elastic_client_diff_flat(_t(w), _t(c), _alpha())
+    assert tfe.elastic_client_diff_flat.launches == before  # CPU: no launch
+    assert td.dtype == torch.float32 and tw.dtype == _t(w).dtype
+    _check(tw, jw)
+    _check(td, jd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_center_plain_matches_pallas(n, dtype):
+    rng = np.random.default_rng(10 + n)
+    c = jnp.asarray(rng.standard_normal(n).astype(np.float32)).astype(dtype)
+    ds = jnp.asarray(rng.standard_normal(n).astype(np.float32))
+    want = jfe.elastic_center_flat(c, ds, ALPHA)
+    before = tfe.elastic_center_flat.launches
+    got = tfe.elastic_center_flat(_t(c), _t(ds), _alpha())
+    assert tfe.elastic_center_flat.launches == before
+    _check(got, want)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_multiclient_plain_matches_pallas(n, dtype, C):
+    w, c = _wc(np.random.default_rng(20 + n + C), (C, n), dtype)
+    alpha = np.float32(0.5 / C)
+    jw, jc = jfe.elastic_exchange_flat_mc(w, c, alpha)
+    before = tfe.elastic_exchange_flat_mc.launches
+    tw, tc = tfe.elastic_exchange_flat_mc(_t(w), _t(c),
+                                          torch.tensor(alpha, dtype=torch.float32))
+    assert tfe.elastic_exchange_flat_mc.launches == before
+    _check(tw, jw)
+    _check(tc, jc, rtol=1e-6 if (C > 2 and dtype == "float32") else 0.0)
+
+
+def test_stacked_rows_are_one_call():
+    """A stacked (rows, n) buffer runs as one flat pass: the same values
+    as the rows one by one."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((3, 500)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((3, 500)).astype(np.float32))
+    nw, d = tfe.elastic_client_diff_flat(w, c, _alpha())
+    for i in range(3):
+        rw, rd = tfe.elastic_client_diff_flat(w[i], c[i], _alpha())
+        assert torch.equal(nw[i], rw) and torch.equal(d[i], rd)

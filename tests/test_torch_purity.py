@@ -24,10 +24,14 @@ from repro_torch.launch.train import make_train_state, make_train_step
 from repro_torch.models.model import build_model
 from repro_torch import bridge, tree
 from repro_torch.checkpoint import checkpoint
-from repro_torch.core import comm, flatbuf, hierarchy, sync_engine
+from repro_torch.core import (collectives, comm, cost_model, elastic, flatbuf,
+                              hierarchy, sync_engine)
 from repro_torch.kernels import common
+from repro_torch.kernels.fused_elastic import fused_elastic
 from repro_torch.kernels.fused_optim import fused_optim
 from repro_torch.kernels.fused_sgd import fused_sgd
+from repro_torch.kernels.quant_bucket import quant_bucket
+from repro_torch.launch import shard_driver
 from repro_torch.optim import sgd
 model = build_model(reduced(get_config("qwen2-0.5b")))
 s = TrainSettings(optimizer_name="adamw", lr=1e-3)
@@ -35,6 +39,14 @@ state = make_train_state(model, s.optimizer(), s.sync_config(), device="cpu")
 step = make_train_step(model, s.optimizer(), s.sync_config(), device="cpu")
 batch = TokenPipeline(DataConfig(vocab_size=256, seq_len=16, batch_size=2)).batch_at(0, 0)
 state, met = step(state, batch)
+assert torch.isfinite(met["loss"])
+esgd = hierarchy.SyncConfig(mode="mpi_esgd", num_clients=2, esgd_interval=1,
+                            policy=comm.CollectivePolicy(method="ring", wire_dtype="int8"))
+opt = sgd.sgd(0.1, 0.9)
+dstate = shard_driver.make_driver_state(model, opt, esgd, (2, 2), device="cpu")
+dstep = shard_driver.make_emulated_step(model, opt, esgd, (2, 2))
+batch4 = TokenPipeline(DataConfig(vocab_size=256, seq_len=16, batch_size=4)).batch_at(0, 0)
+dstate, met = dstep(dstate, shard_driver.shard_batch(batch4, (2, 2)))
 assert torch.isfinite(met["loss"])
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "repro.")))

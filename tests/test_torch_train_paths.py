@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 
 from _torch_parity import assert_params_close, port_run, reference_run  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
+from repro_torch.core.comm import CollectivePolicy  # noqa: E402
 from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
 from repro_torch.core.sync_engine import FlatEngine, SyncEngine, make_sync_engine  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
@@ -98,9 +99,15 @@ def test_engine_selection_and_layout_guards():
         adam.check_opt_layout(torch.zeros(3))
     with pytest.raises(ValueError, match="FlatBuffer spec"):
         make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig())
-    for sync in (SyncConfig(mode="mpi_esgd"), SyncConfig(num_clients=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_sync_engine(tsgd.sgd(0.1, 0.9), sync, spec=spec)
+    # mpi_esgd and C > 1 engines exist now; overlap and meshes do not yet
+    esgd = make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(mode="mpi_esgd"),
+                            spec=spec)
+    assert isinstance(esgd, FlatEngine) and esgd.flat_exchange
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(
+            policy=CollectivePolicy(method="ring", overlap=True)), spec=spec)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(), object(), spec=spec)
 
 
 @pytest.mark.parametrize("name", ["sgd", "adagrad", "adamw"])
