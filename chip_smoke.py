@@ -33,6 +33,22 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  counted against the cost model; after each run, the SGD
                  kernel on that run's stacked param / momentum / grad
                  shards held against its plain version
+  6. ps       slice 3, the in-process PS tier (KVStore + algorithms.run):
+              a) the reduced model, all six modes (and mpi-/dist-ESGD over
+                 the int8 wire) on the card against the CPU: the simulated
+                 clock equal, losses and eval metrics within rtol 1e-4
+              b) full-width qwen2-0.5b in bf16, mpi-ESGD with 4 workers in
+                 2 clients, 2 x 512 tokens per worker, 4 iterations per
+                 client (8 completions, 4 exchanges), over the int8 PS wire
+                 and then the f32 one: launch counts, finite losses, the
+                 center's eval loss below its start, PS wire bytes against
+                 the cost model, the four PS-tier kernels held against
+                 their plain versions on the run's last exchange operands,
+                 a completion's split, peak memory and device-busy share
+
+Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
+dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
+full-width buffer, n = 494,147,584.
 
 Prints a ``kernels`` JSON line, the card line, and last the ok line.
 """
@@ -54,15 +70,17 @@ import torch  # noqa: E402
 # the port itself: fails here (exit 1) outside a checkout of the repo
 from repro_torch.checkpoint.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.base import TrainSettings, get_config, reduced  # noqa: E402
-from repro_torch.core import cost_model, flatbuf  # noqa: E402
+from repro_torch.core import algorithms as alg, cost_model, flatbuf  # noqa: E402
 from repro_torch.core.collectives import WireMeter  # noqa: E402
 from repro_torch.core.comm import CollectivePolicy, sync_comms  # noqa: E402
 from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
+from repro_torch.core.kvstore import KVStore  # noqa: E402
 from repro_torch.core.sync_engine import make_sync_engine  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
+from repro_torch.kernels.quant_bucket import quant_bucket as qb  # noqa: E402
 from repro_torch.launch import shard_driver as sd  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_train_state, make_train_step, stacked_grads)
@@ -117,11 +135,41 @@ ELASTIC_KERNELS = {
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:151",
         rtol=1e-6, atol=1e-7),
 }
-ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS}
+#: slice 3's kernels: every output held to exact equality with the plain
+#: version (codes, scales, decoded values, eqs. (2)/(3) at 0 ulp)
+PS_KERNELS = {
+    "quantize_wire": dict(
+        wrapper=qb.quantize_wire, plain=qb.quantize_wire_plain,
+        source="src/repro_torch/kernels/quant_bucket/quant_bucket.py",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:168",
+        flops_per_elem=5),
+    "dequantize_wire": dict(
+        wrapper=qb.dequantize_wire, plain=qb.dequantize_wire_plain,
+        source="src/repro_torch/kernels/quant_bucket/quant_bucket.py",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:199",
+        flops_per_elem=1),
+    "elastic_client_flat": dict(
+        wrapper=fe.elastic_client_flat, plain=fe.elastic_client_flat_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:83",
+        flops_per_elem=3),
+    "elastic_server_flat": dict(
+        wrapper=fe.elastic_server_flat, plain=fe.elastic_server_flat_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:97",
+        flops_per_elem=3),
+}
+ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS, **PS_KERNELS}
 #: slice 2's full-width runs: 6 momentum-SGD steps each, global batch
 #: 8 x 512 (C = 2 clients of 4 x 512; 4 devices of 2 x 512)
 ESGD_STEPS = 6
 ESGD_LR = 0.1
+#: slice 3's full-width run: 4 workers in 2 clients, 2 x 512 tokens per
+#: worker pass, 4 iterations per client, an exchange every 2
+PS_ITERS = 4
+PS_RUN = dict(mode="mpi_esgd", num_workers=4, num_clients=2, num_servers=1,
+              lr=0.1, momentum=0.9, esgd_alpha=0.5, esgd_interval=2, epochs=1,
+              steps_per_epoch=PS_ITERS, optimizer="sgd", seed=0)
 
 
 def log(msg: str) -> None:
@@ -795,6 +843,328 @@ def phase_esgd(dev) -> tuple[dict, dict]:
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (slice 3): the PS tier's kernels at the packed full-width buffer
+# ---------------------------------------------------------------------------
+
+def _wire_input(n, dev):
+    """The packed buffer's stand-in: normal values, one all-zero bucket and
+    one bucket of ±k.5 at scale 1 (ties that round half to even)."""
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    x[:128] = 0.0
+    x[128] = 127.0
+    x[129:256] = torch.arange(-63, 64, device=dev) + 0.5
+    return x
+
+
+def _hold_ps(name, args, got=None) -> float:
+    """One PS-tier kernel against its plain version on the same operands:
+    every output equal. Returns the max |kernel − plain| of the values
+    (0.0), after checking equality exactly."""
+    k = PS_KERNELS[name]
+    got = k["wrapper"](*args) if got is None else got
+    want = k["plain"](*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad = int((g != w).sum()) if g.shape == w.shape else -1
+            raise AssertionError(f"{name}: kernel != plain ({bad} elements of "
+                                 f"{tuple(w.shape)} {w.dtype})")
+    return max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def phase_ps_kernels(spec, dev) -> dict:
+    n = spec.size
+    results = {}
+    x = _wire_input(n, dev)
+    c = x + 0.01 * torch.randn(n, generator=torch.Generator(device=dev).manual_seed(4),
+                               device=dev)
+    alpha = torch.tensor(PS_RUN["esgd_alpha"], device=dev)
+    # dequantize_wire decodes what the quantize case encoded
+    cases = {"quantize_wire": lambda: (x,),
+             "dequantize_wire": lambda: (*codec, n),
+             "elastic_client_flat": lambda: (x, c, alpha),
+             "elastic_server_flat": lambda: (x, c, alpha)}
+    for name, make_args in cases.items():
+        k = PS_KERNELS[name]
+        args = make_args()
+        t0 = time.perf_counter()
+        got = k["wrapper"](*args)              # first call builds the kernel
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        err = _hold_ps(name, args, got)
+        if name == "quantize_wire":
+            codec = got
+            # the ±k.5 bucket at scale 1 rounds half to even
+            torch.testing.assert_close(
+                qb.dequantize_wire_plain(codec[0][:256], codec[1][:2], 256)[129:],
+                torch.round(torch.arange(-63, 64, device=dev) + 0.5), rtol=0, atol=0)
+        outs = got if isinstance(got, tuple) else (got,)
+        moved = nbytes(*(a for a in args if torch.is_tensor(a) and a.dim())) + nbytes(*outs)
+        del got, outs
+        ms = cuda_ms(lambda: k["wrapper"](*args), reps=10)
+        plain_ms = cuda_ms(lambda: k["plain"](*args), reps=2, warmup=1)
+        library_ms, a = None, float(alpha)
+        if name == "elastic_client_flat":      # w + α (w̃ − w) = eq. (3)
+            library_ms = cuda_ms(lambda: torch.lerp(x, c, a), reps=10)
+        elif name == "elastic_server_flat":    # w̃ + α (w − w̃) = eq. (2)
+            library_ms = cuda_ms(lambda: torch.lerp(c, x, a), reps=10)
+        else:
+            log(f"[kernels] {name}: no library yardstick — no one PyTorch call "
+                "computes the per-128-bucket absmax int8 codec")
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = k["flops_per_elem"] * n / F32_FLOPS_PER_S * 1e3
+        log(f"[kernels] {name} n={n} first call {build_s:.2f} s (build + run) "
+            f"max_abs_err={err:.3e} (all outputs ==) ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms} bytes={moved} "
+            f"bound_ms={max(bytes_ms, ops_ms):.4f}")
+        results[name] = {
+            "name": name, "route": "triton", "source": k["source"],
+            "replaces": k["replaces"], "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        }
+        del args
+        torch.cuda.empty_cache()
+    del x, c, codec
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6: slice 3 — the in-process PS tier through algorithms.run
+# ---------------------------------------------------------------------------
+
+def _grad_loss_only(grad_fn):
+    """``algorithms.run``'s grad_fn: (params, batch) -> (loss, grads)."""
+    def fn(params, batch):
+        loss, _, grads = grad_fn(params, batch)
+        return loss, grads
+    return fn
+
+
+def _eval_fn(model, batch):
+    def fn(params) -> float:
+        with torch.no_grad():
+            return float(model.loss_fn(params, batch)[0])
+    return fn
+
+
+def phase_ps_small(dev) -> None:
+    """Reduced model, f32: every mode of ``algorithms.run`` (and mpi-/dist-
+    ESGD over the int8 wire) on the card against the same run on the CPU,
+    from the same weights. The simulated clock must be equal; losses and
+    the eval metrics within rtol 1e-4, as in [esgd:small]."""
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    p0 = model.init(device="cpu", seed=0)
+    grad = _grad_loss_only(make_grad_fn(model))
+    data = dict(vocab_size=256, seq_len=64, batch_size=2, steps_per_epoch=2)
+    held = TokenPipeline(DataConfig(**data, shard=99)).batch_at(0, 0)
+    runs = [(m, None) for m in alg.MODES] + [("mpi_esgd", "int8"), ("dist_esgd", "int8")]
+    for mode, wire in runs:
+        cfg = alg.AlgoConfig(mode=mode, num_workers=4, num_clients=2, num_servers=1,
+                             epochs=2, steps_per_epoch=2, esgd_interval=2,
+                             compute_time=0.2, jitter=0.1, model_bytes=1e7,
+                             policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                     wire_dtype=wire))
+        out = {}
+        for d in ("cpu", dev):
+            key = torch.device(d).type
+            out[key] = alg.run(
+                cfg, lambda gen, d=d: tree_map(lambda a: a.to(d), p0), grad,
+                _eval_fn(model, {k: v.to(d) for k, v in held.items()}),
+                lambda w, d=d: TokenPipeline(DataConfig(**data, shard=w), device=d),
+                device=d)
+        c, g = out["cpu"], out["cuda"]
+        for f in ("times", "epochs", "epoch_time", "mean_staleness", "live_clients",
+                  "pushed_bytes"):
+            if getattr(g, f) != getattr(c, f):
+                raise AssertionError(f"[ps:small] {mode} {wire}: {f} card "
+                                     f"{getattr(g, f)} != cpu {getattr(c, f)}")
+        torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
+                                   rtol=1e-4, atol=0)
+        torch.testing.assert_close(torch.tensor(g.metrics), torch.tensor(c.metrics),
+                                   rtol=1e-4, atol=0)
+        log(f"[ps:small] {mode} wire={wire}: clock {g.times} / epoch_time "
+            f"{g.epoch_time:.6f} / staleness {g.mean_staleness:.3f} == cpu; "
+            f"losses {[round(x, 5) for x in g.losses]} metrics "
+            f"{[round(x, 5) for x in g.metrics]} within rtol 1e-4 of cpu")
+
+
+class _ExchangeRecorder:
+    """Wraps ``algorithms.elastic_client_packed`` for one run and keeps the
+    last exchange's operands — the pushed replica (= the client's params)
+    and the center as it was before that push — for the holds after it."""
+
+    def __init__(self):
+        self.last = None
+        self._orig = alg.elastic_client_packed
+
+    def __call__(self, params, center, alpha):
+        self.last = (params, center, alpha)
+        return self._orig(params, center, alpha)
+
+    def __enter__(self):
+        alg.elastic_client_packed = self
+        return self
+
+    def __exit__(self, *exc):
+        alg.elastic_client_packed = self._orig
+
+
+def _hold_last_exchange(spec, params, center, alpha, wire) -> dict:
+    """The PS-tier kernels on the run's own last exchange operands, each
+    against its plain version: the codec on the packed push (int8), the
+    server rule on (what crossed the wire, the old center), the client
+    rule on (the push, the old center)."""
+    errs = {}
+    x = spec.pack(params)
+    c = spec.pack(center)
+    a = torch.tensor(float(alpha), device=x.device)
+    recv = x
+    if wire == "int8":
+        errs["quantize_wire"] = _hold_ps("quantize_wire", (x,))
+        codes, scales = qb.quantize_wire(x)
+        errs["dequantize_wire"] = _hold_ps("dequantize_wire", (codes, scales, spec.size))
+        recv = qb.dequantize_wire(codes, scales, spec.size)
+        del codes, scales
+    errs["elastic_server_flat"] = _hold_ps("elastic_server_flat", (recv, c, a))
+    errs["elastic_client_flat"] = _hold_ps("elastic_client_flat", (x, c, a))
+    return errs
+
+
+def _ps_split(cfg, model, grad, params, center, batches) -> dict:
+    """One completion's pieces, each timed alone on the run's last exchange
+    operands: forward + backward of the client's two workers, the
+    intra-client allreduce, the push (wire + server rule), the client's
+    Elastic2 and the update."""
+    group = alg._worker_group(cfg)
+    out = {"fwd_bwd_ms": cuda_ms(lambda: alg._member_grads(grad, params, batches),
+                                 reps=2, warmup=1)}
+    _, stacked = alg._member_grads(grad, params, batches)
+    out["allreduce_ms"] = cuda_ms(lambda: group.emulate_reduce(stacked), reps=3, warmup=1)
+    _, g = alg._client_grad(grad, params, batches, group)
+    del stacked
+    kv = KVStore.create("async_mpi", num_workers=cfg.num_workers,
+                        num_clients=cfg.num_clients, wire_dtype=cfg.effective_wire_dtype)
+    kv.init("centers", center)
+    kv.set_elastic(cfg.esgd_alpha)
+    out["push_ms"] = cuda_ms(lambda: kv.push("centers", params), reps=3, warmup=1)
+    out["elastic2_ms"] = cuda_ms(
+        lambda: alg.elastic_client_packed(params, center, cfg.esgd_alpha), reps=3, warmup=1)
+    opt = alg._make_opt(cfg, params)
+    state = opt.init(params)
+    out["update_ms"] = cuda_ms(lambda: opt.update(g, state, params), reps=3, warmup=1)
+    out["exchange_completion_ms"] = sum(out.values())
+    out["plain_completion_ms"] = (out["fwd_bwd_ms"] + out["allreduce_ms"]
+                                  + out["update_ms"])
+
+    def completion():
+        _, grads = alg._client_grad(grad, params, batches, group)
+        kv.push("centers", params)
+        p = alg.elastic_client_packed(params, kv.value("centers"), cfg.esgd_alpha)
+        opt.update(grads, state, p)
+
+    out["device_busy_share"], out["device_busy_ms"], out["profiled_ms"] = \
+        _device_busy(lambda *_: completion(), None, None)
+    return out
+
+
+def phase_ps(dev) -> tuple[dict, dict, dict]:
+    cfg_model = get_config("qwen2-0.5b")
+    model = build_model(cfg_model)
+    spec = grad_spec(model)
+    grad = _grad_loss_only(make_grad_fn(model))
+    data = dict(seed=0, vocab_size=256, seq_len=512, batch_size=2,
+                steps_per_epoch=PS_ITERS, num_shards=PS_RUN["num_workers"])
+    held = TokenPipeline(DataConfig(**dict(data, shard=99)), device=dev).batch_at(0, 0)
+    evaluate = _eval_fn(model, held)
+    log(f"[ps] full-width {cfg_model.name} {cfg_model.dtype}: FlatBuffer payload="
+        f"{spec.payload} size={spec.size}; {PS_RUN['num_workers']} workers in "
+        f"{PS_RUN['num_clients']} clients, 2 x 512 tokens per worker pass, "
+        f"{PS_ITERS} iterations per client (8 completions), interval "
+        f"{PS_RUN['esgd_interval']} (4 exchanges), momentum SGD lr "
+        f"{PS_RUN['lr']}, alpha {PS_RUN['esgd_alpha']}")
+    launches, errs, report = {}, {}, {}
+    for wire in ("int8", None):
+        cfg = alg.AlgoConfig(**PS_RUN, model_bytes=4.0 * spec.payload,
+                             policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                     wire_dtype=wire))
+        params0 = model.init(device=dev, seed=0)
+        start_loss = evaluate(params0)
+        tree_bytes = sum(l.numel() * l.element_size() for l in tree_leaves(params0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _ExchangeRecorder() as rec:
+            t0 = time.perf_counter()
+            hist = alg.run(cfg, lambda gen: params0, grad, evaluate,
+                           lambda w: TokenPipeline(DataConfig(**dict(data, shard=w)),
+                                                   device=dev), device=dev)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        got = counts(ALL_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"quantize_wire": 4 if wire else 0, "dequantize_wire": 4 if wire else 0,
+                "elastic_server_flat": 4, "elastic_client_flat": 4,
+                "sgd_momentum_flat": 2 * PS_ITERS}
+        label = f"mpi_esgd wire={wire or 'f32'}"
+        for name, cnt in got.items():
+            if cnt != want.get(name, 0):
+                raise AssertionError(f"[ps] {label}: {name} launched {cnt} times, "
+                                     f"want {want.get(name, 0)}")
+        if wire:
+            launches.update({k: v for k, v in want.items() if k in PS_KERNELS})
+        if not all(math.isfinite(x) for x in hist.losses + hist.metrics):
+            raise AssertionError(f"[ps] {label}: non-finite loss {hist.losses} "
+                                 f"{hist.metrics}")
+        if not hist.metrics[-1] < start_loss:
+            raise AssertionError(f"[ps] {label}: the center's eval loss "
+                                 f"{hist.metrics[-1]} is not below its start {start_loss}")
+        pushes = 4
+        want_bytes = (pushes * cost_model.ps_wire_nbytes(spec.payload, "int8") if wire
+                      else pushes * tree_bytes)   # f32 wire: the tree as it is
+        if hist.pushed_bytes != want_bytes:
+            raise AssertionError(f"[ps] {label}: {hist.pushed_bytes} PS wire bytes, "
+                                 f"cost model {want_bytes}")
+        params, center, alpha = rec.last
+        held_errs = _hold_last_exchange(spec, params, center, alpha, wire)
+        for name, e in held_errs.items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        log(f"[ps] {label}: losses {[round(x, 4) for x in hist.losses]} center eval "
+            f"{start_loss:.4f} -> {hist.metrics[-1]:.4f}; launches "
+            f"{ {k: v for k, v in got.items() if v} }; PS wire bytes {hist.pushed_bytes} "
+            f"== cost model; kernels == plain on the last exchange's operands "
+            f"({sorted(held_errs)}); simulated epoch {hist.epoch_time:.4f} s")
+        pipes = [TokenPipeline(DataConfig(**dict(data, shard=w)), device=dev)
+                 for w in range(2)]
+        split = _ps_split(cfg, model, grad, params, center,
+                          [p.batch_at(0, PS_ITERS - 1) for p in pipes])
+        del params, center, rec, params0
+        report[label] = {"losses": hist.losses, "center_eval": [start_loss] + hist.metrics,
+                         "run_ms": wall_ms, "mean_completion_ms": wall_ms / (2 * PS_ITERS),
+                         "peak_mem_bytes": peak, "pushed_bytes": hist.pushed_bytes,
+                         "launches": {k: v for k, v in got.items() if v}, **split}
+        log(f"[ps] {label}: run {wall_ms:.1f} ms for 8 completions (set-up and one "
+            f"eval included) = {wall_ms / 8:.1f} ms each; peak_mem "
+            f"{peak / 2**30:.2f} GiB; split: fwd+bwd (2 workers) "
+            f"{split['fwd_bwd_ms']:.2f} ms, intra-client allreduce "
+            f"{split['allreduce_ms']:.2f} ms, push (wire + server rule) "
+            f"{split['push_ms']:.2f} ms, Elastic2 {split['elastic2_ms']:.2f} ms, "
+            f"update {split['update_ms']:.2f} ms -> exchange completion "
+            f"{split['exchange_completion_ms']:.1f} ms, plain completion "
+            f"{split['plain_completion_ms']:.1f} ms; profiled exchange completion "
+            f"{split['profiled_ms']:.1f} ms, device busy {split['device_busy_ms']} ms "
+            f"(share {split['device_busy_share']})")
+        torch.cuda.empty_cache()
+    log("[ps] " + json.dumps({"ps": report}))
+    return launches, errs, report
+
+
 def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
@@ -802,6 +1172,7 @@ def main() -> None:
     n = flatbuf.shard_size(spec, 1, 2)
     kernels = phase_kernels(n, dev)
     kernels.update(phase_elastic_kernels(spec, dev))
+    kernels.update(phase_ps_kernels(spec, dev))
     phase_small_reference(dev)
     launches, _, params = phase_slice(dev)
     phase_checkpoint(params)
@@ -811,6 +1182,11 @@ def main() -> None:
     esgd_launches, report = phase_esgd(dev)
     for name, c in esgd_launches.items():
         launches.setdefault(name, c)
+    phase_ps_small(dev)
+    ps_launches, ps_errs, _ = phase_ps(dev)
+    launches.update(ps_launches)
+    for name, e in ps_errs.items():     # worst hold: phase 2 or the run's operands
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     sgd_row = kernels["sgd_momentum_flat"]    # worst hold: phase 2 or a run's shards
     sgd_row["max_abs_err"] = max([sgd_row["max_abs_err"]]
                                  + [r["sgd_max_abs_err"] for r in report.values()])

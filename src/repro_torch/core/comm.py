@@ -25,10 +25,15 @@ over ``("pod", "data")`` reduce-scatters over ``pod`` first, then over
 geometry. A ``WireMeter`` on the world (``meter=``) counts the bytes
 every ring hop puts on the wire; carved groups share it.
 
+The tensor (pytree) collectives pack the whole tree once and run the
+same ring programs on the packed buffer; ``emulate_reduce`` runs one over
+a stacked member dim, as the in-process PS tier (``core/kvstore``,
+``core/algorithms``) holds a group's values.
+
 Not ported yet, and raising ``NotImplementedError`` naming their slice:
-``resized`` (elastic membership), the schedule-bucketed legs of backward
-overlap, and the tensor (pytree) collectives of the PS tier. A real
-multi-GPU backend (``torch.distributed``) is queued in ROADMAP.
+``resized`` (elastic membership, slice 4) and the schedule-bucketed legs
+of backward overlap. A real multi-GPU backend (``torch.distributed``) is
+queued in ROADMAP.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from repro_torch.core.collectives import (  # noqa: F401 (re-exported)
     WireMeter,
     check_wire_dtype,
 )
+from repro_torch.tree import tree_map
 
 #: the policy knob names, in canonical order
 _POLICY_FIELDS = ("method", "num_rings", "bucket_bytes", "wire_dtype",
@@ -375,12 +381,56 @@ class Communicator:
 
     allgather_sched = shard_select_sched = reduce_scatter_bucket
 
-    def tensor_allreduce(self, *args, **kw):
-        raise NotImplementedError(
-            "not yet ported: tensor (pytree) collectives belong to the "
-            "PS-tier slice")
+    # -- tensor (fused-pytree) collectives ------------------------------------
+    def _member_spec(self, tree) -> flatbuf.FlatBuffer:
+        """The FlatBuffer of ONE device's tree (the frame dims stripped)."""
+        k = len(self.frame)
+        return flatbuf.spec_for(tree_map(lambda l: l[(0,) * k], tree))
 
-    pushpull = emulate_reduce = tensor_allreduce
+    def tensor_allreduce(self, tree, *, mean: bool = False,
+                         spec: Optional[flatbuf.FlatBuffer] = None):
+        """Allreduce a whole stacked pytree as ONE fused flat buffer (the
+        paper's group-of-vectors object), under this group's policy;
+        ``per_leaf`` is the one-vector-at-a-time baseline."""
+        if self.policy.method == "per_leaf":
+            self._require_plain_wire("the per-leaf baseline")
+            out = tree
+            for a in self.axes:
+                out = tree_map(
+                    lambda l, a=a: C.allreduce(
+                        self._flat(l.float()), self._dim(a), "ring",
+                        meter=self.meter).reshape(l.shape).to(l.dtype), out)
+            if mean:
+                p = self.resolve_size()
+                out = tree_map(lambda l: l / p, out)
+            return out
+        spec = spec or self._member_spec(tree)
+        return spec.unpack(self.allreduce(spec.pack(tree), mean=mean))
+
+    def pushpull(self, tree, *, fused: bool = True,
+                 spec: Optional[flatbuf.FlatBuffer] = None):
+        """The KVStore.pushpull pattern inside this group (§4.2.4 with
+        #servers = 0): ``fused=True`` is one tensor allreduce (mean) under
+        the group's bucket algorithm; ``fused=False`` is push then pull —
+        a binomial tree reduce + broadcast of the packed buffer."""
+        if fused:
+            return self.tensor_allreduce(tree, mean=True, spec=spec)
+        self._require_plain_wire("the tree push + tree pull pattern")
+        spec = spec or self._member_spec(tree)
+        buf = spec.pack(tree)
+        for a in self.axes:
+            buf = C.tree_allreduce(buf, self._dim(a))
+        return spec.unpack(buf / self.resolve_size())
+
+    def emulate_reduce(self, stacked, *, mean: bool = False):
+        """The group collective over a *stacked* member value: one leading
+        dim per axis of the group, of the axis' static size — how the
+        in-process PS tier holds a group's values. The group's own axes
+        become the frame; the pytree is packed once."""
+        if self.is_trivial:
+            return stacked
+        return replace(self, frame=self.axes).tensor_allreduce(stacked,
+                                                               mean=mean)
 
 
 #: module-level trivial group (MPI_COMM_SELF with the default policy)

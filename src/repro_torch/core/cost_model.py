@@ -1,13 +1,35 @@
-"""Wire-byte accounting of the ring legs (``repro/core/cost_model.py``,
-the byte functions of lines 41-84).
+"""α-β-γ communication cost model (``repro/core/cost_model.py``).
 
-Only the byte functions are ported: the α-β-γ time constants of the
-reference describe its testbed and a TPU, not this port's hardware, and
-an H100 model comes from a measured run. The emulated collectives count
-the bytes each hop puts on the wire (``core.collectives.WireMeter``), and
-the tests hold those counts to these functions.
+Bucket allreduce cost (Patarasuk & Yuan):  (p−1)α + 2·(p−1)/p·nβ + (p−1)/p·nγ
+Multi-ring overlaps the γ (reduction) term with the β (transfer) term.
+PS push/pull: a server's ingress link is shared by every concurrent pusher
+(the network hot-spot of the paper's §2.3).
+
+Ported: the wire-byte functions the emulated collectives are held to
+(``core.collectives.WireMeter`` counts each hop's bytes), and the time
+functions the six-mode simulation (``core.algorithms``) charges to its
+simulated clock. The one network preset is ``testbed()``, the paper's
+InfiniBand ConnectX-4 cluster: it prices the simulated clock of the
+paper's experiments and describes no hardware this port runs on. The
+reference's second preset, a TPU's interconnect, is not carried over.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class NetParams:
+    alpha: float   # per-step latency (s)
+    beta: float    # seconds per byte (link bandwidth⁻¹)
+    gamma: float   # seconds per byte of local reduction
+
+
+def testbed() -> NetParams:
+    # the paper's IB CX-4 ~ 12.5 GB/s; host reduction ~30 GB/s
+    return NetParams(alpha=5e-6, beta=1 / 12.5e9, gamma=1 / 30e9)
+
 
 #: f32 -> wire byte ratio per wire dtype. int8 counts the codes (1 byte
 #: per value) plus one f32 scale per WIRE_BLOCK = 128 bucket, matching
@@ -54,3 +76,146 @@ def elastic_leg_bytes(nbytes: float, p: int,
     """Per-device wire bytes of one sharded elastic exchange: the packed
     diff reduce-scatter + the center-shard allgather."""
     return 2 * grad_leg_bytes(nbytes, p, wire_dtype)
+
+
+def ps_push_bytes(nbytes: float, wire_dtype: "str | None" = None) -> float:
+    """PS-leg wire bytes of one push (the KVStore's compressed form)."""
+    return wire_bytes(nbytes, wire_dtype)
+
+
+def ps_wire_nbytes(n_values: int, wire_dtype: "str | None" = None) -> int:
+    """EXACT PS-leg payload bytes of one push of ``n_values`` f32 values:
+
+      f32   4n
+      bf16  2n
+      int8  n_pad + n_pad/128 * 4   (codes + one f32 scale per
+                                     WIRE_BLOCK = 128 bucket, n padded
+                                     up to whole buckets)
+    """
+    if wire_dtype in (None, "f32"):
+        return 4 * n_values
+    if wire_dtype == "bf16":
+        return 2 * n_values
+    if wire_dtype == "int8":
+        from repro_torch.kernels.quant_bucket.quant_bucket import WIRE_BLOCK
+
+        n_pad = -(-n_values // WIRE_BLOCK) * WIRE_BLOCK
+        return n_pad + (n_pad // WIRE_BLOCK) * 4
+    raise ValueError(f"wire_dtype must be None/f32/bf16/int8, "
+                     f"got {wire_dtype!r}")
+
+
+def reduce_scatter_time(nbytes: float, p: int, net: NetParams,
+                        wire_dtype: "str | None" = None) -> float:
+    """One ring reduce-scatter leg: the allreduce's first half — (p−1)
+    latency hops, (p−1)/p·n transfer (wire-scaled) and reduction."""
+    if p <= 1:
+        return 0.0
+    return (
+        (p - 1) * net.alpha
+        + (p - 1) / p * wire_bytes(nbytes, wire_dtype) * net.beta
+        + (p - 1) / p * nbytes * net.gamma
+    )
+
+
+def allgather_time(nbytes: float, p: int, net: NetParams,
+                   wire_dtype: "str | None" = None) -> float:
+    """One ring allgather leg: the allreduce's second half (no γ)."""
+    if p <= 1:
+        return 0.0
+    return (
+        (p - 1) * net.alpha
+        + (p - 1) / p * wire_bytes(nbytes, wire_dtype) * net.beta
+    )
+
+
+def overlap_fraction(bucket_bytes: "list[float] | tuple", p: int) -> float:
+    """Structural fraction of the gradient reduce-scatter's wire bytes
+    issued while backward compute remains: bucket 0 (the embedding stage,
+    differentiated last) is the one leg with nothing left to hide behind,
+    so ``1 − bucket_bytes[0] / sum(bucket_bytes)``; 0.0 for a single
+    bucket or p ≤ 1."""
+    total = sum(bucket_bytes)
+    if p <= 1 or len(bucket_bytes) <= 1 or total <= 0:
+        return 0.0
+    return 1.0 - bucket_bytes[0] / total
+
+
+def overlapped_step_time(compute_time: float,
+                         bucket_bytes: "list[float] | tuple", p: int,
+                         net: NetParams,
+                         wire_dtype: "str | None" = None) -> float:
+    """Modeled wall time of one backward-overlapped step: the hidden
+    ``overlap_fraction`` of the reduce-scatter rides behind backward
+    compute (bounded by the compute itself); the exposed remainder, the
+    trailing allgather and the extra per-bucket ring latencies pay in
+    full."""
+    nbytes = sum(bucket_bytes)
+    rs = reduce_scatter_time(nbytes, p, net, wire_dtype)
+    ag = allgather_time(nbytes, p, net, wire_dtype)
+    extra_alpha = max(len(bucket_bytes) - 1, 0) * max(p - 1, 0) * net.alpha
+    hidden = min(overlap_fraction(bucket_bytes, p) * rs, compute_time)
+    return compute_time + (rs - hidden) + ag + extra_alpha
+
+
+def ring_allreduce_time(nbytes: float, p: int, net: NetParams,
+                        wire_dtype: "str | None" = None) -> float:
+    """β (transfer) pays the wire-dtype ratio; γ (local reduction) stays
+    full-precision — hops dequantize before accumulating."""
+    if p <= 1:
+        return 0.0
+    return (
+        (p - 1) * net.alpha
+        + 2 * (p - 1) / p * wire_bytes(nbytes, wire_dtype) * net.beta
+        + (p - 1) / p * nbytes * net.gamma
+    )
+
+
+def multi_ring_allreduce_time(nbytes: float, p: int, net: NetParams,
+                              num_rings: int = 2,
+                              wire_dtype: "str | None" = None) -> float:
+    """γ of ring i overlaps β of ring i+1 → pay max(β, γ) instead of β+γ
+    on the steady-state term (plus one non-overlapped γ pipeline fill)."""
+    if p <= 1:
+        return 0.0
+    beta_term = 2 * (p - 1) / p * wire_bytes(nbytes, wire_dtype) * net.beta
+    gamma_term = (p - 1) / p * nbytes * net.gamma
+    fill = gamma_term / max(num_rings, 1)
+    return (p - 1) * net.alpha * num_rings + max(beta_term, gamma_term) + fill
+
+
+def tree_allreduce_time(nbytes: float, p: int, net: NetParams) -> float:
+    """Binomial reduce + broadcast: 2·log2(p) full-buffer hops."""
+    if p <= 1:
+        return 0.0
+    steps = 2 * math.ceil(math.log2(p))
+    return steps * (net.alpha + nbytes * net.beta) + nbytes * net.gamma * math.log2(p)
+
+
+def ps_pushpull_time(nbytes: float, num_pushers: int, num_servers: int,
+                     net: NetParams,
+                     wire_dtype: "str | None" = None) -> float:
+    """Server ingress shared by every concurrent pusher + egress for
+    pulls; each server holds 1/num_servers of the keys. A low-precision
+    wire shrinks ingress and egress; the server reduces dequantized
+    values, so γ is unscaled."""
+    per_server = nbytes / max(num_servers, 1)
+    on_wire = per_server * wire_ratio(wire_dtype)
+    ingress = on_wire * num_pushers * net.beta  # serialized hot-spot
+    egress = on_wire * num_pushers * net.beta
+    reduce_cost = per_server * num_pushers * net.gamma
+    return 2 * net.alpha + ingress + egress + reduce_cost
+
+
+def allreduce_time(nbytes: float, p: int, net: NetParams, method: str,
+                   num_rings: int = 2,
+                   wire_dtype: "str | None" = None) -> float:
+    return {
+        "ring": lambda: ring_allreduce_time(nbytes, p, net, wire_dtype),
+        "multi_ring": lambda: multi_ring_allreduce_time(
+            nbytes, p, net, num_rings, wire_dtype),
+        "scatter_gather": lambda: ring_allreduce_time(
+            nbytes, p, net, wire_dtype),  # same wire bytes, separable halves
+        "tree": lambda: tree_allreduce_time(nbytes, p, net),
+        "psum": lambda: ring_allreduce_time(nbytes, p, net),
+    }[method]()

@@ -13,14 +13,20 @@ Two substrates implement the exchange:
   per-leaf  a ``tree_map`` of the f32 update over every leaf — the
             readable reference
   flat      the whole pytree packed through ``core.flatbuf`` and ONE fused
-            kernel pass (``elastic_exchange_multiclient_flat``), and the
+            kernel pass: the PS tier's one-sided halves
+            (``elastic_server_packed`` is the KVStore's Elastic1 rule,
+            ``elastic_client_packed`` the client's Elastic2) with the
+            packed wire form of a push (``wire_packed``), the C-client
+            exchange (``elastic_exchange_multiclient_flat``), and the
             sharded cross-pod leg (``elastic_exchange_sharded``) that ring
             reduce-scatters the packed differences, so the exchange waits
             on (p−1)/p·n bytes instead of an allreduce's 2·(p−1)/p·n
 
-The packed one-shot forms of the PS tier (``elastic_exchange_packed``,
-``elastic_client_packed``, ``elastic_server_packed``, ``wire_packed``,
-``scale_packed``) come with that slice and its kernels.
+Every form returns new tensors and writes into none of its inputs: the
+PS-tier runners start the center and every client replica from one tree,
+and a client's Elastic2 reads the center as it was before its own push.
+The one-pair packed exchange ``elastic_exchange_packed`` (kernel
+``elastic_exchange_flat``) has no runtime caller; it comes with slice 4.
 """
 from __future__ import annotations
 
@@ -29,10 +35,17 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import comm as comm_lib, flatbuf
+from repro_torch.core.collectives import check_wire_dtype
 from repro_torch.kernels.fused_elastic.fused_elastic import (
     elastic_center_flat,
     elastic_client_diff_flat,
+    elastic_client_flat,
     elastic_exchange_flat_mc,
+    elastic_server_flat,
+)
+from repro_torch.kernels.quant_bucket.quant_bucket import (
+    dequantize_wire,
+    quantize_wire,
 )
 from repro_torch.tree import tree_map
 
@@ -78,6 +91,63 @@ def elastic_exchange_multiclient(client_params: Any, center: Any,
         lambda w, c: (w.float() - alpha * (w.float() - c.float())).to(w.dtype),
         client_params, center)
     return new_params, new_center
+
+
+# -- the PS tier's packed one-shot forms ------------------------------------
+
+def _wire_roundtrip(buf: torch.Tensor, wire_dtype: Optional[str]) -> torch.Tensor:
+    """The low-precision wire model on ONE packed buffer: what the
+    receiving end of a compressed push sees. int8 is one
+    ``quantize_wire`` and one ``dequantize_wire`` launch over the whole
+    buffer; bf16 is a cast there and back."""
+    wire = check_wire_dtype(wire_dtype, where="_wire_roundtrip")
+    if wire is None:
+        return buf
+    if wire == "bf16":
+        return buf.to(torch.bfloat16).to(buf.dtype)
+    codes, scales = quantize_wire(buf)
+    return dequantize_wire(codes, scales, buf.shape[0], buf.dtype)
+
+
+def wire_packed(tree: Any, wire_dtype: Optional[str] = "int8") -> Any:
+    """Wire roundtrip of the packed FlatBuffer: what a compressed PS push
+    delivers to the server (the ONE packed buffer through the codec or a
+    bf16 cast, not per-leaf codes)."""
+    spec = flatbuf.spec_for(tree)
+    return spec.unpack(_wire_roundtrip(spec.pack(tree), wire_dtype))
+
+
+def elastic_client_packed(params: Any, center: Any, alpha) -> Any:
+    """Eq. (3) only, on the packed FlatBuffer: the client's local half of
+    the exchange (the server half runs in the PS tier), one fused pass."""
+    spec_w, spec_c = flatbuf.spec_for(params), flatbuf.spec_for(center)
+    w = spec_w.pack(params)
+    new_w = elastic_client_flat(w, spec_c.pack(center), _alpha(alpha, w.device))
+    return spec_w.unpack(new_w)
+
+
+def elastic_server_packed(pushed: Any, center: Any, alpha) -> Any:
+    """Eq. (2) only, on the packed FlatBuffer: the server rule applied to
+    a pushed w — one fused pass, only the new center written."""
+    spec_w, spec_c = flatbuf.spec_for(pushed), flatbuf.spec_for(center)
+    c = spec_c.pack(center)
+    new_c = elastic_server_flat(spec_w.pack(pushed), c, _alpha(alpha, c.device))
+    return spec_c.unpack(new_c)
+
+
+def scale_packed(tree: Any, factor) -> Any:
+    """Scale a whole pytree as ONE packed buffer multiply by the f32
+    ``factor`` (the staleness damping of the async server rule)."""
+    spec = flatbuf.spec_for(tree)
+    buf = spec.pack(tree)
+    return spec.unpack(buf * torch.tensor(float(factor), dtype=torch.float32,
+                                          device=buf.device))
+
+
+def elastic_exchange_packed(*args, **kw):
+    raise NotImplementedError(
+        "not yet ported: elastic_exchange_packed and its kernel "
+        "elastic_exchange_flat belong to slice 4")
 
 
 def elastic_exchange_multiclient_flat(client_params: Any, center: Any, alpha,

@@ -2,6 +2,11 @@
 
 Replace, in ``repro/kernels/fused_elastic/fused_elastic.py``:
 
+  elastic_client_flat       (:83)   eq. (3) only: w' = w − α (w − w̃), the
+                                    client's local half when the server
+                                    half runs in the PS tier (Elastic2)
+  elastic_server_flat       (:97)   eq. (2) only: w̃' = w̃ + α (w − w̃), the
+                                    KVStore's elastic rule (Elastic1)
   elastic_client_diff_flat  (:114)  eq. (3) and the raw f32 difference
                                     (w − w̃) in one pass: the difference is
                                     what the sharded cross-pod leg ring
@@ -13,27 +18,32 @@ Replace, in ``repro/kernels/fused_elastic/fused_elastic.py``:
                                     w_c' = w_c − α (w_c − w̃),
                                     w̃'  = w̃ + α Σ_c (w_c − w̃)
 
-Bound on Hopper: HBM bytes. The client-diff pass moves 16 B per f32
-element (read w, w̃; write w', diff), the center pass 12 B, the C-client
-pass (2C + 2)·4 B — each for a few flops per element, far below the
-card's compute-to-bandwidth ratio, so CUDA C++ would buy nothing here and
-the kernels are Triton: the first two are single fused elementwise
-passes, the third an elementwise pass plus a reduction over the C ≤ 8
-rows that each program carries in registers. Each program takes one
-``BLOCK`` of the flat buffer and masks the ragged tail (no padding copy);
-all math is f32 in registers and each output is stored once in its own
-dtype. α is an f32 device scalar, so no step waits on the host. A
-stacked ``(…, n)`` buffer (one row per emulated device) is one launch
-over the whole contiguous buffer, as one ``pallas_call`` under ``vmap``
-is in the reference.
+The one-pair exchange ``elastic_exchange_flat`` (:69) has no runtime
+caller and is not ported yet (slice 4).
+
+Bound on Hopper: HBM bytes. The client and server passes move 12 B per
+f32 element (read w, w̃; write one output), the client-diff pass 16 B,
+the center pass 12 B, the C-client pass (2C + 2)·4 B — each for a few
+flops per element, far below the card's compute-to-bandwidth ratio, so
+CUDA C++ would buy nothing here and the kernels are Triton: single fused
+elementwise passes, and for the C-client kernel an elementwise pass plus
+a reduction over the C ≤ 8 rows that each program carries in registers.
+Each program takes one ``BLOCK`` of the flat buffer and masks the ragged
+tail (no padding copy); all math is f32 in registers and each output is
+stored once in its own dtype. α is an f32 device scalar, so no step
+waits on the host. A stacked ``(…, n)`` buffer (one row per emulated
+device) is one launch over the whole contiguous buffer, as one
+``pallas_call`` under ``vmap`` is in the reference.
 
 Rounding, as the reference's compiled code rounds: eq. (3) in the
-client-diff pass and eq. (2) in the center pass are each ONE fused
-multiply-add (``tl.fma``; the plain versions form the exact product and
-sum in f64 and round once), while the C-client kernel rounds the product
-and the sum separately (it is built with ``enable_fp_fusion=False``).
-Its center sum runs over the rows in the order c = 0, 1, …, C − 1, from
-0.0, in the kernel and in its plain version alike.
+client and client-diff passes and eq. (2) in the server and center
+passes are each ONE fused multiply-add (``tl.fma``; the plain versions
+form the exact product and sum in f64 and round once) — XLA's CPU code
+contracts all four, interpreted or under ``jit`` — while the C-client
+kernel rounds the product and the sum separately (it is built with
+``enable_fp_fusion=False``). Its center sum runs over the rows in the
+order c = 0, 1, …, C − 1, from 0.0, in the kernel and in its plain
+version alike.
 """
 from __future__ import annotations
 
@@ -58,6 +68,20 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a·b + c`` rounded once, as a fused multiply-add: the f32
     product is exact in f64, and the f64 sum is rounded to f32."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def elastic_client_flat_plain(w: torch.Tensor, c: torch.Tensor,
+                              alpha: torch.Tensor) -> torch.Tensor:
+    a = alpha.reshape(())
+    w32 = w.float()
+    return _fma(-a, w32 - c.float(), w32).to(w.dtype)
+
+
+def elastic_server_flat_plain(w: torch.Tensor, c: torch.Tensor,
+                              alpha: torch.Tensor) -> torch.Tensor:
+    a = alpha.reshape(())
+    c32 = c.float()
+    return _fma(a, w.float() - c32, c32).to(c.dtype)
 
 
 def elastic_client_diff_flat_plain(w: torch.Tensor, c: torch.Tensor,
@@ -89,6 +113,30 @@ def elastic_exchange_flat_mc_plain(w: torch.Tensor, c: torch.Tensor,
 
 
 # -- Triton kernels ----------------------------------------------------------
+
+@functools.cache
+def _one_side_kernel():
+    global tl
+    tr = triton()
+    import triton.language as tl
+
+    @tr.jit
+    def one_side_kernel(alpha_ptr, w_ptr, c_ptr, out_ptr, n,
+                        SERVER: tl.constexpr, BLOCK: tl.constexpr):
+        pid = tl.program_id(0).to(tl.int64)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        alpha = tl.load(alpha_ptr)
+        w = tl.load(w_ptr + offs, mask=mask).to(tl.float32)
+        c = tl.load(c_ptr + offs, mask=mask).to(tl.float32)
+        if SERVER:
+            out = tl.fma(alpha, w - c, c)       # eq. (2)
+        else:
+            out = tl.fma(-alpha, w - c, w)      # eq. (3)
+        tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty), mask=mask)
+
+    return one_side_kernel
+
 
 @functools.cache
 def _client_diff_kernel():
@@ -182,6 +230,47 @@ def _check_alpha(alpha: torch.Tensor) -> None:
                          f"{tuple(alpha.shape)} {alpha.dtype}")
 
 
+def _one_side(w: torch.Tensor, c: torch.Tensor, alpha: torch.Tensor,
+              server: bool) -> torch.Tensor:
+    _check("w", w, w.shape)
+    _check("c", c, w.shape)
+    _check_alpha(alpha)
+    out = torch.empty_like(c if server else w)
+    n = w.numel()
+    if n:
+        grid = (triton().cdiv(n, BLOCK),)
+        _one_side_kernel()[grid](alpha, w, c, out, n, SERVER=server,
+                                 BLOCK=BLOCK, num_warps=NUM_WARPS)
+    return out
+
+
+def elastic_client_flat(w: torch.Tensor, c: torch.Tensor,
+                        alpha: torch.Tensor) -> torch.Tensor:
+    """Eq. (3) only, for equal-shape contiguous ``w``, ``c``: -> new w in
+    w's dtype, nothing else written. ``alpha`` is one f32 value on the
+    same device. A CPU tensor takes the plain version; a CUDA tensor
+    launches the Triton kernel."""
+    if on_cpu(w, c, alpha):
+        return elastic_client_flat_plain(w, c, alpha)
+    out = _one_side(w, c, alpha, server=False)
+    if w.numel():
+        elastic_client_flat.launches += 1
+    return out
+
+
+def elastic_server_flat(w: torch.Tensor, c: torch.Tensor,
+                        alpha: torch.Tensor) -> torch.Tensor:
+    """Eq. (2) only, for equal-shape contiguous ``w``, ``c``: -> new w̃ in
+    c's dtype, nothing else written. A CPU tensor takes the plain
+    version; a CUDA tensor launches the Triton kernel."""
+    if on_cpu(w, c, alpha):
+        return elastic_server_flat_plain(w, c, alpha)
+    out = _one_side(w, c, alpha, server=True)
+    if w.numel():
+        elastic_server_flat.launches += 1
+    return out
+
+
 def elastic_client_diff_flat(w: torch.Tensor, c: torch.Tensor,
                              alpha: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -254,6 +343,8 @@ def elastic_exchange_flat_mc(w: torch.Tensor, c: torch.Tensor,
     return w_out, c_out
 
 
+elastic_client_flat.launches = 0
+elastic_server_flat.launches = 0
 elastic_client_diff_flat.launches = 0
 elastic_center_flat.launches = 0
 elastic_exchange_flat_mc.launches = 0

@@ -1,31 +1,85 @@
-"""The int8 wire codec a quantized ring hop puts on the wire.
+"""The int8 wire codec: the per-hop plain form and the streaming kernels.
 
-Ports the plain part of ``repro/kernels/quant_bucket/quant_bucket.py``
-(``WIRE_BLOCK``, ``wire_nbytes``, ``wire_encode``, ``wire_decode``,
-lines 109-146). The reference writes these in plain ``jnp`` so that XLA
-fuses them into each hop; plain PyTorch is their faithful counterpart.
-The streaming Pallas pairs of that file (``quantize_wire`` /
-``dequantize_wire``, ``quantize_flat`` / ``dequantize_flat``) belong to
-the PS tier and are not ported yet.
+Ports ``repro/kernels/quant_bucket/quant_bucket.py``:
 
-Exactness: ``scale = max(absmax, 1e-12) / 127`` and the codes are
-``round(x / scale)`` — true divisions, never a multiplication by the
-reciprocal, rounding half to even as ``jnp.round`` does — so the int8
-codes equal the reference's bit for bit, on the CPU and on the card. Both functions take any leading
-(device) dims: the codec runs per bucket along the last dim.
+  wire_encode / wire_decode  (:120, :141)  the per-hop codec a quantized
+                                           ring hop runs; the reference
+                                           writes it in plain ``jnp`` so
+                                           XLA fuses it into each hop, and
+                                           plain PyTorch is its faithful
+                                           counterpart here
+  quantize_wire              (:168)        the streaming pair for the
+  dequantize_wire            (:199)        hop-free one-shot wire: the
+                                           packed PS push
+                                           (``core.elastic.wire_packed``),
+                                           hand-written Triton kernels
+
+The QBLOCK = 1024 pair (``quantize_flat`` / ``dequantize_flat``) belongs
+to the per-leaf PS compress path and is not ported yet (slice 4).
+
+Exactness, as the reference's code computes: the codes are
+``round(x / scale)`` clipped to ±127 — a true division, never a
+multiplication by the reciprocal, rounding half to even as ``jnp.round``
+does. The scale is ``max(absmax, 1e-12) / 127`` in the per-hop codec, a
+true division as the reference's op-by-op ``wire_encode`` makes it; in
+the streaming pair it is ``max(absmax, 1e-12) × f32(1/127)``, because
+XLA compiles the division by the constant 127 in the reference's
+``quantize_wire`` (interpreted or not) into that multiplication, which
+moves about 4 % of the scales by one ulp. So the int8 codes and the
+scales of both forms equal the reference's bit for bit, on the CPU and
+on the card.
+
+**The streaming kernels.** Bound on Hopper: HBM bytes. ``quantize_wire``
+reads 4 B and writes 1 + 4/128 B per value for two divisions, a
+128-wide max and a rounding; ``dequantize_wire`` moves the same bytes
+the other way for one multiply. Both sit far below the card's
+compute-to-bandwidth ratio, so a hand-scheduled CUDA C++ kernel buys
+nothing over Triton here. Each program takes one tile of
+``WIRE_TILE_ROWS`` = 64 buckets × 128 values as a (64, 128) block: the
+per-bucket absmax is a row reduction in registers, and every value is
+read once and written once. The input's ragged tail is masked (loaded
+as zeros), so no padded copy of ``x`` is made, yet the stored outputs
+keep the reference's shapes: codes ``(n_pad,)`` and scales
+``(n_pad/128,)`` with n_pad rounded up to whole tiles, the pad buckets
+holding code 0 and scale ``1e-12/127`` exactly as the reference's
+zero padding gives them. The division ``x / scale`` is ``tl.div_rn``
+(Triton's ``/`` on f32 is not IEEE-rounded), the scale multiplier is the
+f32 argument ``RECIP`` = f32(1/127), and the rounding is libdevice
+``rint`` (half to even); codes are clamped to ±127 before the int8 cast.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import ceil_div, on_cpu, triton
+
 #: values per int8 scale group on the wire
 WIRE_BLOCK = 128
+#: buckets per streaming tile (64 × 128 = 8,192 values)
+WIRE_TILE_ROWS = 64
+WIRE_TILE = WIRE_TILE_ROWS * WIRE_BLOCK
+NUM_WARPS = 8
+#: f32(1/127): the streaming codec's scale multiplier (see above)
+RECIP_127 = float(torch.tensor(1.0) / torch.tensor(127.0))
+
+#: ``triton.language`` and its libdevice, bound as module globals on the
+#: first build: the kernels are compiled from this module's source and
+#: resolve both in its globals (Triton does not read closures)
+tl = None
+libdevice = None
 
 
 def wire_nbytes(n: int) -> int:
     """Wire bytes of n f32 values in the int8 wire form (codes + scales)."""
     return n + -(-n // WIRE_BLOCK) * 4
+
+
+def wire_padded(n: int) -> int:
+    """The streaming codec's padded length: n rounded up to whole tiles."""
+    return ceil_div(n, WIRE_TILE) * WIRE_TILE
 
 
 def wire_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -56,3 +110,133 @@ def wire_decode(codes: torch.Tensor, scales: torch.Tensor,
     out = (codes.reshape(lead + (-1, WIRE_BLOCK)).float()
            * scales.unsqueeze(-1)).reshape(lead + (-1,))
     return out if n is None else out[..., :n]
+
+
+# -- plain versions of the streaming pair: the CPU path and the card's
+#    reference -----------------------------------------------------------------
+
+def quantize_wire_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-hop codec's bucket math on ``x`` zero-padded to whole
+    tiles, with the scale multiplied by f32(1/127)."""
+    n = x.shape[-1]
+    xb = F.pad(x.float(), (0, wire_padded(n) - n)).reshape(-1, WIRE_BLOCK)
+    absmax = xb.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) * absmax.new_full((), RECIP_127)
+    codes = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return codes.reshape(-1), scale[:, 0]
+
+
+def dequantize_wire_plain(codes: torch.Tensor, scales: torch.Tensor, n: int,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return wire_decode(codes, scales, n).to(dtype)
+
+
+# -- Triton kernels ----------------------------------------------------------
+
+def _bind_triton():
+    global tl, libdevice
+    tr = triton()
+    import triton.language as tl
+    from triton.language.extra import libdevice
+    return tr
+
+
+@functools.cache
+def _quantize_kernel():
+    tr = _bind_triton()
+
+    @tr.jit
+    def quantize_wire_kernel(x_ptr, codes_ptr, scales_ptr, n, RECIP,
+                             ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        offs = rows[:, None] * BLOCK + tl.arange(0, BLOCK)[None, :]
+        x = tl.load(x_ptr + offs, mask=offs < n, other=0.0).to(tl.float32)
+        absmax = tl.max(tl.abs(x), axis=1)
+        scale = tl.maximum(absmax, 1e-12) * RECIP
+        q = libdevice.rint(
+            tl.div_rn(x, tl.broadcast_to(scale[:, None], (ROWS, BLOCK))))
+        q = tl.minimum(tl.maximum(q, -127.0), 127.0)
+        tl.store(codes_ptr + offs, q.to(tl.int8))
+        tl.store(scales_ptr + rows, scale)
+
+    return quantize_wire_kernel
+
+
+@functools.cache
+def _dequantize_kernel():
+    tr = _bind_triton()
+
+    @tr.jit
+    def dequantize_wire_kernel(codes_ptr, scales_ptr, out_ptr, n,
+                               ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        offs = rows[:, None] * BLOCK + tl.arange(0, BLOCK)[None, :]
+        mask = offs < n
+        codes = tl.load(codes_ptr + offs, mask=mask, other=0).to(tl.float32)
+        scale = tl.load(scales_ptr + rows)
+        tl.store(out_ptr + offs,
+                 (codes * scale[:, None]).to(out_ptr.dtype.element_ty),
+                 mask=mask)
+
+    return dequantize_wire_kernel
+
+
+# -- wrappers ----------------------------------------------------------------
+
+def _check_1d(name: str, t: torch.Tensor, dtype=None) -> None:
+    if t.dim() != 1:
+        raise ValueError(f"{name}: want a flat (n,) tensor, got {tuple(t.shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def quantize_wire(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(n,)`` float -> (codes ``(n_pad,)`` int8, scales ``(n_pad/128,)``
+    f32), n_pad = ``wire_padded(n)``. A CPU tensor takes the plain
+    version; a CUDA tensor launches the Triton kernel."""
+    if on_cpu(x):
+        return quantize_wire_plain(x)
+    _check_1d("x", x)
+    if not x.is_floating_point():
+        raise ValueError(f"x: dtype {x.dtype} is not floating")
+    n = x.numel()
+    n_pad = wire_padded(n)
+    codes = torch.empty(n_pad, dtype=torch.int8, device=x.device)
+    scales = torch.empty(n_pad // WIRE_BLOCK, dtype=torch.float32,
+                         device=x.device)
+    if n_pad:
+        _quantize_kernel()[(n_pad // WIRE_TILE,)](
+            x, codes, scales, n, RECIP_127, ROWS=WIRE_TILE_ROWS,
+            BLOCK=WIRE_BLOCK,
+            num_warps=NUM_WARPS)
+        quantize_wire.launches += 1
+    return codes, scales
+
+
+def dequantize_wire(codes: torch.Tensor, scales: torch.Tensor, n: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_wire``, trimmed back to ``n`` values of
+    ``dtype``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the Triton kernel."""
+    if on_cpu(codes, scales):
+        return dequantize_wire_plain(codes, scales, n, dtype)
+    _check_1d("codes", codes, torch.int8)
+    _check_1d("scales", scales, torch.float32)
+    tiles = ceil_div(n, WIRE_TILE)
+    if codes.numel() < tiles * WIRE_TILE or (
+            scales.numel() * WIRE_BLOCK != codes.numel()):
+        raise ValueError(f"codes {codes.numel()} / scales {scales.numel()} "
+                         f"do not cover n = {n} in whole tiles")
+    out = torch.empty(n, dtype=dtype, device=codes.device)
+    if n:
+        _dequantize_kernel()[(tiles,)](
+            codes, scales, out, n, ROWS=WIRE_TILE_ROWS, BLOCK=WIRE_BLOCK,
+            num_warps=NUM_WARPS)
+        dequantize_wire.launches += 1
+    return out
+
+
+quantize_wire.launches = 0
+dequantize_wire.launches = 0

@@ -143,14 +143,16 @@ def test_local_communicator_and_unported_groups():
         jcomm.LOCAL.with_policy(num_rings=2, bucket_bytes=1000).rings_for(10_000)
     assert wide.local() == wide
     assert tcomm.from_sync(thier.SyncConfig()).policy == thier.SyncConfig().policy
-    # a group of size > 1 is the emulated ring world now; the group
-    # operations of later slices raise, naming theirs
+    # a group of size > 1 is the emulated ring world now; its tensor
+    # collectives run on stacked trees, and the group operations of later
+    # slices raise, naming theirs
     world = tcomm.Communicator.world(("data",), (8,))
     assert world.resolve_size() == 8 and world.local().resolve_size() == 1
     with pytest.raises(NotImplementedError, match="membership"):
         world.resized(4)
-    with pytest.raises(NotImplementedError, match="PS-tier"):
-        world.pushpull({})
+    stacked = {"w": torch.arange(8.0).repeat_interleave(3).reshape(8, 3)}
+    mean = world.pushpull(stacked)["w"]
+    assert tuple(mean.shape) == (8, 3) and torch.equal(mean, torch.full((8, 3), 3.5))
     params = {"w": torch.zeros(2)}
     assert thier.clientize(params, 1) is params
     assert tuple(thier.clientize(params, 2)["w"].shape) == (2, 2)

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
+from repro_torch.kernels.quant_bucket import quant_bucket as qb  # noqa: E402
 
 SIZES = (1, 127, 128, 4097, 70000)
 
@@ -174,6 +175,134 @@ def test_elastic_multiclient_kernel_matches_plain(cuda, n, dtype, C):
             torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
         else:
             _bf16_within_one_ulp(got, want)
+
+
+WIRE_SIZES = (1, 127, 8191, 8192, 8193, 3 * 8192, 100_003)
+
+
+def _wire_values(n, device, dtype):
+    """Normal values, one all-zero bucket, and one bucket of ±k.5 at scale
+    1 (every code a tie that rounds half to even)."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(n, generator=gen, device=device)
+    if n >= 256:
+        x[:128] = 0.0
+        x[128] = 127.0
+        x[129:256] = torch.arange(-63, 64, device=device) + 0.5
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_quantize_wire_kernel_matches_plain(cuda, n, dtype):
+    """Codes and scales equal the plain version's over the whole padded
+    arrays (ragged n and whole tiles alike)."""
+    x = _wire_values(n, cuda, dtype)
+    before = qb.quantize_wire.launches
+    codes, scales = qb.quantize_wire(x)
+    torch.cuda.synchronize()
+    assert qb.quantize_wire.launches == before + 1
+    pc, ps = qb.quantize_wire_plain(x)
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (qb.wire_padded(n),)
+    assert torch.equal(codes, pc) and torch.equal(scales, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_dequantize_wire_kernel_matches_plain(cuda, n, dtype):
+    codes, scales = qb.quantize_wire_plain(_wire_values(n, cuda, torch.float32))
+    before = qb.dequantize_wire.launches
+    out = qb.dequantize_wire(codes, scales, n, dtype)
+    torch.cuda.synchronize()
+    assert qb.dequantize_wire.launches == before + 1
+    want = qb.dequantize_wire_plain(codes, scales, n, dtype)
+    assert out.dtype == dtype and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("side", ["client", "server"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ELASTIC_SIZES)
+def test_elastic_one_side_kernel_matches_plain(cuda, n, dtype, side):
+    """Eq. (3) / eq. (2) alone: one fused multiply-add in the kernel, the
+    exact product and sum rounded once in the plain version — equal."""
+    w, c = _elastic_inputs((n,), cuda, dtype, 130 + n)
+    kernel = getattr(fe, f"elastic_{side}_flat")
+    plain = getattr(fe, f"elastic_{side}_flat_plain")
+    for a in (0.5, 0.5 / 3):
+        alpha = torch.tensor(a, device=cuda)
+        before = kernel.launches
+        got = kernel(w, c, alpha)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, plain(w, c, alpha))
+
+
+def test_ps_wrappers_reject_bad_layouts(cuda):
+    x = torch.zeros(10, device=cuda)
+    alpha = torch.tensor(0.5, device=cuda)
+    with pytest.raises(ValueError, match="flat"):
+        qb.quantize_wire(torch.zeros(2, 10, device=cuda))
+    with pytest.raises(ValueError, match="floating"):
+        qb.quantize_wire(torch.zeros(10, dtype=torch.int32, device=cuda))
+    codes, scales = qb.quantize_wire(x)
+    with pytest.raises(ValueError, match="whole tiles"):
+        qb.dequantize_wire(codes, scales, 8193)
+    with pytest.raises(ValueError, match="dtype"):
+        qb.dequantize_wire(codes.float(), scales, 10)
+    with pytest.raises(ValueError, match="several devices"):
+        qb.dequantize_wire(codes, scales.cpu(), 10)
+    with pytest.raises(ValueError, match="shape"):
+        fe.elastic_client_flat(x, torch.zeros(11, device=cuda), alpha)
+    with pytest.raises(ValueError, match="alpha"):
+        fe.elastic_server_flat(x, x, torch.zeros(2, device=cuda))
+
+
+def test_reduced_ps_run_card_matches_cpu(cuda):
+    """mpi-ESGD over the int8 PS wire through ``algorithms.run`` on the
+    reduced model, card against CPU: the simulated clock equal, losses
+    and eval metrics within rtol 1e-4, every launch count as the run's
+    exchanges and completions give it."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import algorithms as A
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_grad_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    p0 = model.init(device="cpu", seed=0)
+    grad = make_grad_fn(model)
+    data = dict(vocab_size=256, seq_len=32, batch_size=2, steps_per_epoch=2)
+    held = TokenPipeline(DataConfig(**data, shard=99)).batch_at(0, 0)
+    cfg = A.AlgoConfig(mode="mpi_esgd", num_workers=4, num_clients=2,
+                       num_servers=1, epochs=2, steps_per_epoch=2,
+                       esgd_interval=2, compute_time=0.2, jitter=0.1,
+                       policy=A.CollectivePolicy(method="multi_ring",
+                                                 num_rings=2, wire_dtype="int8"))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        def evaluate(p, dev=dev):
+            with torch.no_grad():
+                return float(model.loss_fn(p, {k: v.to(dev) for k, v in held.items()})[0])
+
+        counts = (qb.quantize_wire.launches, fe.elastic_server_flat.launches,
+                  fe.elastic_client_flat.launches, fs.sgd_momentum_flat.launches)
+        hist[dev] = A.run(
+            cfg, lambda gen, dev=dev: tree_map(lambda a: a.to(dev), p0),
+            lambda p, b: (lambda out: (out[0], out[2]))(grad(p, b)), evaluate,
+            lambda w, dev=dev: TokenPipeline(DataConfig(**data, shard=w), device=dev),
+            device=dev)
+        if dev == "cuda":
+            got = (qb.quantize_wire.launches, fe.elastic_server_flat.launches,
+                   fe.elastic_client_flat.launches, fs.sgd_momentum_flat.launches)
+            assert [g - c for g, c in zip(got, counts)] == [4, 4, 4, 8]
+    c, g = hist["cpu"], hist["cuda"]
+    assert (g.times, g.epochs, g.epoch_time) == (c.times, c.epochs, c.epoch_time)
+    assert g.pushed_bytes == c.pushed_bytes
+    torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
+                               rtol=1e-4, atol=0)
+    torch.testing.assert_close(torch.tensor(g.metrics), torch.tensor(c.metrics),
+                               rtol=1e-4, atol=0)
 
 
 def test_emulated_int8_reduce_scatter_card_equals_cpu(cuda):

@@ -180,8 +180,14 @@ def test_unported_paths_raise_naming_their_slice(tmodel):
         world.resized(1, "pod")
     with pytest.raises(NotImplementedError, match="overlap"):
         world.reduce_scatter_bucket(None, None, 0)
-    with pytest.raises(NotImplementedError, match="PS-tier"):
-        world.tensor_allreduce({})
+    from repro_torch.core.elastic import elastic_exchange_packed
+
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        elastic_exchange_packed({}, {}, 0.5)
+    # the tensor collectives are ported (the PS-tier slice): a stacked
+    # tree over the 2-axis world sums over all four devices
+    total = world.tensor_allreduce({"w": torch.ones(2, 2, 5)})["w"]
+    assert torch.equal(total, torch.full((2, 2, 5), 4.0))
 
 
 def test_drive_loop_learns(tmodel):

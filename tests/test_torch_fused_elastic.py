@@ -2,8 +2,13 @@
 of each wrapper) held against the reference's Pallas kernels run in
 interpret mode on the same numpy inputs.
 
-Tolerances: f32 outputs exactly equal for ``elastic_client_diff_flat``,
-``elastic_center_flat`` and ``elastic_exchange_flat_mc`` at C <= 2;
+Tolerances: f32 outputs exactly equal for ``elastic_client_flat``,
+``elastic_server_flat``, ``elastic_client_diff_flat``,
+``elastic_center_flat`` and ``elastic_exchange_flat_mc`` at C <= 2, and
+for the packed one-sided forms ``elastic_client_packed`` /
+``elastic_server_packed`` on a whole tree (the reference compiles eqs.
+(2)/(3) into one fused multiply-add, and the plain versions round once
+too);
 rtol 1e-6 for the center at C = 4, because the reference's sum over the
 C rows is an XLA reduction whose order is not fixed (the port sums
 c = 0 … C-1); bf16 outputs within 1 bf16 ulp."""
@@ -14,8 +19,10 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import elastic as jel  # noqa: E402
 from repro.kernels.fused_elastic import fused_elastic as jfe  # noqa: E402
-from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.bridge import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.core import elastic as tel  # noqa: E402
 from repro_torch.kernels.fused_elastic import fused_elastic as tfe  # noqa: E402
 
 torch.set_num_threads(2)
@@ -53,6 +60,49 @@ def _wc(rng, shape, dtype):
     c = (w.reshape(-1, shape[-1])[0] + 0.1 * rng.standard_normal(shape[-1])
          ).astype(np.float32)
     return jnp.asarray(w).astype(dtype), jnp.asarray(c).astype(dtype)
+
+
+@pytest.mark.parametrize("side", ["client", "server"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_one_side_plain_matches_pallas(n, dtype, side):
+    """Eq. (3) alone (new w in w's dtype) and eq. (2) alone (new w̃ in
+    w̃'s dtype), at α = 0.5/3 where a separate product and sum would
+    round differently from the fused form on ~9 % of the elements."""
+    w, c = _wc(np.random.default_rng(30 + n), (n,), dtype)
+    jfn = getattr(jfe, f"elastic_{side}_flat")
+    tfn = getattr(tfe, f"elastic_{side}_flat")
+    want = jfn(w, c, ALPHA)
+    before = tfn.launches
+    got = tfn(_t(w), _t(c), _alpha())
+    assert tfn.launches == before  # CPU: no launch
+    assert got.dtype == _t(w).dtype and tuple(got.shape) == (n,)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_one_side_matches_reference(dtype):
+    """``elastic_client_packed`` / ``elastic_server_packed`` on a tree of
+    ragged leaves: pack, one fused pass, unpack — equal to the
+    reference's jitted forms leaf by leaf."""
+    rng = np.random.default_rng(40)
+    shapes = {"a": (3, 50), "b": {"c": (129,), "d": (7, 11, 2)}}
+
+    def tree(scale):
+        return jax.tree.map(
+            lambda s: jnp.asarray(scale * rng.standard_normal(s).astype(np.float32)
+                                  ).astype(dtype),
+            shapes, is_leaf=lambda x: isinstance(x, tuple))
+
+    w, c = tree(1.0), tree(0.5)
+    alpha = float(ALPHA)
+    for name, args in (("client", (w, c)), ("server", (w, c))):
+        want = getattr(jel, f"elastic_{name}_packed")(*args, alpha)
+        got = getattr(tel, f"elastic_{name}_packed")(
+            *(params_from_numpy(jax.tree.map(np.asarray, a)) for a in args), alpha)
+        got = jax.tree.leaves(params_to_numpy(got))
+        for g, wnt in zip(got, jax.tree.leaves(want)):
+            _check(params_from_numpy(g), wnt)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -20,12 +20,13 @@ import torch
 torch.set_num_threads(2)
 from repro_torch.configs.base import TrainSettings, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.launch.train import make_train_state, make_train_step
+from repro_torch.launch.train import make_grad_fn, make_train_state, make_train_step
 from repro_torch.models.model import build_model
 from repro_torch import bridge, tree
 from repro_torch.checkpoint import checkpoint
-from repro_torch.core import (collectives, comm, cost_model, elastic, flatbuf,
-                              hierarchy, sync_engine)
+from repro_torch.core import (algorithms, client, collectives, comm, cost_model,
+                              elastic, flatbuf, hierarchy, kvstore, scheduler,
+                              sync_engine)
 from repro_torch.kernels import common
 from repro_torch.kernels.fused_elastic import fused_elastic
 from repro_torch.kernels.fused_optim import fused_optim
@@ -48,6 +49,18 @@ dstep = shard_driver.make_emulated_step(model, opt, esgd, (2, 2))
 batch4 = TokenPipeline(DataConfig(vocab_size=256, seq_len=16, batch_size=4)).batch_at(0, 0)
 dstate, met = dstep(dstate, shard_driver.shard_batch(batch4, (2, 2)))
 assert torch.isfinite(met["loss"])
+grad = make_grad_fn(model)
+data = dict(vocab_size=256, seq_len=16, batch_size=2, steps_per_epoch=1)
+cfg = algorithms.AlgoConfig(mode="mpi_esgd", num_workers=2, num_clients=1,
+                            epochs=1, steps_per_epoch=1, esgd_interval=1,
+                            policy=comm.CollectivePolicy(method="multi_ring",
+                                                         num_rings=2, wire_dtype="int8"))
+hist = algorithms.run(cfg, lambda gen: model.init(device="cpu"),
+                      lambda p, b: (lambda o: (o[0], o[2]))(grad(p, b)),
+                      lambda p: 0.0,
+                      lambda w: TokenPipeline(DataConfig(**data, shard=w)),
+                      device="cpu")
+assert hist.pushed_bytes > 0 and len(hist.losses) == 1
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "repro.")))
 print("BAD", bad)
