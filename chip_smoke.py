@@ -46,9 +46,28 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  their plain versions on the run's last exchange operands,
                  a completion's split, peak memory and device-busy share
 
+  7. faults   slice 4, fault injection and elastic membership:
+              a) [faults:small] the reduced model through algorithms.run
+                 on the card against the CPU under the reference's fault
+                 schedules (mpi_sgd and dist_sgd: a kill and a straggler
+                 with a barrier timeout; mpi_asgd: a kill and a lost
+                 push; mpi_esgd over the per-leaf int8 codec: a kill and a
+                 straggler), the clock and the robustness counters equal;
+                 then drive(p=4) under a kill and a rejoin, card == CPU
+              b) [faults] full-width qwen2-0.5b in bf16: (i) mpi-ESGD
+                 through algorithms.run over the per-leaf int8 PS wire
+                 (flat_exchange=False) under a straggle, a retried drop
+                 and a kill; (ii) a list push of two full-width bf16 grad
+                 trees; (iii) elastic_exchange_packed at f32 and over the
+                 int8 wire; (iv) the p = 4 mpi-SGD shard driver under a
+                 kill and a rejoin — launch counts, byte counts and the
+                 membership outcomes checked, times and peak memory
+
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
-full-width buffer, n = 494,147,584.
+full-width buffer, n = 494,147,584, and slice 4's four (group_reduce_flat
+and the QBLOCK codec over the whole 14-leaf tree, elastic_exchange_flat
+on the packed buffer).
 
 Prints a ``kernels`` JSON line, the card line, and last the ok line.
 """
@@ -80,7 +99,9 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
-from repro_torch.kernels.quant_bucket import quant_bucket as qb  # noqa: E402
+from repro_torch.kernels.quant_bucket import ops as qops, quant_bucket as qb  # noqa: E402
+from repro_torch.kernels.tensor_reduce import tensor_reduce as tr  # noqa: E402
+from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
 from repro_torch.launch import shard_driver as sd  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_train_state, make_train_step, stacked_grads)
@@ -159,7 +180,28 @@ PS_KERNELS = {
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:97",
         flops_per_elem=3),
 }
-ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS, **PS_KERNELS}
+#: slice 4's kernels: every output held to exact equality with the plain
+#: version (sums in member order, codes, scales, decoded values, eqs.
+#: (2)+(3) at 0 ulp)
+FAULT_KERNELS = {
+    "group_reduce_flat": dict(
+        wrapper=tr.group_reduce_flat, plain=tr.group_reduce_flat_plain,
+        source="src/repro_torch/kernels/tensor_reduce/tensor_reduce.py",
+        replaces="src/repro/kernels/tensor_reduce/tensor_reduce.py:31"),
+    "quantize_flat": dict(
+        wrapper=qb.quantize_flat, plain=qb.quantize_flat_plain,
+        source="src/repro_torch/kernels/quant_bucket/quant_bucket.py",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:56"),
+    "dequantize_flat": dict(
+        wrapper=qb.dequantize_flat, plain=qb.dequantize_flat_plain,
+        source="src/repro_torch/kernels/quant_bucket/quant_bucket.py",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:83"),
+    "elastic_exchange_flat": dict(
+        wrapper=fe.elastic_exchange_flat, plain=fe.elastic_exchange_flat_plain,
+        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        replaces="src/repro/kernels/fused_elastic/fused_elastic.py:69"),
+}
+ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS, **PS_KERNELS, **FAULT_KERNELS}
 #: slice 2's full-width runs: 6 momentum-SGD steps each, global batch
 #: 8 x 512 (C = 2 clients of 4 x 512; 4 devices of 2 x 512)
 ESGD_STEPS = 6
@@ -170,6 +212,13 @@ PS_ITERS = 4
 PS_RUN = dict(mode="mpi_esgd", num_workers=4, num_clients=2, num_servers=1,
               lr=0.1, momentum=0.9, esgd_alpha=0.5, esgd_interval=2, epochs=1,
               steps_per_epoch=PS_ITERS, optimizer="sgd", seed=0)
+#: slice 4's full-width (i) run: the [ps] layout over the per-leaf int8
+#: codec under a straggle, a drop that one retry gets through, and a kill
+FAULTS_SCHED = "straggle@0:unit=0:factor=3:duration=2;drop@2:unit=0:duration=1;kill@3:unit=1"
+#: slice 4's full-width (iv) run: the p = 4 mpi-SGD driver, 6 steps of a
+#: 12 x 512 global batch, device 3 killed before step 2 and back at step 4
+DRIVE_SCHED = "kill@2:unit=3;restart@4:unit=3"
+DRIVE_STEPS = 6
 
 
 def log(msg: str) -> None:
@@ -864,7 +913,12 @@ def _hold_ps(name, args, got=None) -> float:
     (0.0), after checking equality exactly."""
     k = PS_KERNELS[name]
     got = k["wrapper"](*args) if got is None else got
-    want = k["plain"](*args)
+    return _hold_exact(name, got, k["plain"](*args))
+
+
+def _hold_exact(name, got, want) -> float:
+    """Every output of a kernel equal to its plain version's (values,
+    dtypes, shapes); returns the max |kernel − plain| (0.0)."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
@@ -996,24 +1050,27 @@ def phase_ps_small(dev) -> None:
 
 
 class _ExchangeRecorder:
-    """Wraps ``algorithms.elastic_client_packed`` for one run and keeps the
-    last exchange's operands — the pushed replica (= the client's params)
-    and the center as it was before that push — for the holds after it."""
+    """Wraps the runner's Elastic2 (``algorithms.elastic_client_packed``,
+    or ``elastic_client_update`` on the per-leaf path) for one run and
+    keeps the last exchange's operands — the pushed replica (= the
+    client's params) and the center as it was before that push — for the
+    holds after it."""
 
-    def __init__(self):
+    def __init__(self, attr: str = "elastic_client_packed"):
         self.last = None
-        self._orig = alg.elastic_client_packed
+        self._attr = attr
+        self._orig = getattr(alg, attr)
 
     def __call__(self, params, center, alpha):
         self.last = (params, center, alpha)
         return self._orig(params, center, alpha)
 
     def __enter__(self):
-        alg.elastic_client_packed = self
+        setattr(alg, self._attr, self)
         return self
 
     def __exit__(self, *exc):
-        alg.elastic_client_packed = self._orig
+        setattr(alg, self._attr, self._orig)
 
 
 def _hold_last_exchange(spec, params, center, alpha, wire) -> dict:
@@ -1050,12 +1107,15 @@ def _ps_split(cfg, model, grad, params, center, batches) -> dict:
     _, g = alg._client_grad(grad, params, batches, group)
     del stacked
     kv = KVStore.create("async_mpi", num_workers=cfg.num_workers,
-                        num_clients=cfg.num_clients, wire_dtype=cfg.effective_wire_dtype)
+                        num_clients=cfg.num_clients, wire_dtype=cfg.effective_wire_dtype,
+                        flat_exchange=cfg.flat_exchange)
     kv.init("centers", center)
     kv.set_elastic(cfg.esgd_alpha)
+    elastic2 = (alg.elastic_client_packed if cfg.flat_exchange
+                else alg.elastic_client_update)
     out["push_ms"] = cuda_ms(lambda: kv.push("centers", params), reps=3, warmup=1)
     out["elastic2_ms"] = cuda_ms(
-        lambda: alg.elastic_client_packed(params, center, cfg.esgd_alpha), reps=3, warmup=1)
+        lambda: elastic2(params, center, cfg.esgd_alpha), reps=3, warmup=1)
     opt = alg._make_opt(cfg, params)
     state = opt.init(params)
     out["update_ms"] = cuda_ms(lambda: opt.update(g, state, params), reps=3, warmup=1)
@@ -1066,7 +1126,7 @@ def _ps_split(cfg, model, grad, params, center, batches) -> dict:
     def completion():
         _, grads = alg._client_grad(grad, params, batches, group)
         kv.push("centers", params)
-        p = alg.elastic_client_packed(params, kv.value("centers"), cfg.esgd_alpha)
+        p = elastic2(params, kv.value("centers"), cfg.esgd_alpha)
         opt.update(grads, state, p)
 
     out["device_busy_share"], out["device_busy_ms"], out["profiled_ms"] = \
@@ -1165,6 +1225,478 @@ def phase_ps(dev) -> tuple[dict, dict, dict]:
     return launches, errs, report
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (slice 4): the faults slice's kernels at the full-width shapes
+# ---------------------------------------------------------------------------
+
+def _row(name, err, ms, plain_ms, moved, flops, library_ms) -> dict:
+    k = FAULT_KERNELS[name]
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"name": name, "route": "triton", "source": k["source"],
+            "replaces": k["replaces"], "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def _per_leaf(fn, args_list):
+    """``fn`` over every leaf's arguments: one launch per leaf, as the
+    per-leaf paths (``local_reduce``, ``ops.compress``) make them."""
+    return lambda: [fn(*a) for a in args_list]
+
+
+def phase_fault_kernels(model, spec, dev) -> dict:
+    """group_reduce_flat on a G = 2 bf16 tree of the full width (one
+    launch per leaf, as a list push of two grad trees runs it), the QBLOCK
+    codec over every leaf of the tree cast to f32 (one push each way), and
+    elastic_exchange_flat on the packed buffer."""
+    results = {}
+    p0, p1 = model.init(device=dev, seed=0), model.init(device=dev, seed=1)
+    leaves0, leaves1 = tree_leaves(p0), tree_leaves(p1)
+    values = sum(l.numel() for l in leaves0)
+    log(f"[kernels] slice 4 operands: the full-width tree has {len(leaves0)} "
+        f"leaves (the layers stacked), {values} values, "
+        f"{sum(-(-l.numel() // qb.QBLOCK) for l in leaves0)} QBLOCK blocks; "
+        f"largest leaf {max(l.numel() for l in leaves0)} values")
+
+    # group_reduce_flat: one (2, N) bf16 group per leaf
+    groups = [(torch.stack([a, b]).reshape(2, -1),) for a, b in zip(leaves0, leaves1)]
+    t0 = time.perf_counter()
+    outs = _per_leaf(tr.group_reduce_flat, groups)()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    err = max(_hold_exact("group_reduce_flat", o, tr.group_reduce_flat_plain(*g))
+              for o, g in zip(outs, groups))
+    moved = sum(nbytes(g[0]) for g in groups) + nbytes(*outs)
+    del outs
+    ms = cuda_ms(_per_leaf(tr.group_reduce_flat, groups), reps=5)
+    plain_ms = cuda_ms(_per_leaf(tr.group_reduce_flat_plain, groups), reps=2, warmup=1)
+    library_ms = cuda_ms(_per_leaf(lambda x: x.float().sum(0).to(x.dtype), groups), reps=5)
+    results["group_reduce_flat"] = _row("group_reduce_flat", err, ms, plain_ms,
+                                        moved, values, library_ms)
+    log(f"[kernels] group_reduce_flat G=2 bf16, {len(groups)} launches over the "
+        f"tree: first call {build_s:.2f} s (build + run) max_abs_err={err:.3e} "
+        f"(==) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"(x.float().sum(0).to(x.dtype) per leaf) bytes={moved} "
+        f"bound_ms={results['group_reduce_flat']['bound_ms']:.4f}")
+    del groups, p1, leaves1
+    torch.cuda.empty_cache()
+
+    # the QBLOCK codec: every leaf flattened and cast to f32, as compress does
+    flats = [(l.reshape(-1).float(),) for l in leaves0]
+    big = max(range(len(flats)), key=lambda i: flats[i][0].numel())
+    t0 = time.perf_counter()
+    codecs = _per_leaf(qb.quantize_flat, flats)()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    err = max(_hold_exact("quantize_flat", c, qb.quantize_flat_plain(*f))
+              for c, f in zip(codecs, flats))
+    moved = sum(nbytes(f[0]) + nbytes(*c) for f, c in zip(flats, codecs))
+    ms = cuda_ms(_per_leaf(qb.quantize_flat, flats), reps=5)
+    plain_ms = cuda_ms(_per_leaf(qb.quantize_flat_plain, flats), reps=2, warmup=1)
+    big_ms = cuda_ms(lambda: qb.quantize_flat(*flats[big]), reps=10)
+    results["quantize_flat"] = _row("quantize_flat", err, ms, plain_ms, moved,
+                                    5 * values, None)
+    log(f"[kernels] quantize_flat, {len(flats)} launches (one push): first call "
+        f"{build_s:.2f} s (build + run) max_abs_err={err:.3e} (codes and scales "
+        f"==) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None (no one "
+        f"PyTorch call computes the per-1024-block absmax int8 codec) "
+        f"bytes={moved} bound_ms={results['quantize_flat']['bound_ms']:.4f}; the "
+        f"largest leaf ({flats[big][0].numel()} values) alone {big_ms:.4f} ms")
+    dargs = [(c, s, f[0].numel()) for (c, s), f in zip(codecs, flats)]
+    t0 = time.perf_counter()
+    outs = _per_leaf(qb.dequantize_flat, dargs)()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    err = max(_hold_exact("dequantize_flat", o, qb.dequantize_flat_plain(*a))
+              for o, a in zip(outs, dargs))
+    moved = sum(nbytes(a[0], a[1]) for a in dargs) + nbytes(*outs)
+    del outs
+    ms = cuda_ms(_per_leaf(qb.dequantize_flat, dargs), reps=5)
+    plain_ms = cuda_ms(_per_leaf(qb.dequantize_flat_plain, dargs), reps=2, warmup=1)
+    big_ms = cuda_ms(lambda: qb.dequantize_flat(*dargs[big]), reps=10)
+    results["dequantize_flat"] = _row("dequantize_flat", err, ms, plain_ms, moved,
+                                      values, None)
+    log(f"[kernels] dequantize_flat, {len(dargs)} launches (one push): first call "
+        f"{build_s:.2f} s (build + run) max_abs_err={err:.3e} (==) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms=None bytes={moved} "
+        f"bound_ms={results['dequantize_flat']['bound_ms']:.4f}; the largest "
+        f"leaf alone {big_ms:.4f} ms")
+    del flats, codecs, dargs
+    torch.cuda.empty_cache()
+
+    # elastic_exchange_flat on the packed buffer
+    w = spec.pack(p0)
+    c = w + 0.01 * torch.randn(w.shape, generator=torch.Generator(device=dev)
+                               .manual_seed(5), device=dev)
+    del p0, leaves0
+    alpha = torch.tensor(0.5, device=dev)
+    t0 = time.perf_counter()
+    got = fe.elastic_exchange_flat(w, c, alpha)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    err = _hold_exact("elastic_exchange_flat", got,
+                      fe.elastic_exchange_flat_plain(w, c, alpha))
+    moved = nbytes(w, c) + nbytes(*got)
+    del got
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fe.elastic_exchange_flat(w, c, alpha), reps=10)
+    plain_ms = cuda_ms(lambda: fe.elastic_exchange_flat_plain(w, c, alpha), reps=2,
+                       warmup=1)
+    a = float(alpha)
+    lerp_ms = cuda_ms(lambda: (torch.lerp(w, c, a), torch.lerp(c, w, a)), reps=10)
+    results["elastic_exchange_flat"] = _row("elastic_exchange_flat", err, ms,
+                                            plain_ms, moved, 4 * w.numel(), None)
+    log(f"[kernels] elastic_exchange_flat n={w.numel()} first call {build_s:.2f} s "
+        f"(build + run) max_abs_err={err:.3e} (both outputs ==) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms=None (no one PyTorch call computes "
+        f"both outputs; two torch.lerp calls, a note: {lerp_ms:.4f} ms) "
+        f"bytes={moved} bound_ms={results['elastic_exchange_flat']['bound_ms']:.4f}")
+    del w, c
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 7: slice 4 — faults and elastic membership
+# ---------------------------------------------------------------------------
+
+#: the reference's fault schedules (tests/test_faults.py), kill steps
+#: scaled to a run of 4 steps (sync) or ~4 iterations per client (async)
+SMALL_FAULT_RUNS = (
+    ("mpi_sgd", None, True,
+     dict(faults="kill@2:unit=1;straggle@0:unit=0:factor=3:duration=5",
+          barrier_timeout=1.0)),
+    ("dist_sgd", None, True,
+     dict(faults="kill@2:unit=1;straggle@0:unit=0:factor=3:duration=5",
+          barrier_timeout=1.0)),
+    ("mpi_asgd", None, True, dict(faults="kill@2:unit=1;drop@3:unit=0:duration=9")),
+    ("mpi_esgd", "int8", False,
+     dict(faults="kill@2:unit=1;straggle@0:unit=0:factor=3:duration=8")),
+)
+FAULT_COUNTERS = ("times", "epochs", "epoch_time", "mean_staleness", "degraded_syncs",
+                  "late_pushes", "live_clients", "membership_epochs", "pushed_bytes")
+
+
+class _CpuInitDriverState:
+    """``drive`` builds its state from ``make_driver_state``; for a card
+    against CPU comparison both runs start from the CPU's initial state."""
+
+    def __enter__(self):
+        self._orig = sd.make_driver_state
+        orig = self._orig
+
+        def from_cpu(*args, device="cuda", **kw):
+            return tree_map(lambda t: t.to(device), orig(*args, device="cpu", **kw))
+
+        sd.make_driver_state = from_cpu
+        return self
+
+    def __exit__(self, *exc):
+        sd.make_driver_state = self._orig
+
+
+def phase_faults_small(dev) -> None:
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    p0 = model.init(device="cpu", seed=0)
+    grad = _grad_loss_only(make_grad_fn(model))
+    data = dict(vocab_size=256, seq_len=64, batch_size=2, steps_per_epoch=2)
+    held = TokenPipeline(DataConfig(**data, shard=99)).batch_at(0, 0)
+    for mode, wire, flat, kw in SMALL_FAULT_RUNS:
+        cfg = alg.AlgoConfig(mode=mode, num_workers=4, num_clients=2, num_servers=1,
+                             epochs=2, steps_per_epoch=2, esgd_interval=2,
+                             compute_time=0.2, jitter=0.1, model_bytes=1e7,
+                             flat_exchange=flat, **kw,
+                             policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                     wire_dtype=wire))
+        c, g = (alg.run(
+            cfg, lambda gen, d=d: tree_map(lambda a: a.to(d), p0), grad,
+            _eval_fn(model, {k: v.to(d) for k, v in held.items()}),
+            lambda w, d=d: TokenPipeline(DataConfig(**data, shard=w), device=d),
+            device=d) for d in ("cpu", dev))
+        for f in FAULT_COUNTERS:
+            if getattr(g, f) != getattr(c, f):
+                raise AssertionError(f"[faults:small] {mode} {kw['faults']}: {f} card "
+                                     f"{getattr(g, f)} != cpu {getattr(c, f)}")
+        if g.live_clients != cfg.effective_clients - 1 or g.membership_epochs != 1:
+            raise AssertionError(f"[faults:small] {mode}: live {g.live_clients}, "
+                                 f"epochs {g.membership_epochs}")
+        torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
+                                   rtol=1e-4, atol=0)
+        torch.testing.assert_close(torch.tensor(g.metrics), torch.tensor(c.metrics),
+                                   rtol=1e-4, atol=0)
+        log(f"[faults:small] {mode} wire={wire} flat_exchange={flat} "
+            f"faults={kw['faults']!r}: clock {g.times} degraded {g.degraded_syncs} "
+            f"late {g.late_pushes} live {g.live_clients} epochs "
+            f"{g.membership_epochs} == cpu; losses within rtol 1e-4 of cpu")
+    opt = sgd_optimizer(0.1, momentum=0.9)
+    sync = _esgd_sync("mpi_sgd", 1, None)
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=64, batch_size=12))
+    batches = [pipe.batch_at(0, i) for i in range(4)]
+    with _CpuInitDriverState():
+        (cs, ch), (gs, gh) = (sd.drive(model, opt, sync, batches, p=4, device=d,
+                                       log_every=1,
+                                       faults="kill@1:unit=3;restart@3:unit=3")
+                              for d in ("cpu", dev))
+    events = [e for e in gh if "event" in e]
+    if events != [e for e in ch if "event" in e] or \
+            [e["event"] for e in events] != ["reconfigure", "join"]:
+        raise AssertionError(f"[faults:small] drive events {events} != cpu")
+    losses = [e["loss"] for e in gh if "loss" in e]
+    torch.testing.assert_close(torch.tensor(losses),
+                               torch.tensor([e["loss"] for e in ch if "loss" in e]),
+                               rtol=1e-4, atol=0)
+    _close_trees(gs["params"], cs["params"], dict(rtol=1e-3, atol=1e-5))
+    log(f"[faults:small] drive p=4 kill@1 / restart@3 of device 3: rows 4 -> "
+        f"{events[0]['p_new']} -> {events[1]['p_new']}, events == cpu, losses "
+        f"{[round(x, 4) for x in losses]} within rtol 1e-4, params rtol 1e-3")
+
+
+class _PushCounter:
+    """Counts the KVStore pushes of one run (the deliveries that reached
+    the store: a lost push never does)."""
+
+    def __init__(self):
+        self.count = 0
+        self._orig = KVStore.push
+
+    def __enter__(self):
+        orig, counter = self._orig, self
+
+        def push(kv, *args, **kw):
+            counter.count += 1
+            return orig(kv, *args, **kw)
+
+        KVStore.push = push
+        return self
+
+    def __exit__(self, *exc):
+        KVStore.push = self._orig
+
+
+def _faults_run(model, spec, grad, evaluate, data, dev) -> dict:
+    """(i) mpi-ESGD over the per-leaf int8 PS wire under FAULTS_SCHED."""
+    cfg = alg.AlgoConfig(**PS_RUN, model_bytes=4.0 * spec.payload, flat_exchange=False,
+                         faults=FAULTS_SCHED,
+                         policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                 wire_dtype="int8"))
+    params0 = model.init(device=dev, seed=0)
+    leaves = len(tree_leaves(params0))
+    start_loss = evaluate(params0)
+    push_bytes = qops.compressed_bytes(params0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _PushCounter() as pushes, _ExchangeRecorder("elastic_client_update") as rec:
+        t0 = time.perf_counter()
+        hist = alg.run(cfg, lambda gen: params0, grad, evaluate,
+                       lambda w: TokenPipeline(DataConfig(**dict(data, shard=w)),
+                                               device=dev), device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    got = counts(ALL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    label = "[faults] (i) mpi_esgd int8 per-leaf"
+    # unit 1 runs iterations 0-2 (pushes at 0, 2) and dies at dispatch of
+    # 3; unit 0 drains the 8 completions with iterations 0-4 (pushes at 0,
+    # 2, 4); its drop at 2 lasts one attempt, so the first retry lands
+    if pushes.count != 5 or hist.late_pushes != 0:
+        raise AssertionError(f"{label}: {pushes.count} pushes delivered, "
+                             f"{hist.late_pushes} late; the schedule implies 5, 0")
+    want = {"quantize_flat": leaves * pushes.count, "dequantize_flat": leaves * pushes.count,
+            "sgd_momentum_flat": 2 * PS_ITERS}
+    for name, cnt in got.items():
+        if cnt != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {cnt} times, want "
+                                 f"{want.get(name, 0)} (the packed elastic kernels: 0)")
+    if hist.pushed_bytes != push_bytes * pushes.count:
+        raise AssertionError(f"{label}: {hist.pushed_bytes} PS wire bytes, want "
+                             f"{pushes.count} x compressed_bytes {push_bytes}")
+    if (hist.live_clients, hist.membership_epochs) != (1, 1):
+        raise AssertionError(f"{label}: live {hist.live_clients}, epochs "
+                             f"{hist.membership_epochs}")
+    if not all(math.isfinite(x) for x in hist.losses + hist.metrics):
+        raise AssertionError(f"{label}: non-finite loss {hist.losses} {hist.metrics}")
+    if not hist.metrics[-1] < start_loss:
+        raise AssertionError(f"{label}: the center's eval loss {hist.metrics[-1]} is "
+                             f"not below its start {start_loss}")
+    params, center, _ = rec.last
+    pipes = [TokenPipeline(DataConfig(**dict(data, shard=w)), device=dev) for w in range(2)]
+    split = _ps_split(cfg, model, grad, params, center,
+                      [p.batch_at(0, PS_ITERS - 1) for p in pipes])
+    del params, center, rec, params0
+    torch.cuda.empty_cache()
+    log(f"{label}: faults {FAULTS_SCHED!r}; losses {[round(x, 4) for x in hist.losses]} "
+        f"center eval {start_loss:.4f} -> {hist.metrics[-1]:.4f}; {pushes.count} "
+        f"pushes delivered, late {hist.late_pushes}, live {hist.live_clients}, "
+        f"membership epochs {hist.membership_epochs}; launches "
+        f"{ {k: v for k, v in got.items() if v} } (= {leaves} leaves x "
+        f"{pushes.count} pushes each way); PS wire bytes {hist.pushed_bytes} == "
+        f"{pushes.count} x {push_bytes}; simulated epoch {hist.epoch_time:.4f} s")
+    log(f"{label}: run {wall_ms:.1f} ms (set-up and one eval included); peak_mem "
+        f"{peak / 2**30:.2f} GiB; split: fwd+bwd (2 workers) {split['fwd_bwd_ms']:.2f} "
+        f"ms, allreduce {split['allreduce_ms']:.2f} ms, push (per-leaf codec + "
+        f"server rule) {split['push_ms']:.2f} ms, Elastic2 (per leaf) "
+        f"{split['elastic2_ms']:.2f} ms, update {split['update_ms']:.2f} ms -> "
+        f"exchange completion {split['exchange_completion_ms']:.1f} ms; profiled "
+        f"{split['profiled_ms']:.1f} ms, device busy {split['device_busy_ms']} ms "
+        f"(share {split['device_busy_share']})")
+    return {"launches": {k: v for k, v in got.items() if v}, "pushes": pushes.count,
+            "losses": hist.losses, "center_eval": [start_loss] + hist.metrics,
+            "run_ms": wall_ms, "peak_mem_bytes": peak, "pushed_bytes": hist.pushed_bytes,
+            **split}
+
+
+def _list_push(model, grad, batches, dev) -> dict:
+    """(ii) ``KVStore("dist_sync").push("grads", [g0, g1])`` of two
+    full-width bf16 grad trees."""
+    params = model.init(device=dev, seed=0)
+    grads = [grad(params, b)[1] for b in batches]
+    del params
+    kv = KVStore.create("dist_sync", num_workers=1)
+    kv.init("grads", tree_map(torch.zeros_like, grads[0]))
+    leaves = len(tree_leaves(grads[0]))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kv.push("grads", grads)
+    torch.cuda.synchronize()
+    push_ms = (time.perf_counter() - t0) * 1e3
+    got = counts(ALL_KERNELS)
+    if got != {**{k: 0 for k in ALL_KERNELS}, "group_reduce_flat": leaves}:
+        raise AssertionError(f"[faults] (ii) list push launches {got}, want "
+                             f"group_reduce_flat {leaves}")
+    err = 0.0
+    for out, a, b in zip(tree_leaves(kv.value("grads")), *map(tree_leaves, grads)):
+        want = tr.group_reduce_flat_plain(torch.stack([a, b]).reshape(2, -1))
+        err = max(err, _hold_exact("group_reduce_flat", out.reshape(-1), want))
+    log(f"[faults] (ii) list push of two full-width bf16 grad trees: "
+        f"group_reduce_flat launched {got['group_reduce_flat']} times (one per "
+        f"leaf), the stored sum == the plain version's, {push_ms:.2f} ms "
+        f"(stacks included)")
+    del grads, kv
+    torch.cuda.empty_cache()
+    return {"launches": got["group_reduce_flat"], "max_abs_err": err, "push_ms": push_ms}
+
+
+def _exchange_packed(model, spec, dev) -> tuple[int, float]:
+    """(iii) ``elastic_exchange_packed(params, center, 0.5)`` at full
+    width, at f32 and over the int8 wire, against the plain path."""
+    params, center = model.init(device=dev, seed=0), model.init(device=dev, seed=1)
+    launches, err = 0, 0.0
+    for wire in (None, "int8"):
+        reset_counts()
+        t0 = time.perf_counter()
+        new_w, new_c = elastic_exchange_packed(params, center, 0.5, wire_dtype=wire)
+        torch.cuda.synchronize()
+        ex_ms = (time.perf_counter() - t0) * 1e3
+        got = counts(ALL_KERNELS)
+        want = {"elastic_exchange_flat": 1}
+        if wire:
+            want.update(quantize_wire=1, dequantize_wire=1)
+        if got != {**{k: 0 for k in ALL_KERNELS}, **want}:
+            raise AssertionError(f"[faults] (iii) wire={wire}: launches {got}")
+        launches = got["elastic_exchange_flat"]
+        w = spec.pack(params)
+        if wire:
+            codes, scales = qb.quantize_wire_plain(w)
+            w = qb.dequantize_wire_plain(codes, scales, spec.size)
+            del codes, scales
+        pw, pc = fe.elastic_exchange_flat_plain(w, spec.pack(center),
+                                                torch.tensor(0.5, device=dev))
+        del w
+        for got_t, want_t in ((new_w, spec.unpack(pw)), (new_c, spec.unpack(pc))):
+            for a, b in zip(tree_leaves(got_t), tree_leaves(want_t)):
+                err = max(err, _hold_exact("elastic_exchange_flat", a, b))
+        del pw, pc, new_w, new_c
+        torch.cuda.empty_cache()
+        log(f"[faults] (iii) elastic_exchange_packed wire={wire or 'f32'}: launches "
+            f"{ {k: v for k, v in got.items() if v} }, both trees == the plain "
+            f"path's, {ex_ms:.2f} ms (packs and unpacks included)")
+    return launches, err
+
+
+def _drive_faults(model, spec, opt, dev) -> dict:
+    """(iv) the p = 4 mpi-SGD shard driver under DRIVE_SCHED."""
+    sync = _esgd_sync("mpi_sgd", 1, None)
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512,
+                                    batch_size=12), device=dev)
+    batches = [pipe.batch_at(0, i) for i in range(DRIVE_STEPS)]
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = sd.drive(model, opt, sync, batches, p=4, device=dev, log_every=1,
+                           faults=DRIVE_SCHED,
+                           callback=lambda e: stamps.append((e, time.perf_counter())))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    got = counts(ALL_KERNELS)
+    events = [e for e in hist if "event" in e]
+    kill, join = events
+    label = "[faults] (iv) drive p=4 mpi_sgd"
+    if ([e["event"] for e in events] != ["reconfigure", "join"]
+            or (kill["p_old"], kill["p_new"], join["p_new"]) != (4, 3, 4)):
+        raise AssertionError(f"{label}: events {events}")
+    if kill["moved_bytes"] != cost_model.reshard_leg_bytes(
+            kill["state_nbytes"], 4, survivors=3):
+        raise AssertionError(f"{label}: kill moved {kill['moved_bytes']} B")
+    if join["moved_bytes"] != cost_model.join_reshard_bytes(join["state_nbytes"], 3):
+        raise AssertionError(f"{label}: join moved {join['moved_bytes']} B")
+    rows = [tree_leaves(state["params"])[0].shape[0]]
+    if rows != [4] or got.get("sgd_momentum_flat") != DRIVE_STEPS:
+        raise AssertionError(f"{label}: rows {rows}, launches {got}")
+    losses = [e["loss"] for e in hist if "loss" in e]
+    if len(losses) != DRIVE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    # each step's time: from the previous logged step to this one's log,
+    # so a step behind a membership change carries the reconfiguration
+    step_ms, prev = [], t0
+    for e, t in stamps:
+        if "loss" in e:
+            step_ms.append((t - prev) * 1e3)
+            prev = t
+    log(f"{label}: faults {DRIVE_SCHED!r}, 6 steps of 12 x 512: rows 4 -> "
+        f"{kill['p_new']} (step {kill['step']}) -> {join['p_new']} (step "
+        f"{join['step']}); kill moved {kill['moved_bytes']:.0f} B == "
+        f"reshard_leg_bytes, join moved {join['moved_bytes']:.0f} B == "
+        f"join_reshard_bytes; losses {[round(x, 4) for x in losses]}; step_ms "
+        f"{[round(x, 1) for x in step_ms]} (steps 2 and 4 include the "
+        f"membership change); run {wall_ms:.1f} ms; peak_mem {peak / 2**30:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return {"events": events, "losses": losses, "step_ms": step_ms, "run_ms": wall_ms,
+            "peak_mem_bytes": peak}
+
+
+def phase_faults(dev) -> tuple[dict, dict, dict]:
+    cfg_model = get_config("qwen2-0.5b")
+    model = build_model(cfg_model)
+    spec = grad_spec(model)
+    grad = _grad_loss_only(make_grad_fn(model))
+    data = dict(seed=0, vocab_size=256, seq_len=512, batch_size=2,
+                steps_per_epoch=PS_ITERS, num_shards=PS_RUN["num_workers"])
+    held = TokenPipeline(DataConfig(**dict(data, shard=99)), device=dev).batch_at(0, 0)
+    log(f"[faults] full-width {cfg_model.name} {cfg_model.dtype}, depth uncut")
+    report = {"(i) run": _faults_run(model, spec, grad, _eval_fn(model, held), data, dev)}
+    pipe = TokenPipeline(DataConfig(**data), device=dev)
+    report["(ii) list push"] = _list_push(model, grad,
+                                          [pipe.batch_at(0, i) for i in range(2)], dev)
+    ex_launches, ex_err = _exchange_packed(model, spec, dev)
+    report["(iv) drive"] = _drive_faults(model, spec, sgd_optimizer(0.1, momentum=0.9), dev)
+    launches = {"quantize_flat": report["(i) run"]["launches"]["quantize_flat"],
+                "dequantize_flat": report["(i) run"]["launches"]["dequantize_flat"],
+                "group_reduce_flat": report["(ii) list push"]["launches"],
+                "elastic_exchange_flat": ex_launches}
+    errs = {"group_reduce_flat": report["(ii) list push"]["max_abs_err"],
+            "elastic_exchange_flat": ex_err}
+    log("[faults] " + json.dumps({"faults": report}, default=str))
+    return launches, errs, report
+
+
 def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
@@ -1173,6 +1705,7 @@ def main() -> None:
     kernels = phase_kernels(n, dev)
     kernels.update(phase_elastic_kernels(spec, dev))
     kernels.update(phase_ps_kernels(spec, dev))
+    kernels.update(phase_fault_kernels(build_model(get_config("qwen2-0.5b")), spec, dev))
     phase_small_reference(dev)
     launches, _, params = phase_slice(dev)
     phase_checkpoint(params)
@@ -1186,6 +1719,11 @@ def main() -> None:
     ps_launches, ps_errs, _ = phase_ps(dev)
     launches.update(ps_launches)
     for name, e in ps_errs.items():     # worst hold: phase 2 or the run's operands
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    phase_faults_small(dev)
+    fault_launches, fault_errs, _ = phase_faults(dev)
+    launches.update(fault_launches)
+    for name, e in fault_errs.items():  # worst hold: phase 2 or the [faults] run
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     sgd_row = kernels["sgd_momentum_flat"]    # worst hold: phase 2 or a run's shards
     sgd_row["max_abs_err"] = max([sgd_row["max_abs_err"]]

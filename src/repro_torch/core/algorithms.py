@@ -23,9 +23,18 @@ with ``cfg.seed``, where the reference passes ``jax.random.key(seed)``;
 float``; and ``make_pipeline(worker)`` with ``batch_at(epoch, step)``.
 It runs on the card unless the caller passes ``device="cpu"``.
 
-Not ported yet: fault injection and elastic membership (``faults`` /
-``server_faults``, the faulted sync path and the injector branches of
-the async runners) — slice 4; a config with a fault schedule raises.
+``AlgoConfig.faults`` injects a deterministic fault schedule
+(``core.faults``): the sync modes run ``_run_sync_faulted`` (a dead
+client misses the PS barrier, which releases short after
+``barrier_timeout``, then the client ``Membership`` evicts it; straggles
+and delays stretch arrivals, drops ride the retry/backoff policy, late
+pushes are discarded), the async and elastic runners drop a killed unit
+from the event engine and lose or delay its pushes. The simulated clock,
+``degraded_syncs``, ``late_pushes``, ``live_clients`` and
+``membership_epochs`` equal the reference's. ``server_faults``,
+``checkpoint_every``, ``restarts`` and ``restart_backoff`` configure the
+socket tier's servers and supervisor; the in-process runners ignore them,
+as they ignore ``restart`` events.
 """
 from __future__ import annotations
 
@@ -41,7 +50,9 @@ from repro_torch.core.collectives import check_wire_dtype
 from repro_torch.core.comm import (CollectivePolicy, Communicator,
                                    filter_mirrors, resolve_policy)
 from repro_torch.core.elastic import elastic_client_packed, elastic_client_update
+from repro_torch.core.faults import FaultInjector, delivery_time, injector
 from repro_torch.core.kvstore import KVStore
+from repro_torch.core.membership import Membership
 from repro_torch.core.scheduler import AsyncEngine, StalenessTracker, UnitTiming
 from repro_torch.launch.train import resolve_device
 from repro_torch.optim.sgd import (
@@ -98,12 +109,26 @@ class AlgoConfig:
     # remainder of the intra-client reduce-scatter
     overlap: bool = False
     overlap_buckets: int = 4
+    # fault injection (core/faults.py): a FaultSchedule or its compact
+    # string form ("kill@12:unit=1;straggle@0:unit=3:factor=4"); None runs
+    # the clean path
+    faults: Any = None
+    # sync-barrier graceful degradation (KVStore): seconds past a round's
+    # first arrival before the barrier releases with the survivors;
+    # required for kill/drop schedules in the sync modes
+    barrier_timeout: Optional[float] = None
     # async server rule: damp an s-stale push by 1/(1+s)
     staleness_scaling: bool = False
-    # fault schedules (the simulation's and the server tier's): slice 4
-    # ports them with their knobs (barrier timeout, push retries); a
-    # schedule raises until then
-    faults: Any = None
+    # dropped-push retry policy: 1 + push_retries delivery attempts,
+    # doubling backoff starting at push_backoff seconds
+    push_retries: int = 2
+    push_backoff: float = 0.05
+    # crash recovery of the socket tier (its KV snapshots, supervised
+    # respawns and the servers' own fault schedule): the in-process
+    # runners ignore all four, as the reference's do
+    checkpoint_every: int = 0
+    restarts: int = 0
+    restart_backoff: float = 0.05
     server_faults: Any = None
     # the policy the mirror knobs were backfilled from (dataclasses.replace
     # passes it back so __post_init__ can tell a changed mirror from one
@@ -268,6 +293,22 @@ def _members(idents, num_workers: int, client: int) -> list[int]:
     return [w for w in range(num_workers) if idents[w].mpi.client == client]
 
 
+def _injector(cfg: AlgoConfig) -> Optional[FaultInjector]:
+    """The config's fault injector (None when the schedule is empty: the
+    clean path runs)."""
+    return injector(cfg.faults, seed=cfg.seed)
+
+
+def _client_membership(cfg: AlgoConfig, C: int) -> Membership:
+    """The PS tier's membership: clients over an emulated 'client' axis,
+    so every epoch change re-splits a Communicator (the group a deployment
+    would MPI_Comm_split over the survivors)."""
+    return Membership(
+        C, Communicator.world(
+            ("client",), (C,),
+            policy=CollectivePolicy(method=cfg.policy.method)))
+
+
 def run(cfg: AlgoConfig, init_fn: Callable[[torch.Generator], Any],
         grad_fn: GradFn, eval_fn: EvalFn, make_pipeline: Callable[[int], Any],
         *, device="cuda") -> History:
@@ -275,10 +316,6 @@ def run(cfg: AlgoConfig, init_fn: Callable[[torch.Generator], Any],
         raise ValueError(f"mode must be one of {MODES}")
     if cfg.num_workers % cfg.effective_clients:
         raise ValueError("workers must divide into clients evenly")
-    if cfg.faults or cfg.server_faults:
-        raise NotImplementedError(
-            "not yet ported: fault injection and membership (core/faults, "
-            "core/membership, the faulted runners) belong to slice 4")
     device = resolve_device(device)
     runner = {
         "dist_sgd": _run_sync, "mpi_sgd": _run_sync,
@@ -302,6 +339,14 @@ def run(cfg: AlgoConfig, init_fn: Callable[[torch.Generator], Any],
 # ---------------------------------------------------------------------------
 
 def _run_sync(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
+    inj = _injector(cfg)
+    if inj is not None:
+        return _run_sync_faulted(cfg, init, grad_fn, eval_fn, make_pipeline,
+                                 inj)
+    return _run_sync_clean(cfg, init, grad_fn, eval_fn, make_pipeline)
+
+
+def _run_sync_clean(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     C = cfg.effective_clients
     idents = group_workers(cfg.num_workers, C)
     pipelines = [make_pipeline(w) for w in range(cfg.num_workers)]
@@ -356,6 +401,109 @@ def _run_sync(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     return hist
 
 
+def _run_sync_faulted(cfg, init, grad_fn, eval_fn, make_pipeline,
+                      inj: FaultInjector) -> History:
+    """The synchronous modes under a fault schedule. Dead clients miss the
+    PS barrier; the FIRST missed round degrades via barrier_timeout
+    (survivor release + rescale), after which the Membership evicts them
+    (epoch bump + Communicator re-split) and later barriers are full
+    barriers of the survivor group. Straggle/delay stretch a client's
+    arrival; drops ride the retry/backoff policy; pushes past the deadline
+    are discarded as late by the store."""
+    C = cfg.effective_clients
+    if (cfg.barrier_timeout is None
+            and inj.schedule.kinds & {"kill", "drop"}):
+        raise ValueError(
+            f"mode {cfg.mode!r} has a sync PS barrier: a kill/drop fault "
+            "schedule would deadlock it — set AlgoConfig.barrier_timeout so "
+            "the barrier can release with the survivor group")
+    idents = group_workers(cfg.num_workers, C)
+    pipelines = [make_pipeline(w) for w in range(cfg.num_workers)]
+    params = init(cfg.seed)
+    kv = KVStore.create("sync_mpi" if cfg.mode == "mpi_sgd" else "dist_sync",
+                        num_workers=cfg.num_workers, num_servers=cfg.num_servers,
+                        num_clients=C, barrier_timeout=cfg.barrier_timeout)
+    kv.init("grads", tree_map(torch.zeros_like, params))
+    group = _worker_group(cfg)
+    for c in range(C):
+        kv.register_group(c, group)
+    live = _client_membership(cfg, C)
+    kv.attach_membership(live)
+    opt = _make_opt(cfg, params)
+    opt_state = opt.init(params)
+
+    comm = _comm_times(cfg)
+    wpc = cfg.workers_per_client
+    rng = np.random.default_rng(cfg.seed)
+    now = 0.0
+    hist = History()
+    step_times = []
+    for epoch in range(cfg.epochs):
+        for step in range(cfg.steps_per_epoch):
+            gstep = epoch * cfg.steps_per_epoch + step
+            newly_dead = [c for c in live.live if inj.is_killed(c, gstep)]
+            losses, arrivals, pushes = [], {}, {}
+            for c in live.live:
+                if c in newly_dead:
+                    continue  # died before this round's compute
+                members = _members(idents, cfg.num_workers, c)
+                batches = [pipelines[w].batch_at(epoch, step) for w in members]
+                loss, stacked = _member_grads(grad_fn, params, batches)
+                draws = [rng.lognormal(0, cfg.jitter) for _ in members]
+                compute = cfg.compute_time * max(draws)
+                leg = (compute * inj.straggle_factor(c, gstep)
+                       + inj.delay(c, gstep))
+                arrivals[c] = now + leg + comm["intra"]
+                pushes[c] = inj.corrupt(stacked, c, gstep)
+                losses.append(loss)
+            deliver = {}
+            for c in sorted(arrivals):
+                at = delivery_time(inj, c, gstep, arrivals[c],
+                                   retries=cfg.push_retries,
+                                   backoff=cfg.push_backoff)
+                if at is not None:
+                    deliver[c] = at
+            if deliver:
+                first = min(deliver.values())
+                deadline = (float("inf") if cfg.barrier_timeout is None
+                            else first + cfg.barrier_timeout)
+                in_time = [c for c in deliver if deliver[c] <= deadline]
+                for c in sorted(deliver, key=lambda c: (deliver[c], c)):
+                    # the store discards deliveries past the deadline
+                    # (late_pushes); in-time ones fill the barrier
+                    kv.push("grads", pushes[c], group=c, at=deliver[c], unit=c)
+                release = (max(deliver[c] for c in in_time)
+                           if len(in_time) == kv.expected_pushers
+                           else deadline)
+                total = kv.pull("grads", now=release)[0]
+                k = kv.last_barrier_count or len(in_time)
+                params, opt_state = opt.update(_div(total, k * wpc),
+                                               opt_state, params)
+            else:
+                # every live push lost this round: no update, the round
+                # still burns the timeout waiting
+                release = now + (cfg.barrier_timeout or cfg.compute_time)
+            dt = release + comm["ps"] - now
+            now = release + comm["ps"]
+            step_times.append(dt)
+            if losses:
+                hist.losses.append(float(np.mean(losses)))
+            for c in newly_dead:
+                # the missed barrier IS the failure detector: evict after
+                # the degraded round, shrinking later barriers
+                live.fail(c)
+        hist.times.append(now)
+        hist.epochs.append(epoch)
+        hist.metrics.append(eval_fn(params))
+    hist.epoch_time = float(np.mean(step_times)) * cfg.steps_per_epoch
+    hist.degraded_syncs = kv.degraded_syncs
+    hist.late_pushes = kv.late_pushes
+    hist.live_clients = live.live_count
+    hist.membership_epochs = live.epoch
+    hist.pushed_bytes = kv.pushed_bytes
+    return hist
+
+
 # ---------------------------------------------------------------------------
 # asynchronous (fig. 7): Push(grads); Pull(params) — server runs optimizer
 # ---------------------------------------------------------------------------
@@ -368,6 +516,8 @@ def _unit_timing(cfg: AlgoConfig, C: int) -> list[UnitTiming]:
 
 def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     C = cfg.effective_clients
+    inj = _injector(cfg)
+    live = _client_membership(cfg, C) if inj is not None else None
     idents = group_workers(cfg.num_workers, C)
     pipelines = [make_pipeline(w) for w in range(cfg.num_workers)]
     params0 = init(cfg.seed)
@@ -379,6 +529,8 @@ def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     group = _worker_group(cfg)
     for c in range(C):
         kv.register_group(c, group)
+    if live is not None:
+        kv.attach_membership(live)
 
     comm = _comm_times(cfg)
     # contention: concurrent pushers share the server link — async pushes
@@ -403,15 +555,32 @@ def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     total = cfg.epochs * per_epoch
     state = {"completions": 0, "losses": []}
 
-    def on_complete(unit: int, now: float) -> float:
+    def on_complete(unit: int, now: float) -> Optional[float]:
         it = client_iter[unit]
+        if inj is not None and inj.is_killed(unit, it):
+            # the unit dies at dispatch: the membership evicts it and the
+            # engine never re-queues it; survivors drain the budget
+            live.fail(unit)
+            return None
         epoch = min(it // cfg.steps_per_epoch, cfg.epochs - 1)
         step = it % cfg.steps_per_epoch
         batches = [pipelines[w].batch_at(epoch, step)
                    for w in _members(idents, cfg.num_workers, unit)]
         loss, g = _client_grad(grad_fn, client_params[unit], batches, group)
         state["losses"].append(loss)
-        kv.push("params", g, unit=unit)
+        extra = 0.0
+        if inj is not None:
+            g = inj.corrupt(g, unit, it)
+            at = delivery_time(inj, unit, it, now, retries=cfg.push_retries,
+                               backoff=cfg.push_backoff)
+            if at is not None:
+                extra += (at - now) + inj.delay(unit, it)
+                kv.push("params", g, unit=unit)
+            else:
+                kv.late_pushes += 1  # lost for good: the server never sees it
+            extra += (inj.straggle_factor(unit, it) - 1.0) * cfg.compute_time
+        else:
+            kv.push("params", g, unit=unit)
         client_params[unit] = kv.pull("params", unit=unit)[0]
         client_iter[unit] += 1
         state["completions"] += 1
@@ -421,7 +590,7 @@ def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
             hist.epochs.append(ep)
             hist.metrics.append(eval_fn(kv.value("params")))
             hist.losses.append(float(np.mean(state["losses"][-per_epoch:])))
-        return comm["intra"] + push_time
+        return comm["intra"] + push_time + extra
 
     for u in range(C):
         tracker.on_pull(u)
@@ -430,7 +599,8 @@ def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     hist.mean_staleness = tracker.mean_staleness()
     hist.epoch_time = engine.now / cfg.epochs
     hist.late_pushes = kv.late_pushes
-    hist.live_clients = C
+    hist.live_clients = live.live_count if live is not None else C
+    hist.membership_epochs = live.epoch if live is not None else 0
     hist.pushed_bytes = kv.pushed_bytes
     return hist
 
@@ -442,6 +612,8 @@ def _run_async(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
 
 def _run_esgd(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     C = cfg.effective_clients
+    inj = _injector(cfg)
+    live = _client_membership(cfg, C) if inj is not None else None
     idents = group_workers(cfg.num_workers, C)
     pipelines = [make_pipeline(w) for w in range(cfg.num_workers)]
     params0 = init(cfg.seed)
@@ -469,8 +641,13 @@ def _run_esgd(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
     state = {"completions": 0, "losses": []}
     per_epoch = cfg.steps_per_epoch * C
 
-    def on_complete(unit: int, now: float) -> float:
+    def on_complete(unit: int, now: float) -> Optional[float]:
         it = client_iter[unit]
+        if inj is not None and inj.is_killed(unit, it):
+            # the dead client's replica is abandoned — the center keeps the
+            # mass it already absorbed (eq. 2), ESGD's tolerance story
+            live.fail(unit)
+            return None
         epoch = min(it // cfg.steps_per_epoch, cfg.epochs - 1)
         step = it % cfg.steps_per_epoch
         batches = [pipelines[w].batch_at(epoch, step)
@@ -479,18 +656,33 @@ def _run_esgd(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
         state["losses"].append(loss)
         comm_cost = comm["intra"]
         if it % cfg.esgd_interval == 0:
-            # Elastic2 reads the center as it was BEFORE this push
-            old_center = kv.value("centers")
-            kv.push("centers", client_params[unit])      # Elastic1 on server
-            if cfg.flat_exchange:
-                client_params[unit] = elastic_client_packed(
-                    client_params[unit], old_center, cfg.esgd_alpha)
-            else:
-                client_params[unit] = elastic_client_update(
-                    client_params[unit], old_center, cfg.esgd_alpha)
-            comm_cost += cost_model.ps_pushpull_time(
-                cfg.model_bytes, 1, cfg.num_servers, cfg.net,
-                wire_dtype=cfg.effective_wire_dtype)
+            pushed = client_params[unit]
+            deliver = True
+            if inj is not None:
+                pushed = inj.corrupt(pushed, unit, it)
+                at = delivery_time(inj, unit, it, now,
+                                   retries=cfg.push_retries,
+                                   backoff=cfg.push_backoff)
+                if at is None:
+                    # the exchange is lost: neither Elastic1 nor Elastic2
+                    # runs this round, the replica drifts one interval more
+                    deliver = False
+                    kv.late_pushes += 1
+                else:
+                    comm_cost += (at - now) + inj.delay(unit, it)
+            if deliver:
+                # Elastic2 reads the center as it was BEFORE this push
+                old_center = kv.value("centers")
+                kv.push("centers", pushed)               # Elastic1 on server
+                if cfg.flat_exchange:
+                    client_params[unit] = elastic_client_packed(
+                        client_params[unit], old_center, cfg.esgd_alpha)
+                else:
+                    client_params[unit] = elastic_client_update(
+                        client_params[unit], old_center, cfg.esgd_alpha)
+                comm_cost += cost_model.ps_pushpull_time(
+                    cfg.model_bytes, 1, cfg.num_servers, cfg.net,
+                    wire_dtype=cfg.effective_wire_dtype)
         new_p, new_s = opt.update(g, client_opt[unit], client_params[unit])
         client_params[unit] = new_p
         client_opt[unit] = new_s
@@ -502,12 +694,15 @@ def _run_esgd(cfg, init, grad_fn, eval_fn, make_pipeline) -> History:
             hist.epochs.append(ep)
             hist.metrics.append(eval_fn(kv.value("centers")))
             hist.losses.append(float(np.mean(state["losses"][-per_epoch:])))
+        if inj is not None:
+            comm_cost += (inj.straggle_factor(unit, it) - 1.0) * cfg.compute_time
         return comm_cost
 
     engine.start()
     engine.run(total, on_complete)
     hist.epoch_time = engine.now / cfg.epochs
     hist.late_pushes = kv.late_pushes
-    hist.live_clients = C
+    hist.live_clients = live.live_count if live is not None else C
+    hist.membership_epochs = live.epoch if live is not None else 0
     hist.pushed_bytes = kv.pushed_bytes
     return hist

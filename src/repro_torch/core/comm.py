@@ -30,9 +30,8 @@ same ring programs on the packed buffer; ``emulate_reduce`` runs one over
 a stacked member dim, as the in-process PS tier (``core/kvstore``,
 ``core/algorithms``) holds a group's values.
 
-Not ported yet, and raising ``NotImplementedError`` naming their slice:
-``resized`` (elastic membership, slice 4) and the schedule-bucketed legs
-of backward overlap. A real multi-GPU backend (``torch.distributed``) is
+Not ported yet, and raising ``NotImplementedError`` naming their item:
+the schedule-bucketed legs of backward overlap. A real multi-GPU backend (``torch.distributed``) is
 queued in ROADMAP.
 """
 from __future__ import annotations
@@ -229,9 +228,27 @@ class Communicator:
         return replace(self, axes=(), sizes=())
 
     def resized(self, size: int, axis: Optional[str] = None) -> "Communicator":
-        raise NotImplementedError(
-            "not yet ported: Communicator.resized belongs to the elastic "
-            "membership slice (core/membership.py)")
+        """The SAME group with one axis re-sized — the re-split an elastic
+        membership change performs (``core/membership.py``): a member
+        failed, left or joined, so the axis it lived on shrinks or grows
+        while the policy is inherited unchanged. Multi-axis groups must
+        name which ``axis`` the membership rides."""
+        if self.is_trivial:
+            raise ValueError("cannot resize the trivial group")
+        if size < 1:
+            raise ValueError(f"resized group must keep >= 1 member, "
+                             f"got {size}")
+        if axis is None:
+            if len(self.axes) > 1:
+                raise ValueError(
+                    f"communicator spans {self.axes}; name the membership "
+                    "axis: resized(size, axis=...)")
+            axis = self.axes[0]
+        if axis not in self.axes:
+            raise ValueError(f"no axis {axis!r} in {self.axes}")
+        sizes = tuple(int(size) if a == axis else s
+                      for a, s in zip(self.axes, self.sizes))
+        return replace(self, sizes=sizes)
 
     def with_policy(self, policy: Optional[CollectivePolicy] = None,
                     **kw) -> "Communicator":

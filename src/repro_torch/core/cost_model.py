@@ -8,7 +8,9 @@ PS push/pull: a server's ingress link is shared by every concurrent pusher
 Ported: the wire-byte functions the emulated collectives are held to
 (``core.collectives.WireMeter`` counts each hop's bytes), and the time
 functions the six-mode simulation (``core.algorithms``) charges to its
-simulated clock. The one network preset is ``testbed()``, the paper's
+simulated clock, with the byte and time accounting of a membership
+change (``core.membership.reshard_optstate``, the shard driver's kills
+and joins). The one network preset is ``testbed()``, the paper's
 InfiniBand ConnectX-4 cluster: it prices the simulated clock of the
 paper's experiments and describes no hardware this port runs on. The
 reference's second preset, a TPU's interconnect, is not carried over.
@@ -103,6 +105,79 @@ def ps_wire_nbytes(n_values: int, wire_dtype: "str | None" = None) -> int:
         return n_pad + (n_pad // WIRE_BLOCK) * 4
     raise ValueError(f"wire_dtype must be None/f32/bf16/int8, "
                      f"got {wire_dtype!r}")
+
+
+def reshard_leg_bytes(state_nbytes: float, p_old: int,
+                      survivors: "int | None" = None,
+                      wire_dtype: "str | None" = None) -> float:
+    """Per-survivor wire bytes of re-laying-out 1/p_old-sharded state
+    after a membership change: an allgather among the ``s`` survivors of
+    their old shards — each receives the other s−1 shards of
+    ``state_nbytes / p_old`` bytes. This is EXACTLY the ``moved_bytes``
+    core/membership.py's ``reshard_optstate`` reports."""
+    if p_old <= 1:
+        return 0.0
+    s = p_old if survivors is None else int(survivors)
+    if s <= 1:
+        return 0.0
+    return (s - 1) * wire_bytes(state_nbytes / p_old, wire_dtype)
+
+
+def resplit_time(p_new: int, net: NetParams) -> float:
+    """Communicator re-split (MPI_Comm_split over the survivor group):
+    an agreement round — ceil(log2(p_new)) latency-bound hops, no
+    payload to speak of."""
+    import math
+
+    if p_new <= 1:
+        return net.alpha
+    return math.ceil(math.log2(p_new)) * net.alpha
+
+
+def reconfig_time(state_nbytes: float, p_old: int, p_new: int,
+                  net: NetParams, survivors: "int | None" = None,
+                  wire_dtype: "str | None" = None) -> float:
+    """Total recovery overhead of one membership change: the re-split
+    agreement plus the survivor allgather realizing the new state
+    layout (per-survivor bytes × β; the shards move in parallel)."""
+    moved = reshard_leg_bytes(state_nbytes, p_old, survivors, wire_dtype)
+    return resplit_time(p_new, net) + moved * net.beta
+
+
+def restore_leg_bytes(n_values: int) -> int:
+    """EXACT payload bytes of one parked-state restore leg: a respawned
+    worker's ``get_state`` pull of ``n_values`` f32 values. Resume must
+    be bit-identical, so state parking bypasses the wire codec (always
+    4 bytes/value, no bf16/int8 option)."""
+    return 4 * int(n_values)
+
+
+def join_reshard_bytes(state_nbytes: float, p_old: int,
+                       survivors: "int | None" = None,
+                       wire_dtype: "str | None" = None) -> float:
+    """Per-survivor wire bytes of admitting a joiner into
+    1/p_old-sharded optimizer state: a grow is a reshard in which EVERY
+    old shard survives — reconstruct from the s = p_old shards, then
+    re-slice at the grown count. This is exactly the ``moved_bytes``
+    ``membership.reshard_optstate`` reports for the join."""
+    return reshard_leg_bytes(state_nbytes, p_old, survivors, wire_dtype)
+
+
+def recovery_time(restore_nbytes: float, respawn_delay: float,
+                  p_old: int, p_new: int, net: NetParams,
+                  state_nbytes: float = 0.0,
+                  survivors: "int | None" = None,
+                  wire_dtype: "str | None" = None) -> float:
+    """Wall-clock overhead of one crash recovery: the supervisor's
+    respawn gap, the respawn's state-restore pull (exact-f32 bytes ×
+    β), and — when sharded state must re-lay-out (a join/eviction, or
+    any nonzero ``state_nbytes``) — the re-split agreement plus the
+    survivor allgather (``reconfig_time``)."""
+    t = float(respawn_delay) + restore_nbytes * net.beta
+    if p_old != p_new or state_nbytes:
+        t += reconfig_time(state_nbytes, p_old, p_new, net,
+                           survivors=survivors, wire_dtype=wire_dtype)
+    return t
 
 
 def reduce_scatter_time(nbytes: float, p: int, net: NetParams,

@@ -20,13 +20,14 @@ Two substrates implement the exchange:
             exchange (``elastic_exchange_multiclient_flat``), and the
             sharded cross-pod leg (``elastic_exchange_sharded``) that ring
             reduce-scatters the packed differences, so the exchange waits
-            on (p−1)/p·n bytes instead of an allreduce's 2·(p−1)/p·n
+            on (p−1)/p·n bytes instead of an allreduce's 2·(p−1)/p·n;
+            and the one-pair exchange ``elastic_exchange_packed`` (both
+            halves from one kernel pass, the pushed w first through the
+            PS wire)
 
 Every form returns new tensors and writes into none of its inputs: the
 PS-tier runners start the center and every client replica from one tree,
 and a client's Elastic2 reads the center as it was before its own push.
-The one-pair packed exchange ``elastic_exchange_packed`` (kernel
-``elastic_exchange_flat``) has no runtime caller; it comes with slice 4.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.kernels.fused_elastic.fused_elastic import (
     elastic_center_flat,
     elastic_client_diff_flat,
     elastic_client_flat,
+    elastic_exchange_flat,
     elastic_exchange_flat_mc,
     elastic_server_flat,
 )
@@ -144,10 +146,33 @@ def scale_packed(tree: Any, factor) -> Any:
                                           device=buf.device))
 
 
-def elastic_exchange_packed(*args, **kw):
-    raise NotImplementedError(
-        "not yet ported: elastic_exchange_packed and its kernel "
-        "elastic_exchange_flat belong to slice 4")
+def elastic_exchange_packed(params: Any, center: Any, alpha, *,
+                            compress: bool = False,
+                            wire_dtype: Optional[str] = None
+                            ) -> tuple[Any, Any]:
+    """Eqs. (2)+(3) on the WHOLE pytree as one packed FlatBuffer: pack w
+    and w̃, run ONE fused kernel pass for both updates, unpack.
+
+    ``wire_dtype`` ("bf16"/"int8") runs the packed w through the PS wire
+    roundtrip first, so the exchange sees what a compressed push delivers.
+    The removed ``compress=True`` alias is a hard error: it WAS
+    ``wire_dtype="int8"``."""
+    if compress:
+        raise ValueError(
+            "elastic_exchange_packed(compress=True) was removed — it is "
+            "the int8 wire: pass wire_dtype='int8' instead")
+    spec_w, spec_c = flatbuf.spec_for(params), flatbuf.spec_for(center)
+    w = _wire_roundtrip(spec_w.pack(params), wire_dtype)
+    c = spec_c.pack(center)
+    new_w, new_c = elastic_exchange_flat(w, c, _alpha(alpha, c.device))
+    return spec_w.unpack(new_w), spec_c.unpack(new_c)
+
+
+def quantize_packed(tree: Any) -> Any:
+    """Removed alias of the int8 packed wire roundtrip."""
+    raise ValueError(
+        "quantize_packed was removed — it is the int8 wire: call "
+        "wire_packed(tree, wire_dtype='int8') instead")
 
 
 def elastic_exchange_multiclient_flat(client_params: Any, center: Any, alpha,

@@ -6,9 +6,9 @@ The store simulates the PS tier in one process (values sharded over
 ``num_servers`` for cost accounting); workers address it through the API
 the paper's workers use:
 
-- ``push(key, tensor)``: a whole pytree, or a one-entry list of one (the
-  paper's group-of-vectors with one local device). The store applies the
-  server rule:
+- ``push(key, tensor)``: a whole pytree, or a list of them (the paper's
+  group-of-vectors, one per local device). The store applies the server
+  rule:
     * sync types buffer pushes until all expected pushers arrive (barrier)
     * async types apply each push immediately (staleness!)
 - ``pull(key)`` returns the current server value, once per destination
@@ -26,17 +26,18 @@ Pushed pytrees are ONE fused object end to end: the sync barrier sums the
 pushes as packed ``FlatBuffer``s in arrival order and unpacks once; the
 elastic rule (``set_elastic``) runs eq. (2) as one packed buffer through
 the fused server kernel (``flat_exchange=True``, the default); an int8
-push is one packed buffer through the streaming wire codec.
+push into that rule is one packed buffer through the streaming wire
+codec.
+
+A list push of several device values (the paper's group-of-vectors, one
+value per local device) is reduced on the worker first, leaf by leaf,
+through the grouped-vector reduction kernel (``local_reduce``). An int8
+push outside the flat elastic rule takes the per-leaf QBLOCK codec
+(``kernels.quant_bucket.ops``). An attached ``Membership`` degrades the
+sync barrier to the live-member count.
 
 Every rule stores new tensors and writes into none it was given: the
 runners hand the same tree to several clients and to the store.
-
-Not ported yet, raising ``NotImplementedError`` naming slice 4:
-``attach_membership`` (``core/membership``), a list push of more than one
-entry (the local tensor reduce, kernel ``group_reduce_flat``), and the
-per-leaf int8 compress path (the QBLOCK codec, ``quantize_flat`` /
-``dequantize_flat``) taken when the elastic rule is off or
-``flat_exchange=False``.
 """
 from __future__ import annotations
 
@@ -55,7 +56,13 @@ from repro_torch.core.elastic import (
     scale_packed,
     wire_packed,
 )
+from repro_torch.kernels.quant_bucket.ops import (
+    compress,
+    compressed_bytes,
+    decompress,
+)
 from repro_torch.kernels.quant_bucket.quant_bucket import wire_nbytes
+from repro_torch.kernels.tensor_reduce.ops import group_reduce
 from repro_torch.optim.sgd import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -72,15 +79,12 @@ def _all_float(tree: Any) -> bool:
 
 def local_reduce(tensor: list) -> Any:
     """Reduce the group-of-vectors on a worker (one value per local
-    device). One entry is the value itself; several need the tensor
-    reduce kernel, which slice 4 ports."""
+    device; values may be whole pytrees): each leaf's values are stacked
+    and summed by the grouped-vector reduction kernel (``group_reduce``),
+    f32-accumulated in member order."""
     if len(tensor) == 1:
         return tensor[0]
-    raise NotImplementedError(
-        "not yet ported: a list push of several device values runs the "
-        "local tensor reduce (kernel group_reduce_flat), which belongs to "
-        "slice 4 — push the reduced tree, or stack the members and push "
-        "with group=")
+    return tree_map(lambda *xs: group_reduce(torch.stack(xs)), *tensor)
 
 
 @dataclass
@@ -129,6 +133,7 @@ class KVStore:
         # seconds past a round's first arrival, the sync barrier releases
         # with the pushes that made it (pull(now=...) drives the clock)
         self.barrier_timeout = barrier_timeout
+        self._membership = None
         self._staleness = None
         self._stale_scale = False
         self.degraded_syncs = 0          # barriers released short
@@ -148,13 +153,18 @@ class KVStore:
     @property
     def expected_pushers(self) -> int:
         """Pushers the sync barrier waits for: the static client/worker
-        count (a Membership would degrade it; slice 4)."""
-        return self._static_expected
+        count, degraded to the live-member count when a ``Membership`` is
+        attached — an announced leave or failure shrinks the barrier at
+        once; unannounced deaths degrade it through barrier_timeout."""
+        base = self._static_expected
+        if self._membership is not None:
+            return max(1, min(base, self._membership.live_count))
+        return base
 
     def attach_membership(self, membership) -> None:
-        raise NotImplementedError(
-            "not yet ported: attach_membership needs core/membership, "
-            "which belongs to slice 4")
+        """Attach the tier's ``core.membership.Membership``: the barrier
+        tracks its live count from now on."""
+        self._membership = membership
 
     def attach_staleness(self, tracker, *, scale: bool = False) -> None:
         """Wire a ``scheduler.StalenessTracker`` into the server rule:
@@ -278,16 +288,18 @@ class KVStore:
             agg = tree_map(lambda l: l.to(torch.bfloat16).to(l.dtype), agg)
             self.pushed_bytes += sum(l.numel() * 2 for l in tree_leaves(agg))
         elif self.wire_dtype == "int8":
-            if not self._flat_elastic_ok(agg):
-                raise NotImplementedError(
-                    "not yet ported: an int8 push outside the flat elastic "
-                    "rule takes the per-leaf QBLOCK codec (kernels "
-                    "quantize_flat / dequantize_flat), which belongs to "
-                    "slice 4")
-            # the wire form is ONE packed int8 buffer + per-bucket scales,
-            # quantized per push; the count is the unpadded payload
-            self.pushed_bytes += wire_nbytes(flatbuf.spec_for(agg).payload)
-            agg = wire_packed(agg)  # what the server receives
+            if self._flat_elastic_ok(agg):
+                # the wire form is ONE packed int8 buffer + per-bucket
+                # scales, quantized per push; the count is the unpadded
+                # payload
+                self.pushed_bytes += wire_nbytes(flatbuf.spec_for(agg).payload)
+                agg = wire_packed(agg)  # what the server receives
+            else:
+                # the per-leaf QBLOCK codec: codes + one scale per 1024
+                # values of each leaf
+                codes, scales = compress(agg)
+                self.pushed_bytes += compressed_bytes(agg)
+                agg = decompress(codes, scales, agg)  # what the server sees
         else:
             self.pushed_bytes += raw
         if self.is_sync:
@@ -338,10 +350,14 @@ class KVStore:
         self._require_key(key, "pull")
         if key in self._pending:
             opened = self._first_arrival.get(key)
+            # the runners put a round's deadline at ``opened + timeout``,
+            # whose difference from ``opened`` can round below the timeout:
+            # the reference raises there; the sum form releases
             timed_out = (
                 self.barrier_timeout is not None and now is not None
                 and opened is not None
-                and now - opened >= self.barrier_timeout)
+                and (now - opened >= self.barrier_timeout
+                     or now >= opened + self.barrier_timeout))
             if not timed_out:
                 raise RuntimeError(
                     f"pull of key {key!r} while sync barrier incomplete "

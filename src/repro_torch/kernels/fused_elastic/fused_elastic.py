@@ -2,6 +2,10 @@
 
 Replace, in ``repro/kernels/fused_elastic/fused_elastic.py``:
 
+  elastic_exchange_flat     (:69)   one (w, w̃) pair -> both updates from
+                                    the same difference:
+                                    w' = w − α (w − w̃), w̃' = w̃ + α (w − w̃)
+                                    (``core.elastic.elastic_exchange_packed``)
   elastic_client_flat       (:83)   eq. (3) only: w' = w − α (w − w̃), the
                                     client's local half when the server
                                     half runs in the PS tier (Elastic2)
@@ -18,11 +22,9 @@ Replace, in ``repro/kernels/fused_elastic/fused_elastic.py``:
                                     w_c' = w_c − α (w_c − w̃),
                                     w̃'  = w̃ + α Σ_c (w_c − w̃)
 
-The one-pair exchange ``elastic_exchange_flat`` (:69) has no runtime
-caller and is not ported yet (slice 4).
-
-Bound on Hopper: HBM bytes. The client and server passes move 12 B per
-f32 element (read w, w̃; write one output), the client-diff pass 16 B,
+Bound on Hopper: HBM bytes. The one-pair exchange moves 16 B per f32
+element (read w, w̃; write both), the client and server passes 12 B
+(read w, w̃; write one output), the client-diff pass 16 B,
 the center pass 12 B, the C-client pass (2C + 2)·4 B — each for a few
 flops per element, far below the card's compute-to-bandwidth ratio, so
 CUDA C++ would buy nothing here and the kernels are Triton: single fused
@@ -36,10 +38,13 @@ device) is one launch over the whole contiguous buffer, as one
 ``pallas_call`` under ``vmap`` is in the reference.
 
 Rounding, as the reference's compiled code rounds: eq. (3) in the
-client and client-diff passes and eq. (2) in the server and center
-passes are each ONE fused multiply-add (``tl.fma``; the plain versions
-form the exact product and sum in f64 and round once) — XLA's CPU code
-contracts all four, interpreted or under ``jit`` — while the C-client
+one-pair exchange, the client and client-diff passes and eq. (2) in the
+one-pair exchange, the server and center passes are each ONE fused
+multiply-add (``tl.fma``; the plain versions form the exact product and
+sum in f64 and round once) — XLA's CPU code contracts all of them,
+interpreted or under ``jit``: the one-pair kernel's d = α (w − w̃) is
+never rounded on its own, w' = fma(−α, w − w̃, w) and w̃' = fma(α,
+w − w̃, w̃) — while the C-client
 kernel rounds the product and the sum separately (it is built with
 ``enable_fp_fusion=False``). Its center sum runs over the rows in the
 order c = 0, 1, …, C − 1, from 0.0, in the kernel and in its plain
@@ -68,6 +73,15 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a·b + c`` rounded once, as a fused multiply-add: the f32
     product is exact in f64, and the f64 sum is rounded to f32."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def elastic_exchange_flat_plain(w: torch.Tensor, c: torch.Tensor,
+                                alpha: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    a = alpha.reshape(())
+    w32, c32 = w.float(), c.float()
+    diff = w32 - c32
+    return _fma(-a, diff, w32).to(w.dtype), _fma(a, diff, c32).to(c.dtype)
 
 
 def elastic_client_flat_plain(w: torch.Tensor, c: torch.Tensor,
@@ -113,6 +127,32 @@ def elastic_exchange_flat_mc_plain(w: torch.Tensor, c: torch.Tensor,
 
 
 # -- Triton kernels ----------------------------------------------------------
+
+@functools.cache
+def _exchange_kernel():
+    global tl
+    tr = triton()
+    import triton.language as tl
+
+    @tr.jit
+    def exchange_kernel(alpha_ptr, w_ptr, c_ptr, w_out_ptr, c_out_ptr, n,
+                        BLOCK: tl.constexpr):
+        pid = tl.program_id(0).to(tl.int64)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        alpha = tl.load(alpha_ptr)
+        w = tl.load(w_ptr + offs, mask=mask).to(tl.float32)
+        c = tl.load(c_ptr + offs, mask=mask).to(tl.float32)
+        diff = w - c
+        tl.store(w_out_ptr + offs,
+                 tl.fma(-alpha, diff, w).to(w_out_ptr.dtype.element_ty),
+                 mask=mask)                     # eq. (3)
+        tl.store(c_out_ptr + offs,
+                 tl.fma(alpha, diff, c).to(c_out_ptr.dtype.element_ty),
+                 mask=mask)                     # eq. (2)
+
+    return exchange_kernel
+
 
 @functools.cache
 def _one_side_kernel():
@@ -244,6 +284,29 @@ def _one_side(w: torch.Tensor, c: torch.Tensor, alpha: torch.Tensor,
     return out
 
 
+def elastic_exchange_flat(w: torch.Tensor, c: torch.Tensor,
+                          alpha: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. (3) and (2) in ONE pass over equal-shape contiguous ``w``,
+    ``c``: -> ``(new w in w's dtype, new w̃ in c's dtype)``, both from the
+    same difference. ``alpha`` is one f32 value on the same device. A CPU
+    tensor takes the plain version; a CUDA tensor launches the Triton
+    kernel."""
+    if on_cpu(w, c, alpha):
+        return elastic_exchange_flat_plain(w, c, alpha)
+    _check("w", w, w.shape)
+    _check("c", c, w.shape)
+    _check_alpha(alpha)
+    w_out, c_out = torch.empty_like(w), torch.empty_like(c)
+    n = w.numel()
+    if n:
+        grid = (triton().cdiv(n, BLOCK),)
+        _exchange_kernel()[grid](alpha, w, c, w_out, c_out, n, BLOCK=BLOCK,
+                                 num_warps=NUM_WARPS)
+        elastic_exchange_flat.launches += 1
+    return w_out, c_out
+
+
 def elastic_client_flat(w: torch.Tensor, c: torch.Tensor,
                         alpha: torch.Tensor) -> torch.Tensor:
     """Eq. (3) only, for equal-shape contiguous ``w``, ``c``: -> new w in
@@ -343,6 +406,7 @@ def elastic_exchange_flat_mc(w: torch.Tensor, c: torch.Tensor,
     return w_out, c_out
 
 
+elastic_exchange_flat.launches = 0
 elastic_client_flat.launches = 0
 elastic_server_flat.launches = 0
 elastic_client_diff_flat.launches = 0

@@ -1,7 +1,13 @@
-"""The int8 wire codec: the per-hop plain form and the streaming kernels.
+"""The int8 codecs: the per-hop plain form and the streaming kernels.
 
 Ports ``repro/kernels/quant_bucket/quant_bucket.py``:
 
+  quantize_flat              (:56)         the QBLOCK = 1024 PS-push codec,
+  dequantize_flat            (:83)         one f32 scale per 1024 values:
+                                           the per-leaf compress path
+                                           (``ops.compress`` /
+                                           ``decompress``), hand-written
+                                           Triton kernels
   wire_encode / wire_decode  (:120, :141)  the per-hop codec a quantized
                                            ring hop runs; the reference
                                            writes it in plain ``jnp`` so
@@ -14,20 +20,18 @@ Ports ``repro/kernels/quant_bucket/quant_bucket.py``:
                                            (``core.elastic.wire_packed``),
                                            hand-written Triton kernels
 
-The QBLOCK = 1024 pair (``quantize_flat`` / ``dequantize_flat``) belongs
-to the per-leaf PS compress path and is not ported yet (slice 4).
-
 Exactness, as the reference's code computes: the codes are
 ``round(x / scale)`` clipped to ±127 — a true division, never a
 multiplication by the reciprocal, rounding half to even as ``jnp.round``
 does. The scale is ``max(absmax, 1e-12) / 127`` in the per-hop codec, a
 true division as the reference's op-by-op ``wire_encode`` makes it; in
-the streaming pair it is ``max(absmax, 1e-12) × f32(1/127)``, because
-XLA compiles the division by the constant 127 in the reference's
-``quantize_wire`` (interpreted or not) into that multiplication, which
-moves about 4 % of the scales by one ulp. So the int8 codes and the
-scales of both forms equal the reference's bit for bit, on the CPU and
-on the card.
+the streaming pair and the QBLOCK pair it is ``max(absmax, 1e-12) ×
+f32(1/127)``, because XLA compiles the division by the constant 127 in
+the reference's ``quantize_wire`` and ``quantize_flat`` (interpreted or
+not, called directly or under the jitted ``ops.compress``) into that
+multiplication, which moves about 4 % of the scales by one ulp. So the
+int8 codes and the scales of every form equal the reference's bit for
+bit, on the CPU and on the card.
 
 **The streaming kernels.** Bound on Hopper: HBM bytes. ``quantize_wire``
 reads 4 B and writes 1 + 4/128 B per value for two divisions, a
@@ -46,6 +50,19 @@ zero padding gives them. The division ``x / scale`` is ``tl.div_rn``
 (Triton's ``/`` on f32 is not IEEE-rounded), the scale multiplier is the
 f32 argument ``RECIP`` = f32(1/127), and the rounding is libdevice
 ``rint`` (half to even); codes are clamped to ±127 before the int8 cast.
+
+**The QBLOCK kernels** take one leaf at a time (the reference's per-leaf
+``compress``): ``quantize_flat`` reads ``(n,)`` values and writes
+unpadded ``(n,)`` codes and ``(⌈n/1024⌉,)`` scales, the last block's
+absmax taken over its real values (the masked tail loads zeros, as the
+reference's zero padding gives it); ``dequantize_flat`` reads the codes
+and scales back into ``n`` values of the requested dtype. Each program
+takes ``QBLOCK_ROWS`` = 8 blocks as an (8, 1024) tile, the per-block
+absmax a row reduction in registers: the streaming pair's bound and
+arithmetic (``div_rn``, ``rint``, ``RECIP``, the clamp), with 4 bytes of
+scale per 1024 values in place of per 128. Most of a model's leaves hold
+under one block, so the push of a whole tree is bound by its one launch
+per leaf, not by HBM.
 """
 from __future__ import annotations
 
@@ -56,6 +73,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.common import ceil_div, on_cpu, triton
 
+#: values per int8 scale of the per-leaf PS-push codec
+QBLOCK = 1024
+#: QBLOCK blocks per program of the per-leaf codec (8 × 1024 values)
+QBLOCK_ROWS = 8
 #: values per int8 scale group on the wire
 WIRE_BLOCK = 128
 #: buckets per streaming tile (64 × 128 = 8,192 values)
@@ -112,8 +133,26 @@ def wire_decode(codes: torch.Tensor, scales: torch.Tensor,
     return out if n is None else out[..., :n]
 
 
-# -- plain versions of the streaming pair: the CPU path and the card's
-#    reference -----------------------------------------------------------------
+# -- plain versions of the kernels: the CPU path and the card's reference ----
+
+def quantize_flat_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-leaf codec on ``x`` zero-padded to whole QBLOCK blocks, the
+    scale multiplied by f32(1/127): -> (codes ``(n,)``, scales
+    ``(⌈n/1024⌉,)``)."""
+    n = x.shape[0]
+    xb = F.pad(x.float(), (0, ceil_div(n, QBLOCK) * QBLOCK - n)).reshape(-1, QBLOCK)
+    absmax = xb.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) * absmax.new_full((), RECIP_127)
+    codes = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return codes.reshape(-1)[:n], scale[:, 0]
+
+
+def dequantize_flat_plain(codes: torch.Tensor, scales: torch.Tensor, n: int,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    cp = F.pad(codes[:n], (0, ceil_div(n, QBLOCK) * QBLOCK - n))
+    out = cp.reshape(-1, QBLOCK).float() * scales[:ceil_div(n, QBLOCK), None]
+    return out.reshape(-1)[:n].to(dtype)
+
 
 def quantize_wire_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-hop codec's bucket math on ``x`` zero-padded to whole
@@ -181,6 +220,47 @@ def _dequantize_kernel():
     return dequantize_wire_kernel
 
 
+@functools.cache
+def _quantize_flat_kernel():
+    tr = _bind_triton()
+
+    @tr.jit
+    def quantize_flat_kernel(x_ptr, codes_ptr, scales_ptr, n, nb, RECIP,
+                             ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        offs = rows[:, None] * BLOCK + tl.arange(0, BLOCK)[None, :]
+        mask = offs < n
+        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        absmax = tl.max(tl.abs(x), axis=1)
+        scale = tl.maximum(absmax, 1e-12) * RECIP
+        q = libdevice.rint(
+            tl.div_rn(x, tl.broadcast_to(scale[:, None], (ROWS, BLOCK))))
+        q = tl.minimum(tl.maximum(q, -127.0), 127.0)
+        tl.store(codes_ptr + offs, q.to(tl.int8), mask=mask)
+        tl.store(scales_ptr + rows, scale, mask=rows < nb)
+
+    return quantize_flat_kernel
+
+
+@functools.cache
+def _dequantize_flat_kernel():
+    tr = _bind_triton()
+
+    @tr.jit
+    def dequantize_flat_kernel(codes_ptr, scales_ptr, out_ptr, n, nb,
+                               ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        rows = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        offs = rows[:, None] * BLOCK + tl.arange(0, BLOCK)[None, :]
+        mask = offs < n
+        codes = tl.load(codes_ptr + offs, mask=mask, other=0).to(tl.float32)
+        scale = tl.load(scales_ptr + rows, mask=rows < nb, other=0.0)
+        tl.store(out_ptr + offs,
+                 (codes * scale[:, None]).to(out_ptr.dtype.element_ty),
+                 mask=mask)
+
+    return dequantize_flat_kernel
+
+
 # -- wrappers ----------------------------------------------------------------
 
 def _check_1d(name: str, t: torch.Tensor, dtype=None) -> None:
@@ -190,6 +270,49 @@ def _check_1d(name: str, t: torch.Tensor, dtype=None) -> None:
         raise ValueError(f"{name}: dtype {t.dtype}, want {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def quantize_flat(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One leaf's ``(n,)`` float values -> (codes ``(n,)`` int8, scales
+    ``(⌈n/1024⌉,)`` f32), one scale per QBLOCK block. A CPU tensor takes
+    the plain version; a CUDA tensor launches the Triton kernel."""
+    if on_cpu(x):
+        return quantize_flat_plain(x)
+    _check_1d("x", x)
+    if not x.is_floating_point():
+        raise ValueError(f"x: dtype {x.dtype} is not floating")
+    n = x.numel()
+    nb = ceil_div(n, QBLOCK)
+    codes = torch.empty(n, dtype=torch.int8, device=x.device)
+    scales = torch.empty(nb, dtype=torch.float32, device=x.device)
+    if n:
+        _quantize_flat_kernel()[(ceil_div(nb, QBLOCK_ROWS),)](
+            x, codes, scales, n, nb, RECIP_127, ROWS=QBLOCK_ROWS,
+            BLOCK=QBLOCK, num_warps=NUM_WARPS)
+        quantize_flat.launches += 1
+    return codes, scales
+
+
+def dequantize_flat(codes: torch.Tensor, scales: torch.Tensor, n: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_flat``: ``n`` values of ``dtype`` (codes of at
+    least ``n`` values, one scale per QBLOCK block). A CPU tensor takes the
+    plain version; a CUDA tensor launches the Triton kernel."""
+    if on_cpu(codes, scales):
+        return dequantize_flat_plain(codes, scales, n, dtype)
+    _check_1d("codes", codes, torch.int8)
+    _check_1d("scales", scales, torch.float32)
+    nb = ceil_div(n, QBLOCK)
+    if codes.numel() < n or scales.numel() < nb:
+        raise ValueError(f"codes {codes.numel()} / scales {scales.numel()} "
+                         f"do not cover n = {n} in blocks of {QBLOCK}")
+    out = torch.empty(n, dtype=dtype, device=codes.device)
+    if n:
+        _dequantize_flat_kernel()[(ceil_div(nb, QBLOCK_ROWS),)](
+            codes, scales, out, n, nb, ROWS=QBLOCK_ROWS, BLOCK=QBLOCK,
+            num_warps=NUM_WARPS)
+        dequantize_flat.launches += 1
+    return out
 
 
 def quantize_wire(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -238,5 +361,7 @@ def dequantize_wire(codes: torch.Tensor, scales: torch.Tensor, n: int,
     return out
 
 
+quantize_flat.launches = 0
+dequantize_flat.launches = 0
 quantize_wire.launches = 0
 dequantize_wire.launches = 0

@@ -34,22 +34,32 @@ run per device in a loop (one device's activations live at a time), and
 the collectives and the elastic kernels run over the stacked buffers —
 one kernel launch for all devices, as one ``pallas_call`` under vmap.
 
+``drive(faults=...)`` injects a deterministic schedule on the 1-axis
+layout: ``kill@s:unit=d`` evicts device d before step s (the survivors'
+rows carry over, the FlatBuffer optimizer state is re-sharded by
+``core.membership.reshard_optstate`` and the step is rebuilt at the new
+count), ``restart@s:unit=d`` admits d before step s, ``corrupt`` adds
+seeded noise to a device's float batch leaves. Each membership change
+logs its byte and time accounting (``core.cost_model``).
+
 Not ported yet: ``make_sharded_step`` (a real multi-GPU backend over
-``torch.distributed``, P2P send/recv for the int8 hops) and ``drive``'s
-faults and joins (elastic membership); both raise.
+``torch.distributed``, P2P send/recv for the int8 hops); it raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core import comm as comm_lib, flatbuf
+from repro_torch.core import comm as comm_lib, cost_model, flatbuf
 from repro_torch.core.collectives import WireMeter
 from repro_torch.core.comm import Communicator, sync_comms
 from repro_torch.core.elastic import elastic_exchange_sharded
+from repro_torch.core.faults import FaultInjector, injector
 from repro_torch.core.hierarchy import SyncConfig, should_elastic_sync
+from repro_torch.core.membership import Membership, reshard_optstate
 from repro_torch.core.sync_engine import flat_update_supported, make_sync_engine
 from repro_torch.launch.train import (
     grad_spec,
@@ -264,33 +274,234 @@ def make_sharded_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
         "program on one card")
 
 
+def _check_driver_faults(inj: FaultInjector, p: Geometry) -> None:
+    """What the driver's fault path serves: kill and restart (membership
+    reconfiguration) and corrupt (seeded batch noise), on the emulated
+    1-axis layout. Timing faults need a clock."""
+    timed = inj.schedule.kinds & {"drop", "delay", "straggle"}
+    if timed:
+        raise ValueError(
+            f"fault kinds {sorted(timed)} need a clock — the driver's step "
+            "has no timing axis; run them through the event-driven "
+            "simulation (core/algorithms.py, AlgoConfig.faults). The driver "
+            "serves kill/corrupt.")
+    shape, _ = _factorize(p)
+    if inj.schedule.kinds & {"kill", "restart"} and len(shape) == 2:
+        # pod kills/joins need the hierarchical (pod-then-data) shard
+        # layout re-derived, which only the 1-axis ring-major geometry
+        # shares with membership.reshard_optstate
+        raise ValueError(
+            "kill/restart faults under the 2-axis pod×data layout are not "
+            "wired — the hierarchical state re-layout is not implemented; "
+            "use the 1-axis layout")
+
+
+def _reconfigure(model: Model, optimizer: Optimizer, sync: SyncConfig,
+                 state: dict, p_old: int, dead: list[int], live: Membership,
+                 *, axis_name: str, microbatch: int
+                 ) -> tuple[dict, int, Callable, dict]:
+    """Evict ``dead`` devices from a 1-axis emulated run: re-split the
+    geometry to the survivor count, carry the survivors' rows of the
+    stacked state over, re-shard the FlatBuffer optimizer state
+    (``reshard_optstate``: survivors keep their slices, dead slices
+    restart from zero), and rebuild the step.
+
+    mpi_sgd: the axis is ONE data-parallel group — params are replicated
+    and optimizer state is 1/p sharded, so it is re-laid-out p_old ->
+    p_new. mpi_esgd: each device is one client with full local state —
+    the dead client's row is dropped and the SyncConfig shrinks to the
+    survivor client count."""
+    for u in dead:
+        live.fail(u)
+    survivors = [r for r in range(p_old) if live.is_live(r)]
+    p_new = len(survivors)
+    rows = torch.tensor(survivors, device=state["step"].device)
+    world = driver_world(sync, p_old, axis_name=axis_name)
+    info: dict = {"p_old": p_old, "p_new": p_new, "moved_bytes": 0.0,
+                  "survivors": tuple(survivors)}
+    if sync.mode == "mpi_esgd":
+        sync = dataclasses.replace(sync, num_clients=p_new)
+        state = tree_map(lambda l: l[rows], state)
+    else:
+        new_opt, rinfo = reshard_optstate(
+            optimizer.hyper, grad_spec(model), state["opt"], p_old, p_new,
+            survivors=survivors, num_rings=world.policy.num_rings,
+            bucket_bytes=world.policy.bucket_bytes)
+        info.update(rinfo)
+        state = {**tree_map(lambda l: l[rows],
+                            {k: v for k, v in state.items() if k != "opt"}),
+                 "opt": new_opt}
+    step = make_emulated_step(model, optimizer, sync, p_new,
+                              axis_name=axis_name, microbatch=microbatch)
+    return state, p_new, step, dict(info, sync=sync)
+
+
+def _rejoin(model: Model, optimizer: Optimizer, sync: SyncConfig,
+            state: dict, p_old: int, joiners: list[int], live: Membership,
+            *, axis_name: str, microbatch: int
+            ) -> tuple[dict, int, Callable, dict]:
+    """Admit ``joiners`` into a 1-axis emulated run: a new membership
+    epoch per joiner, the geometry re-split to the grown count, the
+    FlatBuffer optimizer state re-sharded at p_new (``reshard_optstate``
+    with every old shard surviving), and the step rebuilt.
+
+    mpi_sgd: params are replicated, so the joiner's row is a copy of row
+    0 — the emulated form of a respawned worker pulling the live params.
+    mpi_esgd: the joiner is a NEW client admitted at the current center
+    with fresh local optimizer state, and the SyncConfig grows."""
+    old_ids = list(live.live)
+    for u in joiners:
+        live.join(u)
+    new_ids = list(live.live)
+    p_new = len(new_ids)
+    pos = {u: r for r, u in enumerate(old_ids)}
+    rows = [pos.get(u, -1) for u in new_ids]
+    world = driver_world(sync, p_old, axis_name=axis_name)
+    info: dict = {"p_old": p_old, "p_new": p_new, "moved_bytes": 0.0,
+                  "joined": tuple(joiners), "survivors": tuple(range(p_old))}
+
+    def expand(tree, fill):
+        return tree_map(lambda l: torch.stack(
+            [l[r] if r >= 0 else fill(l) for r in rows]), tree)
+
+    if sync.mode == "mpi_esgd":
+        sync = dataclasses.replace(sync, num_clients=p_new)
+        state = {
+            "params": tree_map(
+                lambda pl, cl: torch.stack(
+                    [pl[r] if r >= 0 else cl[0] for r in rows]),
+                state["params"], state["center"]),
+            "opt": expand(state["opt"], lambda l: torch.zeros_like(l[0])),
+            "step": expand(state["step"], lambda l: l[0]),
+            "center": expand(state["center"], lambda l: l[0]),
+        }
+    else:
+        new_opt, rinfo = reshard_optstate(
+            optimizer.hyper, grad_spec(model), state["opt"], p_old, p_new,
+            survivors=list(range(p_old)), num_rings=world.policy.num_rings,
+            bucket_bytes=world.policy.bucket_bytes)
+        info.update(rinfo)
+        rest = {k: v for k, v in state.items() if k != "opt"}
+        state = {**{k: expand(v, lambda l: l[0]) for k, v in rest.items()},
+                 "opt": new_opt}
+    step = make_emulated_step(model, optimizer, sync, p_new,
+                              axis_name=axis_name, microbatch=microbatch)
+    return state, p_new, step, dict(info, sync=sync)
+
+
+def _corrupt_rows(inj: FaultInjector, shard: dict, live: Membership,
+                  i: int) -> dict:
+    """Each live device's batch shard with its scheduled corruption at
+    step ``i`` (seeded noise on float leaves; token ids are left alone).
+    The caller's batch is never written."""
+    out = dict(shard)
+    for r, u in enumerate(live.live):
+        if not inj.active(u, i):
+            continue
+        row = {k: v[r] for k, v in out.items()}
+        for k, v in inj.corrupt(row, u, i).items():
+            if v is not row[k]:
+                out[k] = out[k].clone()
+                out[k][r] = v
+    return out
+
+
 def drive(model: Model, optimizer: Optimizer, sync: SyncConfig, batches, *,
           p: Geometry | None = None, mesh=None, axis_name: str = AXIS,
           seed: int = 0, device="cuda", microbatch: int = 1,
           log_every: int = 10, callback: Optional[Callable] = None,
-          faults=None) -> tuple[dict, list]:
+          faults=None, fault_seed: int = 0,
+          net: Optional[cost_model.NetParams] = None) -> tuple[dict, list]:
     """Training loop over the emulated shard driver: ``batches`` yield
-    host-layout (B, ...) batches, split into per-device shards here."""
+    host-layout (B, ...) batches, split into per-device shards here.
+
+    ``faults`` (a ``core.faults`` schedule or its string) injects
+    deterministic failures on the 1-axis layout: ``kill@s:unit=d`` evicts
+    device d before step s — the run reconfigures to the survivors and a
+    ``reconfigure`` entry with the recovery byte/time accounting
+    (``cost_model.reconfig_time`` over ``net``, default the paper's
+    testbed) lands in the history; ``restart@s:unit=d`` ADMITS device d
+    before step s when it is not live (a new id grows the run, a killed
+    id rejoins) and logs a ``join`` entry with
+    ``cost_model.join_reshard_bytes`` and ``recovery_time``. Kills are
+    generation-indexed: a rejoined unit dies again only at its NEXT kill
+    event. ``corrupt`` adds seeded noise to the device's float batch
+    leaves. Feed batches sized for every geometry the schedule reaches."""
+    if p is None and mesh is None:
+        raise ValueError("pass p= (the emulated device geometry)")
+    inj = injector(faults, seed=fault_seed)
+    if inj is not None:
+        if sync.overlap:
+            raise ValueError(
+                "drive(faults=...) with SyncConfig.overlap=True is not "
+                "wired: the elastic re-layout (membership.reshard_optstate) "
+                "assumes the monolithic ring-major shard geometry, not the "
+                "bucket-major overlapped schedule — run faults without "
+                "overlap, or overlap without faults")
+        if mesh is not None:
+            raise ValueError(
+                "drive(faults=...) runs under emulation only: elastic "
+                "reconfiguration on a REAL mesh needs a multi-process "
+                "transport — pass p= instead of mesh=")
+        _check_driver_faults(inj, p)
     if mesh is not None:
         raise NotImplementedError(
             "not yet ported: drive(mesh=...) needs make_sharded_step; pass "
             "p= to emulate the devices")
-    if faults is not None:
-        raise NotImplementedError(
-            "not yet ported: drive(faults=...) kills and joins belong to "
-            "the elastic membership slice")
-    if p is None:
-        raise ValueError("pass p= (the emulated device geometry)")
     state = make_driver_state(model, optimizer, sync, p, seed, device=device)
     step = make_emulated_step(model, optimizer, sync, p, axis_name=axis_name,
                               microbatch=microbatch)
+    live = Membership(math.prod(_factorize(p)[0])) if inj is not None else None
+    attempts: dict[int, int] = {}    # unit -> spawn generation
+    netp = net or cost_model.testbed()
     history = []
+
+    def log(entry):
+        history.append(entry)
+        if callback:
+            callback(entry)
+
     for i, batch in enumerate(batches):
-        state, metrics = step(state, shard_batch(batch, p))
+        if inj is not None:
+            joiners = [u for u in inj.restart_units(i) if not live.is_live(u)]
+            if joiners:
+                delay = max(inj.restart_delay(u, attempts.get(u, 0)) or 0.0
+                            for u in joiners)
+                for u in joiners:
+                    attempts[u] = attempts.get(u, 0) + 1
+                state, p, step, info = _rejoin(
+                    model, optimizer, sync, state, int(p), joiners, live,
+                    axis_name=axis_name, microbatch=microbatch)
+                sync = info.pop("sync")
+                state_nbytes = info.get("state_nbytes", 0.0)
+                log({"step": i, "event": "join", **info,
+                     "join_reshard_bytes": cost_model.join_reshard_bytes(
+                         state_nbytes, info["p_old"]),
+                     "recovery_time": cost_model.recovery_time(
+                         0.0, delay, info["p_old"], info["p_new"], netp,
+                         state_nbytes=state_nbytes)})
+            dead = [u for u in live.live
+                    if inj.is_killed(u, i, attempts.get(u, 0))]
+            if dead:
+                if len(dead) >= live.live_count:
+                    raise ValueError(
+                        f"fault schedule kills every live device at step "
+                        f"{i} — no survivor group to reconfigure to")
+                state, p, step, info = _reconfigure(
+                    model, optimizer, sync, state, int(p), dead, live,
+                    axis_name=axis_name, microbatch=microbatch)
+                sync = info.pop("sync")
+                log({"step": i, "event": "reconfigure", "killed": dead, **info,
+                     "reconfig_time": cost_model.reconfig_time(
+                         info.get("state_nbytes", 0.0), info["p_old"],
+                         info["p_new"], netp,
+                         survivors=len(info["survivors"]))})
+        shard = shard_batch(batch, p)
+        if inj is not None:
+            shard = _corrupt_rows(inj, shard, live, i)
+        state, metrics = step(state, shard)
         if i % log_every == 0:
             entry = {k: float(v) for k, v in metrics.items()}
             entry["step"] = i
-            history.append(entry)
-            if callback:
-                callback(entry)
+            log(entry)
     return state, history

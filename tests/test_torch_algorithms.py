@@ -229,9 +229,20 @@ def test_run_guards(problem):
         TA.run(dataclasses.replace(cfg, mode="sgd"), *args, device="cpu")
     with pytest.raises(ValueError, match="divide into clients"):
         TA.run(dataclasses.replace(cfg, num_clients=3), *args, device="cpu")
-    for faults in ({"faults": "kill@2:unit=1"}, {"server_faults": "kill@1:unit=0"}):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            TA.run(dataclasses.replace(cfg, **faults), *args, device="cpu")
+    # server_faults configure the socket tier's servers: the in-process
+    # runner ignores them, as the reference does; faults run (a sync kill
+    # needs a barrier timeout, as in the reference)
+    short = dataclasses.replace(cfg, epochs=1, steps_per_epoch=1)
+    clean = TA.run(short, *args, device="cpu")
+    ignored = TA.run(dataclasses.replace(short, server_faults="kill@1:unit=0"),
+                     *args, device="cpu")
+    assert ignored.losses == clean.losses and ignored.times == clean.times
+    with pytest.raises(ValueError, match="barrier_timeout"):
+        TA.run(dataclasses.replace(short, faults="kill@0:unit=1"), *args, device="cpu")
+    faulted = TA.run(dataclasses.replace(short, faults="kill@0:unit=1",
+                                         barrier_timeout=1.0), *args, device="cpu")
+    assert (faulted.live_clients, faulted.membership_epochs,
+            faulted.degraded_syncs) == (1, 1, 1)
     with pytest.raises(ValueError, match="init_fn returned params on"):
         TA.run(cfg, lambda gen: params_from_numpy(problem.p0, device="meta"),
                *args[1:], device="cpu")

@@ -144,12 +144,11 @@ def test_local_communicator_and_unported_groups():
     assert wide.local() == wide
     assert tcomm.from_sync(thier.SyncConfig()).policy == thier.SyncConfig().policy
     # a group of size > 1 is the emulated ring world now; its tensor
-    # collectives run on stacked trees, and the group operations of later
-    # slices raise, naming theirs
+    # collectives run on stacked trees, and it re-splits as the reference's
     world = tcomm.Communicator.world(("data",), (8,))
     assert world.resolve_size() == 8 and world.local().resolve_size() == 1
-    with pytest.raises(NotImplementedError, match="membership"):
-        world.resized(4)
+    assert world.resized(4).sizes == jcomm.Communicator.world(("data",), (8,)).resized(4).sizes
+    assert world.resized(4).resolve_size() == 4 and world.resized(4).policy == world.policy
     stacked = {"w": torch.arange(8.0).repeat_interleave(3).reshape(8, 3)}
     mean = world.pushpull(stacked)["w"]
     assert tuple(mean.shape) == (8, 3) and torch.equal(mean, torch.full((8, 3), 3.5))

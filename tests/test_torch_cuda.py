@@ -15,6 +15,7 @@ from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
 from repro_torch.kernels.quant_bucket import quant_bucket as qb  # noqa: E402
+from repro_torch.kernels.tensor_reduce import tensor_reduce as tr  # noqa: E402
 
 SIZES = (1, 127, 128, 4097, 70000)
 
@@ -420,3 +421,132 @@ def test_reduced_shard_driver_card_matches_cpu(cuda):
         for a, b in zip(tree_leaves(states["cuda"][key]),
                         tree_leaves(states["cpu"][key])):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-2, atol=2e-3)
+
+
+# -- the faults slice's kernels ------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", (1, 1000, 4097, 70000))
+@pytest.mark.parametrize("G", (2, 3, 8))
+def test_group_reduce_kernel_matches_plain(cuda, G, n, dtype):
+    """The sum over G in member order, f32-accumulated: equal."""
+    gen = torch.Generator(device=cuda).manual_seed(G * n)
+    x = (torch.randn(G, n, generator=gen, device=cuda)
+         * torch.exp(3 * torch.randn(G, n, generator=gen, device=cuda))).to(dtype)
+    before = tr.group_reduce_flat.launches
+    got = tr.group_reduce_flat(x)
+    torch.cuda.synchronize()
+    assert tr.group_reduce_flat.launches == before + 1
+    want = tr.group_reduce_flat_plain(x)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+QBLOCK_SIZES = (1, 896, 1023, 1024, 1025, 8 * 1024 + 5, 100_003)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", QBLOCK_SIZES)
+def test_quantize_flat_kernel_matches_plain(cuda, n, dtype):
+    """Unpadded codes and one scale per 1024 values, equal to the plain
+    version's (the last block's absmax over its real values)."""
+    x = _wire_values(n, cuda, dtype)
+    before = qb.quantize_flat.launches
+    codes, scales = qb.quantize_flat(x)
+    torch.cuda.synchronize()
+    assert qb.quantize_flat.launches == before + 1
+    pc, ps = qb.quantize_flat_plain(x)
+    assert tuple(codes.shape) == (n,) and tuple(scales.shape) == (-(-n // 1024),)
+    assert torch.equal(codes, pc) and torch.equal(scales, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", QBLOCK_SIZES)
+def test_dequantize_flat_kernel_matches_plain(cuda, n, dtype):
+    codes, scales = qb.quantize_flat_plain(_wire_values(n, cuda, torch.float32))
+    before = qb.dequantize_flat.launches
+    out = qb.dequantize_flat(codes, scales, n, dtype)
+    torch.cuda.synchronize()
+    assert qb.dequantize_flat.launches == before + 1
+    want = qb.dequantize_flat_plain(codes, scales, n, dtype)
+    assert out.dtype == dtype and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ELASTIC_SIZES)
+def test_elastic_exchange_kernel_matches_plain(cuda, n, dtype):
+    """Eqs. (3) and (2) from one difference, each one fused multiply-add
+    in the kernel and the exact product and sum rounded once in the plain
+    version: both outputs equal."""
+    w, c = _elastic_inputs((n,), cuda, dtype, 170 + n)
+    for a in (0.5, 0.5 / 3):
+        alpha = torch.tensor(a, device=cuda)
+        before = fe.elastic_exchange_flat.launches
+        gw, gc = fe.elastic_exchange_flat(w, c, alpha)
+        torch.cuda.synchronize()
+        assert fe.elastic_exchange_flat.launches == before + 1
+        pw, pc = fe.elastic_exchange_flat_plain(w, c, alpha)
+        assert torch.equal(gw, pw) and torch.equal(gc, pc)
+
+
+def test_faults_slice_wrappers_reject_bad_layouts(cuda):
+    x = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError, match="G"):
+        tr.group_reduce_flat(torch.zeros(17, 10, device=cuda))
+    with pytest.raises(ValueError, match="floating"):
+        tr.group_reduce_flat(torch.zeros(2, 10, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.group_reduce_flat(torch.zeros(2, 20, device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="flat"):
+        qb.quantize_flat(torch.zeros(2, 10, device=cuda))
+    codes, scales = qb.quantize_flat(x)
+    with pytest.raises(ValueError, match="cover"):
+        qb.dequantize_flat(codes, scales, 11)
+    with pytest.raises(ValueError, match="shape"):
+        fe.elastic_exchange_flat(x, torch.zeros(11, device=cuda),
+                                 torch.tensor(0.5, device=cuda))
+
+
+def test_reduced_faulted_run_card_matches_cpu(cuda):
+    """mpi-ESGD under a kill and a straggler over the per-leaf int8 codec
+    (``flat_exchange=False``) through ``algorithms.run`` on the reduced
+    model, card against CPU: the simulated clock and the robustness
+    counters equal, losses within rtol 1e-4, the QBLOCK kernels launched
+    once per leaf per delivered push."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import algorithms as A
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import make_grad_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    p0 = model.init(device="cpu", seed=0)
+    grad = make_grad_fn(model)
+    data = dict(vocab_size=256, seq_len=32, batch_size=2, steps_per_epoch=4)
+    cfg = A.AlgoConfig(mode="mpi_esgd", num_workers=4, num_clients=2,
+                       num_servers=1, epochs=1, steps_per_epoch=4,
+                       esgd_interval=2, compute_time=0.2, jitter=0.1,
+                       flat_exchange=False,
+                       faults="kill@3:unit=1;straggle@0:unit=0:factor=3:duration=8",
+                       policy=A.CollectivePolicy(method="multi_ring",
+                                                 num_rings=2, wire_dtype="int8"))
+    hist = {}
+    for dev in ("cpu", "cuda"):
+        before = qb.quantize_flat.launches
+        hist[dev] = A.run(
+            cfg, lambda gen, dev=dev: tree_map(lambda a: a.to(dev), p0),
+            lambda p, b: (lambda out: (out[0], out[2]))(grad(p, b)),
+            lambda p: 0.0,
+            lambda w, dev=dev: TokenPipeline(DataConfig(**data, shard=w), device=dev),
+            device=dev)
+        if dev == "cuda":
+            leaves = len(tree_leaves(p0))
+            pushes = qb.quantize_flat.launches - before
+            assert pushes > 0 and pushes % leaves == 0
+    c, g = hist["cpu"], hist["cuda"]
+    for f in ("times", "epochs", "epoch_time", "late_pushes", "live_clients",
+              "membership_epochs", "pushed_bytes"):
+        assert getattr(g, f) == getattr(c, f), f
+    assert g.live_clients == 1 and g.membership_epochs == 1
+    torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
+                               rtol=1e-4, atol=0)

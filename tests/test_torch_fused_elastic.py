@@ -2,8 +2,9 @@
 of each wrapper) held against the reference's Pallas kernels run in
 interpret mode on the same numpy inputs.
 
-Tolerances: f32 outputs exactly equal for ``elastic_client_flat``,
-``elastic_server_flat``, ``elastic_client_diff_flat``,
+Tolerances: f32 outputs exactly equal for ``elastic_exchange_flat``,
+``elastic_client_flat``, ``elastic_server_flat``,
+``elastic_client_diff_flat``,
 ``elastic_center_flat`` and ``elastic_exchange_flat_mc`` at C <= 2, and
 for the packed one-sided forms ``elastic_client_packed`` /
 ``elastic_server_packed`` on a whole tree (the reference compiles eqs.
@@ -11,7 +12,16 @@ for the packed one-sided forms ``elastic_client_packed`` /
 too);
 rtol 1e-6 for the center at C = 4, because the reference's sum over the
 C rows is an XLA reduction whose order is not fixed (the port sums
-c = 0 … C-1); bf16 outputs within 1 bf16 ulp."""
+c = 0 … C-1); bf16 outputs within 1 bf16 ulp. The one-pair packed
+exchange ``elastic_exchange_packed`` and the per-leaf
+``elastic_exchange_fused`` are exact at f32 and over the bf16 wire. Over
+the int8 wire the new w is exact and each element of the new center
+within 2 (α · ulp(decoded w) + ulp(w̃')) of the reference's: the
+reference's jitted packed exchange fuses the streaming decode into the
+exchange, so its center output is ``fma(α, fma(code, scale, −w̃), w̃)``,
+the decoded value never rounded before the difference (1.3 % to 9 % of
+the elements differ, by tree), while its new w takes the decoded value
+rounded, as the port's two kernels do."""
 import numpy as np
 import pytest
 
@@ -156,3 +166,82 @@ def test_stacked_rows_are_one_call():
     for i in range(3):
         rw, rd = tfe.elastic_client_diff_flat(w[i], c[i], _alpha())
         assert torch.equal(nw[i], rw) and torch.equal(d[i], rd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_exchange_plain_matches_pallas(n, dtype):
+    """Eqs. (3) and (2) from one difference, both outputs one fused
+    multiply-add each: w' = fma(−α, w − w̃, w), w̃' = fma(α, w − w̃, w̃)."""
+    w, c = _wc(np.random.default_rng(70 + n), (n,), dtype)
+    jw, jc = jfe.elastic_exchange_flat(w, c, jnp.asarray(ALPHA).reshape(1))
+    before = tfe.elastic_exchange_flat.launches
+    tw, tc = tfe.elastic_exchange_flat(_t(w), _t(c), _alpha())
+    assert tfe.elastic_exchange_flat.launches == before   # CPU: no launch
+    _check(tw, jw)
+    _check(tc, jc)
+
+
+def _exchange_trees(dtype, seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (3, 50), "b": {"c": (129,), "d": (7, 11, 2)}, "e": (1000,)}
+
+    def tree():
+        return jax.tree.map(
+            lambda s: jnp.asarray(rng.standard_normal(s).astype(np.float32)).astype(dtype),
+            shapes, is_leaf=lambda x: isinstance(x, tuple))
+
+    w = tree()
+    c = jax.tree.map(lambda l: (l.astype(jnp.float32) + 0.1).astype(dtype), tree())
+    return w, c
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_exchange_packed_matches_reference(dtype, wire):
+    """``elastic_exchange_packed`` on a tree of ragged leaves (w first
+    through the PS wire), and the per-leaf ``elastic_exchange_fused``,
+    against the reference's jitted forms."""
+    from repro.kernels.fused_elastic.ops import elastic_exchange_fused as jfused
+    from repro_torch.kernels.fused_elastic.ops import elastic_exchange_fused as tfused
+
+    w, c = _exchange_trees(dtype, 80)
+    alpha = float(ALPHA)
+    jw, jc = jel.elastic_exchange_packed(w, c, alpha, wire_dtype=wire)
+    tw, tc = tel.elastic_exchange_packed(
+        *(params_from_numpy(jax.tree.map(np.asarray, a)) for a in (w, c)), alpha,
+        wire_dtype=wire)
+    for g, want in zip(jax.tree.leaves(params_to_numpy(tw)), jax.tree.leaves(jw)):
+        _check(params_from_numpy(g), want)
+    decoded = jax.tree.leaves(params_to_numpy(tel.wire_packed(
+        params_from_numpy(jax.tree.map(np.asarray, w)), wire)))
+    for g, want, wd in zip(jax.tree.leaves(params_to_numpy(tc)), jax.tree.leaves(jc),
+                           decoded):
+        if wire == "int8" and dtype == "float32":
+            # α times the rounding of the decoded w, then the result's own
+            # rounding, each counted twice
+            want32 = np.abs(np.asarray(want)).astype(np.float32)
+            bound = 2 * (np.float32(ALPHA) * np.spacing(np.abs(wd).astype(np.float32))
+                         + np.spacing(want32))
+            np.testing.assert_array_less(np.abs(g - np.asarray(want)), bound + 1e-30)
+        else:
+            _check(params_from_numpy(g), want)
+    if wire is None:
+        a32 = jnp.asarray(ALPHA)
+        jw, jc = jfused(w, c, a32)
+        tw, tc = tfused(*(params_from_numpy(jax.tree.map(np.asarray, a)) for a in (w, c)),
+                        _alpha())
+        for got, want in ((tw, jw), (tc, jc)):
+            for g, wnt in zip(jax.tree.leaves(params_to_numpy(got)),
+                              jax.tree.leaves(want)):
+                _check(params_from_numpy(g), wnt)
+
+
+def test_exchange_packed_removed_aliases_raise_as_reference():
+    w, c = _exchange_trees("float32", 81)
+    tw, tc = (params_from_numpy(jax.tree.map(np.asarray, a)) for a in (w, c))
+    for mod, args in ((jel, (w, c)), (tel, (tw, tc))):
+        with pytest.raises(ValueError, match="wire_dtype='int8'"):
+            mod.elastic_exchange_packed(*args, 0.5, compress=True)
+        with pytest.raises(ValueError, match="wire_packed"):
+            mod.quantize_packed(args[0])

@@ -4,8 +4,9 @@ of ``tests/test_kvstore.py``, and the port against the reference's store
 with group pushes over 1- and 2-axis communicators, the barrier timeout
 and late pushes, the async optimize rule (flat sgd / adamw / adagrad)
 with staleness scaling, and the elastic rule over the f32 / bf16 / int8
-PS wire with its byte accounting — plus the paths slice 4 ports, which
-raise.
+PS wire with its byte accounting — plus the paths the faults slice
+ported: a list push through the grouped-vector reduction, the per-leaf
+int8 codec, and an attached membership.
 
 Tolerances: f32 values exactly equal, except where a group pushes over
 the int8 wire (see ``test_group_push_int8_wire_band``) and the async
@@ -294,7 +295,7 @@ def test_async_optimize_rule_with_staleness_matches_reference(opt_name, scale):
 
 @pytest.mark.parametrize("wire,flat_exchange", [
     (None, True), ("bf16", True), ("int8", True), (None, False),
-    ("bf16", False)])   # int8 per leaf is slice 4's (test_slice4_paths_raise)
+    ("bf16", False), ("int8", False)])
 def test_elastic_rule_over_the_ps_wire_matches_reference(wire, flat_exchange):
     """Two pushes into the elastic rule (eq. 2) over the PS wire: the
     packed int8 wire (one quantize + dequantize of the packed push), the
@@ -314,6 +315,9 @@ def test_elastic_rule_over_the_ps_wire_matches_reference(wire, flat_exchange):
     payload = tflatbuf.spec_for(_t(c0)).payload
     per_push = {None: 4 * payload, "bf16": 2 * payload,
                 "int8": payload + -(-payload // 128) * 4}[wire]
+    if wire == "int8" and not flat_exchange:      # the per-leaf QBLOCK codec
+        per_push = sum(l.size + -(-l.size // 1024) * 4
+                       for l in jax.tree.leaves(params_to_numpy(_t(c0))))
     assert tkv.pushed_bytes == 2 * per_push
     assert tkv.pushed_bytes_uncompressed == 2 * 4 * payload
 
@@ -338,23 +342,40 @@ def test_elastic_rule_writes_no_input():
 
 
 def test_slice4_paths_raise():
-    kv = KVStore.create("dist_sync", num_workers=2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        kv.attach_membership(object())
-    kv.init("g", torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        kv.push("g", [torch.ones(3), torch.ones(3)])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        local_reduce([torch.ones(3), torch.ones(3)])
+    """The paths that raised until the faults slice ported them now run
+    as the reference's do: ``attach_membership`` degrades the barrier, a
+    list push of several values is reduced by ``local_reduce``, and an
+    int8 push outside the flat elastic rule takes the per-leaf codec."""
+    from repro.core.kvstore import local_reduce as jlocal
+    from repro.core.membership import Membership as JMembership
+    from repro_torch.core.membership import Membership
+
+    jkv, tkv = _both("dist_sync", num_workers=2)
+    for kv, M in ((jkv, JMembership), (tkv, Membership)):
+        m = M(2)
+        kv.attach_membership(m)
+        m.leave(1)
+        assert kv.expected_pushers == 1
+    for kv, wrap in ((jkv, jnp.asarray), (tkv, torch.tensor)):
+        kv.init("g", wrap(np.zeros(3, np.float32)))
+        kv.push("g", [wrap(np.ones(3, np.float32)), wrap(np.full(3, 2.0, np.float32))])
+    np.testing.assert_array_equal(tkv.value("g").numpy(), np.asarray(jkv.value("g")))
+    assert torch.equal(tkv.value("g"), torch.full((3,), 3.0))
+    assert torch.equal(local_reduce([torch.ones(3), torch.ones(3)]), torch.full((3,), 2.0))
+    np.testing.assert_array_equal(
+        local_reduce([torch.ones(3), torch.ones(3)]).numpy(),
+        np.asarray(jlocal([jnp.ones(3), jnp.ones(3)])))
     assert torch.equal(local_reduce([torch.ones(3)]), torch.ones(3))
     # int8 outside the flat elastic rule: the per-leaf QBLOCK codec
-    kv8 = KVStore.create("dist_sync", num_workers=1, wire_dtype="int8")
-    kv8.init("g", torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="quantize_flat"):
-        kv8.push("g", torch.ones(3))
-    kv8e = KVStore.create("dist_async", num_workers=1, wire_dtype="int8",
-                          flat_exchange=False)
-    kv8e.init("c", torch.zeros(3))
-    kv8e.set_elastic(0.5)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        kv8e.push("c", torch.ones(3))
+    for kv_type, elastic in (("dist_sync", False), ("dist_async", True)):
+        out = []
+        for KV, wrap in ((JKV, jnp.asarray), (KVStore, torch.tensor)):
+            kv = KV.create(kv_type, num_workers=1, wire_dtype="int8",
+                           flat_exchange=False)
+            kv.init("c", wrap(np.zeros(3, np.float32)))
+            if elastic:
+                kv.set_elastic(0.5)
+            kv.push("c", wrap(np.asarray([1.0, -0.5, 0.25], np.float32)))
+            out.append((np.asarray(kv.value("c")), kv.pushed_bytes))
+        np.testing.assert_array_equal(out[1][0], out[0][0])
+        assert out[1][1] == out[0][1] == 3 + 4
