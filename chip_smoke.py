@@ -5,13 +5,18 @@
 
 Phases (any failure exits non-zero; no phase carries on past its own):
 
-  1. device   require CUDA, print the card's name and power limit, TF32 off
+  1. device   require CUDA, print the card's name and power limit, TF32 off;
+              build the CUDA C++ libraries from src/repro_torch/csrc (nvcc
+              for sm_90a into build/cuda/) and print ptxas's registers,
+              shared memory and spills over each library's kernels
   2. kernels  build each Triton kernel of the paths from this checkout
-              (cache in build/), run it at the shape its path gives it (the
-              full-width qwen2-0.5b buffers, n = 494,147,584 per device)
-              and hold it against its plain PyTorch version on the same
-              tensors; time kernel, plain version and, where one exists, a
-              one-call PyTorch yardstick the port never calls
+              (cache in build/), run every kernel at the shape its path
+              gives it (the full-width qwen2-0.5b buffers, n = 494,147,584
+              per device) and hold it against its plain PyTorch version on
+              the same tensors; time kernel, plain version and, where one
+              exists, a one-call PyTorch yardstick the port never calls —
+              kernel and yardstick in turns (7 rounds of library x10,
+              kernel x10, kernel x10, library x10; median and min–max)
   3. slice    a) the reduced model, 3 steps per optimizer on the card
                  against the same steps on the CPU (a small reference)
               b) full-width qwen2-0.5b in bf16, batch 8 x seq 512, through
@@ -75,10 +80,12 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,11 +103,13 @@ from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
 from repro_torch.core.kvstore import KVStore  # noqa: E402
 from repro_torch.core.sync_engine import make_sync_engine  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels.fused_elastic import fused_elastic as fe  # noqa: E402
 from repro_torch.kernels.fused_optim import fused_optim as fo  # noqa: E402
 from repro_torch.kernels.fused_sgd import fused_sgd as fs  # noqa: E402
 from repro_torch.kernels.quant_bucket import ops as qops, quant_bucket as qb  # noqa: E402
 from repro_torch.kernels.tensor_reduce import tensor_reduce as tr  # noqa: E402
+from repro_torch.kernels.timing import interleaved_ms, spread  # noqa: E402
 from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
 from repro_torch.launch import shard_driver as sd  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
@@ -171,12 +180,12 @@ PS_KERNELS = {
         flops_per_elem=1),
     "elastic_client_flat": dict(
         wrapper=fe.elastic_client_flat, plain=fe.elastic_client_flat_plain,
-        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        source="src/repro_torch/csrc/fused_elastic.cu", route="cuda",
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:83",
         flops_per_elem=3),
     "elastic_server_flat": dict(
         wrapper=fe.elastic_server_flat, plain=fe.elastic_server_flat_plain,
-        source="src/repro_torch/kernels/fused_elastic/fused_elastic.py",
+        source="src/repro_torch/csrc/fused_elastic.cu", route="cuda",
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:97",
         flops_per_elem=3),
 }
@@ -247,6 +256,37 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_pair(kernel_fn, library_fn) -> tuple[float, float, str]:
+    """Kernel and library yardstick timed in turns on the card (7 rounds
+    of library x10, kernel x10, kernel x10, library x10): their median ms
+    per call and a note with each side's median [min–max]."""
+    t = interleaved_ms(kernel_fn, library_fn)
+    note = (f"interleaved: kernel {spread(t['kernel'])} ms, library "
+            f"{spread(t['library'])} ms")
+    return t["kernel"]["median"], t["library"]["median"], note
+
+
+def phase_cuda_build() -> None:
+    """Build every CUDA C++ library of the port from ``src/repro_torch/csrc``
+    (one ``nvcc`` each, all at once) and print the range of ptxas's
+    registers and shared memory, and the spilled bytes, over its kernels."""
+    names = sorted(cuda_build.SIGNATURES)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_build.build, names))
+    log(f"[build] nvcc {', '.join(names)}: {time.perf_counter() - t0:.2f} s "
+        f"(sm_90a, into build/cuda/)")
+    for name in names:
+        cuda_build.load_library(name)
+        report = cuda_build.ptxas_report(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
+        log(f"[build] {name}: {len(regs)} kernels, ptxas: registers "
+            f"{min(regs)}-{max(regs)}, shared memory {min(smem)}-{max(smem)} B, "
+            f"spills {spills} B (the full report: build/cuda/*.ptxas.txt)")
 
 
 def nbytes(*tensors) -> int:
@@ -354,10 +394,13 @@ def phase_kernels(n: int, dev) -> dict:
             err = max(float((kp - rp).abs().max()),
                       float((ks.float() - rs.float()).abs().max()))
             del kp, ks, rp, rs
-            ms = cuda_ms(lambda: wrapper(p, state, g, hp), reps=20)
             plain_ms = cuda_ms(lambda: plain(p, state, g, hp), reps=5, warmup=1)
             lib = _library_call(name, p, state, g, hp) if sd == torch.float32 else None
-            library_ms = cuda_ms(lib, reps=20) if lib is not None else None
+            note = ""
+            if lib is None:
+                ms, library_ms = cuda_ms(lambda: wrapper(p, state, g, hp), reps=20), None
+            else:
+                ms, library_ms, note = cuda_ms_pair(lambda: wrapper(p, state, g, hp), lib)
             moved = 2 * nbytes(p, state) + nbytes(g)   # read p,s,g; write p,s
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = k["flops_per_elem"] * n / F32_FLOPS_PER_S * 1e3
@@ -365,7 +408,7 @@ def phase_kernels(n: int, dev) -> dict:
             log(f"[kernels] {name} state={tag} n={n} first call {build_s:.2f} s "
                 f"(build + run) max_abs_err={err:.3e} ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms} "
-                f"bytes={moved} bound_ms={max(bytes_ms, ops_ms):.4f}")
+                f"bytes={moved} bound_ms={max(bytes_ms, ops_ms):.4f} {note}")
             if sd == torch.float32:
                 results[name] = {
                     "name": name, "route": "triton", "source": k["source"],
@@ -571,14 +614,16 @@ def phase_elastic_kernels(spec, dev) -> dict:
                       for g, w in zip(got, want))
             moved = nbytes(*args) + nbytes(*got)
             del got, want
-            ms = cuda_ms(lambda: wrapper(*args, alpha), reps=10)
             plain_ms = cuda_ms(lambda: _plain_rows(plain, args, alpha),
                                reps=2, warmup=1)
-            library_ms = None
+            library_ms, note = None, ""
             if name == "elastic_center_flat":
                 a = float(alpha)
-                library_ms = cuda_ms(lambda: torch.add(args[0], args[1], alpha=a),
-                                     reps=10)
+                ms, library_ms, note = cuda_ms_pair(
+                    lambda: wrapper(*args, alpha),
+                    lambda: torch.add(args[0], args[1], alpha=a))
+            else:
+                ms = cuda_ms(lambda: wrapper(*args, alpha), reps=10)
             elems = args[0].numel()
             flops = {"elastic_client_diff_flat": 3, "elastic_center_flat": 2,
                      "elastic_exchange_flat_mc": 4}[name] * elems
@@ -588,7 +633,7 @@ def phase_elastic_kernels(spec, dev) -> dict:
             log(f"[kernels] {name} w={tag} shape={tuple(args[0].shape)} first "
                 f"call {build_s:.2f} s (build + run) max_abs_err={err:.3e} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
-                f"bytes={moved} bound_ms={max(bytes_ms, ops_ms):.4f}")
+                f"bytes={moved} bound_ms={max(bytes_ms, ops_ms):.4f} {note}")
             if w_dtype == torch.float32:
                 results[name] = {
                     "name": name, "route": "triton", "source": k["source"],
@@ -959,14 +1004,16 @@ def phase_ps_kernels(spec, dev) -> dict:
         outs = got if isinstance(got, tuple) else (got,)
         moved = nbytes(*(a for a in args if torch.is_tensor(a) and a.dim())) + nbytes(*outs)
         del got, outs
-        ms = cuda_ms(lambda: k["wrapper"](*args), reps=10)
         plain_ms = cuda_ms(lambda: k["plain"](*args), reps=2, warmup=1)
-        library_ms, a = None, float(alpha)
+        library_ms, note, a = None, "", float(alpha)
         if name == "elastic_client_flat":      # w + α (w̃ − w) = eq. (3)
-            library_ms = cuda_ms(lambda: torch.lerp(x, c, a), reps=10)
+            ms, library_ms, note = cuda_ms_pair(lambda: k["wrapper"](*args),
+                                                lambda: torch.lerp(x, c, a))
         elif name == "elastic_server_flat":    # w̃ + α (w − w̃) = eq. (2)
-            library_ms = cuda_ms(lambda: torch.lerp(c, x, a), reps=10)
+            ms, library_ms, note = cuda_ms_pair(lambda: k["wrapper"](*args),
+                                                lambda: torch.lerp(c, x, a))
         else:
+            ms = cuda_ms(lambda: k["wrapper"](*args), reps=10)
             log(f"[kernels] {name}: no library yardstick — no one PyTorch call "
                 "computes the per-128-bucket absmax int8 codec")
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -974,9 +1021,9 @@ def phase_ps_kernels(spec, dev) -> dict:
         log(f"[kernels] {name} n={n} first call {build_s:.2f} s (build + run) "
             f"max_abs_err={err:.3e} (all outputs ==) ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms} bytes={moved} "
-            f"bound_ms={max(bytes_ms, ops_ms):.4f}")
+            f"bound_ms={max(bytes_ms, ops_ms):.4f} {note}")
         results[name] = {
-            "name": name, "route": "triton", "source": k["source"],
+            "name": name, "route": k.get("route", "triton"), "source": k["source"],
             "replaces": k["replaces"], "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1270,16 +1317,17 @@ def phase_fault_kernels(model, spec, dev) -> dict:
               for o, g in zip(outs, groups))
     moved = sum(nbytes(g[0]) for g in groups) + nbytes(*outs)
     del outs
-    ms = cuda_ms(_per_leaf(tr.group_reduce_flat, groups), reps=5)
     plain_ms = cuda_ms(_per_leaf(tr.group_reduce_flat_plain, groups), reps=2, warmup=1)
-    library_ms = cuda_ms(_per_leaf(lambda x: x.float().sum(0).to(x.dtype), groups), reps=5)
+    ms, library_ms, note = cuda_ms_pair(
+        _per_leaf(tr.group_reduce_flat, groups),
+        _per_leaf(lambda x: x.float().sum(0).to(x.dtype), groups))
     results["group_reduce_flat"] = _row("group_reduce_flat", err, ms, plain_ms,
                                         moved, values, library_ms)
     log(f"[kernels] group_reduce_flat G=2 bf16, {len(groups)} launches over the "
         f"tree: first call {build_s:.2f} s (build + run) max_abs_err={err:.3e} "
         f"(==) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"(x.float().sum(0).to(x.dtype) per leaf) bytes={moved} "
-        f"bound_ms={results['group_reduce_flat']['bound_ms']:.4f}")
+        f"bound_ms={results['group_reduce_flat']['bound_ms']:.4f} {note}")
     del groups, p1, leaves1
     torch.cuda.empty_cache()
 
@@ -1699,6 +1747,7 @@ def phase_faults(dev) -> tuple[dict, dict, dict]:
 
 def main() -> None:
     card = phase_device()
+    phase_cuda_build()
     dev = torch.device("cuda")
     spec = grad_spec(build_model(get_config("qwen2-0.5b")))
     n = flatbuf.shard_size(spec, 1, 2)

@@ -26,21 +26,36 @@ Bound on Hopper: HBM bytes. The one-pair exchange moves 16 B per f32
 element (read w, w̃; write both), the client and server passes 12 B
 (read w, w̃; write one output), the client-diff pass 16 B,
 the center pass 12 B, the C-client pass (2C + 2)·4 B — each for a few
-flops per element, far below the card's compute-to-bandwidth ratio, so
-CUDA C++ would buy nothing here and the kernels are Triton: single fused
-elementwise passes, and for the C-client kernel an elementwise pass plus
-a reduction over the C ≤ 8 rows that each program carries in registers.
-Each program takes one ``BLOCK`` of the flat buffer and masks the ragged
-tail (no padding copy); all math is f32 in registers and each output is
-stored once in its own dtype. α is an f32 device scalar, so no step
-waits on the host. A stacked ``(…, n)`` buffer (one row per emulated
-device) is one launch over the whole contiguous buffer, as one
+flops per element, far below the card's compute-to-bandwidth ratio.
+
+Two routes. ``elastic_client_flat`` and ``elastic_server_flat`` are CUDA
+C++ for ``sm_90a`` (``src/repro_torch/csrc/fused_elastic.cu``, built with
+``nvcc`` at first use into ``build/cuda/`` and bound through ``ctypes``
+by ``kernels/cuda_build``): the main path runs them on the whole packed
+buffer, and they lost to ``torch.lerp`` by ~1 % as Triton passes, so they
+were the first redesign for the card. One CTA per 4096 elements brings
+its tiles of w and w̃ into shared memory with two 1-D bulk async copies
+on one mbarrier, and 1024 threads compute and store them from registers;
+the ragged last tile takes ordinary loads. On the H100 it runs at ~91 %
+of the HBM bound, level with ``torch.lerp`` (0.3 % under it, timed in
+turns; PERF.md): bulk copies buy parity, not more, and a persistent grid
+that streamed tiles through a ring of them ran 3–5 % slower.
+
+The other four are Triton: single fused elementwise passes, and for the
+C-client kernel an elementwise pass plus a reduction over the C ≤ 8 rows
+that each program carries in registers.
+Each Triton program takes one ``BLOCK`` of the flat buffer and masks the
+ragged tail (no padding copy); all math is f32 in registers and each
+output is stored once in its own dtype. α is an f32 device scalar, so no
+step waits on the host. A stacked ``(…, n)`` buffer (one row per
+emulated device) is one launch over the whole contiguous buffer, as one
 ``pallas_call`` under ``vmap`` is in the reference.
 
 Rounding, as the reference's compiled code rounds: eq. (3) in the
 one-pair exchange, the client and client-diff passes and eq. (2) in the
 one-pair exchange, the server and center passes are each ONE fused
-multiply-add (``tl.fma``; the plain versions form the exact product and
+multiply-add (``tl.fma``, ``__fmaf_rn`` in the CUDA kernel after
+``__fsub_rn``; the plain versions form the exact product and
 sum in f64 and round once) — XLA's CPU code contracts all of them,
 interpreted or under ``jit``: the one-pair kernel's d = α (w − w̃) is
 never rounded on its own, w' = fma(−α, w − w̃, w) and w̃' = fma(α,
@@ -56,6 +71,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.common import on_cpu, triton
 
 BLOCK = 4096
@@ -155,30 +171,6 @@ def _exchange_kernel():
 
 
 @functools.cache
-def _one_side_kernel():
-    global tl
-    tr = triton()
-    import triton.language as tl
-
-    @tr.jit
-    def one_side_kernel(alpha_ptr, w_ptr, c_ptr, out_ptr, n,
-                        SERVER: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0).to(tl.int64)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        alpha = tl.load(alpha_ptr)
-        w = tl.load(w_ptr + offs, mask=mask).to(tl.float32)
-        c = tl.load(c_ptr + offs, mask=mask).to(tl.float32)
-        if SERVER:
-            out = tl.fma(alpha, w - c, c)       # eq. (2)
-        else:
-            out = tl.fma(-alpha, w - c, w)      # eq. (3)
-        tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty), mask=mask)
-
-    return one_side_kernel
-
-
-@functools.cache
 def _client_diff_kernel():
     global tl
     tr = triton()
@@ -272,15 +264,29 @@ def _check_alpha(alpha: torch.Tensor) -> None:
 
 def _one_side(w: torch.Tensor, c: torch.Tensor, alpha: torch.Tensor,
               server: bool) -> torch.Tensor:
+    """Launch ``csrc/fused_elastic.cu``'s eq. (2) (``server``) or eq. (3)
+    pass on CUDA tensors: checks, then one launch on the current stream;
+    raises on a refused launch."""
     _check("w", w, w.shape)
     _check("c", c, w.shape)
     _check_alpha(alpha)
+    for name, t in (("w", w), ("c", c)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: dtype {t.dtype}, want float32 or bfloat16")
     out = torch.empty_like(c if server else w)
+    for name, t in (("w", w), ("c", c), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data_ptr not 16-byte aligned (the bulk "
+                             "copies need it; a fresh tensor is)")
     n = w.numel()
     if n:
-        grid = (triton().cdiv(n, BLOCK),)
-        _one_side_kernel()[grid](alpha, w, c, out, n, SERVER=server,
-                                 BLOCK=BLOCK, num_warps=NUM_WARPS)
+        lib = cuda_build.load_library("fused_elastic")
+        fn = lib.elastic_server_flat_cuda if server else lib.elastic_client_flat_cuda
+        with torch.cuda.device(w.device):   # the library launches on the current one
+            err = fn(alpha.data_ptr(), w.data_ptr(), c.data_ptr(), out.data_ptr(), n,
+                     int(w.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(w.device).cuda_stream)
+        cuda_build.check(lib, err, f"elastic_{'server' if server else 'client'}_flat")
     return out
 
 
@@ -310,9 +316,10 @@ def elastic_exchange_flat(w: torch.Tensor, c: torch.Tensor,
 def elastic_client_flat(w: torch.Tensor, c: torch.Tensor,
                         alpha: torch.Tensor) -> torch.Tensor:
     """Eq. (3) only, for equal-shape contiguous ``w``, ``c``: -> new w in
-    w's dtype, nothing else written. ``alpha`` is one f32 value on the
-    same device. A CPU tensor takes the plain version; a CUDA tensor
-    launches the Triton kernel."""
+    w's dtype, nothing else written. ``w`` and ``c`` are f32 or bf16,
+    their data 16-byte aligned; ``alpha`` is one f32 value on the same
+    device. A CPU tensor takes the plain version; a CUDA tensor launches
+    the CUDA kernel of ``csrc/fused_elastic.cu``."""
     if on_cpu(w, c, alpha):
         return elastic_client_flat_plain(w, c, alpha)
     out = _one_side(w, c, alpha, server=False)
@@ -324,8 +331,9 @@ def elastic_client_flat(w: torch.Tensor, c: torch.Tensor,
 def elastic_server_flat(w: torch.Tensor, c: torch.Tensor,
                         alpha: torch.Tensor) -> torch.Tensor:
     """Eq. (2) only, for equal-shape contiguous ``w``, ``c``: -> new w̃ in
-    c's dtype, nothing else written. A CPU tensor takes the plain
-    version; a CUDA tensor launches the Triton kernel."""
+    c's dtype, nothing else written, under ``elastic_client_flat``'s
+    rules. A CPU tensor takes the plain version; a CUDA tensor launches
+    the CUDA kernel of ``csrc/fused_elastic.cu``."""
     if on_cpu(w, c, alpha):
         return elastic_server_flat_plain(w, c, alpha)
     out = _one_side(w, c, alpha, server=True)

@@ -1,12 +1,16 @@
-"""Card-only checks of the port: each Triton kernel against its plain
-PyTorch version on the same CUDA tensors, and the reduced train step on
-the card against the same step on the CPU.
+"""Card-only checks of the port: each kernel (Triton, or CUDA C++ built
+from ``src/repro_torch/csrc``) against its plain PyTorch version on the
+same CUDA tensors, and the reduced train step on the card against the
+same step on the CPU.
 
 These need a CUDA device and skip without one. This module imports no
 JAX, so on a machine without it run it with the repo's conftest off:
 
   python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -220,13 +224,34 @@ def test_dequantize_wire_kernel_matches_plain(cuda, n, dtype):
     assert out.dtype == dtype and torch.equal(out, want)
 
 
+#: the CUDA one-side kernel's tile (``csrc/fused_elastic.cu``): sizes
+#: around one tile, and two full persistent waves of 132 SMs plus a
+#: ragged tile
+ONE_SIDE_TILE = int(re.search(r"constexpr int TILE = (\d+);", (
+    Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    / "fused_elastic.cu").read_text())[1])
+ONE_SIDE_SIZES = (0, 1, 3, 4095, 4096, 4097, 2 * 132 * ONE_SIDE_TILE + 17)
+PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+def _one_side_inputs(n, device, w_dtype, c_dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(n, generator=gen, device=device)
+    c = w + 0.1 * torch.randn(n, generator=gen, device=device)
+    return w.to(w_dtype), c.to(c_dtype)
+
+
 @pytest.mark.parametrize("side", ["client", "server"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", ELASTIC_SIZES)
-def test_elastic_one_side_kernel_matches_plain(cuda, n, dtype, side):
-    """Eq. (3) / eq. (2) alone: one fused multiply-add in the kernel, the
-    exact product and sum rounded once in the plain version — equal."""
-    w, c = _elastic_inputs((n,), cuda, dtype, 130 + n)
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "w%s-c%s" % tuple(
+    str(d).split(".")[1] for d in p))
+@pytest.mark.parametrize("n", ONE_SIDE_SIZES)
+def test_elastic_one_side_kernel_matches_plain(cuda, n, pair, side):
+    """Eq. (3) / eq. (2) alone, through the CUDA kernel: the difference
+    rounded, then one fused multiply-add in the kernel, the exact product
+    and sum rounded once in the plain version — equal for every (w, w̃)
+    dtype pair, in the output dtype of w (client) or w̃ (server)."""
+    w, c = _one_side_inputs(n, cuda, *pair, 130 + n)
     kernel = getattr(fe, f"elastic_{side}_flat")
     plain = getattr(fe, f"elastic_{side}_flat_plain")
     for a in (0.5, 0.5 / 3):
@@ -234,8 +259,43 @@ def test_elastic_one_side_kernel_matches_plain(cuda, n, dtype, side):
         before = kernel.launches
         got = kernel(w, c, alpha)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
-        assert got.dtype == dtype and torch.equal(got, plain(w, c, alpha))
+        assert kernel.launches == before + (1 if n else 0)
+        want = plain(w, c, alpha)
+        assert got.dtype == (c if side == "server" else w).dtype
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("side", ["client", "server"])
+def test_elastic_one_side_kernel_on_a_side_stream(cuda, side):
+    """Launched on the current stream: on a non-default stream, equal to
+    the plain version once that stream is synchronised."""
+    n = 3 * 132 * ONE_SIDE_TILE + 5
+    w, c = _one_side_inputs(n, cuda, torch.float32, torch.float32, 7)
+    alpha = torch.tensor(0.5 / 3, device=cuda)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    kernel = getattr(fe, f"elastic_{side}_flat")
+    with torch.cuda.stream(stream):
+        got = kernel(w, c, alpha)
+    stream.synchronize()
+    assert torch.equal(got, getattr(fe, f"elastic_{side}_flat_plain")(w, c, alpha))
+
+
+@pytest.mark.parametrize("side", ["client", "server"])
+def test_elastic_one_side_kernel_rejects_misaligned(cuda, side):
+    """The bulk copies need 16-byte aligned data: a view one f32 into a
+    fresh buffer raises, and launches nothing."""
+    buf = torch.zeros(4097, device=cuda)
+    alpha = torch.tensor(0.5, device=cuda)
+    kernel = getattr(fe, f"elastic_{side}_flat")
+    before = kernel.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel(buf[1:], buf[:-1].clone(), alpha)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel(buf[:-1].clone(), buf[1:], alpha)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel(buf.half(), buf.half(), alpha)
+    assert kernel.launches == before
 
 
 def test_ps_wrappers_reject_bad_layouts(cuda):
