@@ -5,8 +5,9 @@ it pulls in JAX through ``repro.core.comm``). ``get_config(name)`` resolves
 ``configs/<id>.py``; ``reduced(cfg)`` is the CPU smoke-test variant of the
 same family. Slice 1 ports the dense family; other families raise.
 
-``TrainSettings`` is the run-settings half: optimizer hyperparameters and
-the gradient-sync knobs, lowered to a ``SyncConfig`` + optimizer pair.
+``TrainSettings`` is the run-settings half: optimizer hyperparameters, the
+gradient-sync and elastic knobs, the fault schedule and checkpointing,
+lowered to a ``SyncConfig`` + optimizer pair as the reference lowers them.
 """
 from __future__ import annotations
 
@@ -123,18 +124,30 @@ class TrainSettings:
     adam_b2: float = 0.95
     adam_eps: float = 1e-8
     adagrad_eps: float = 1e-10
-    sync_mode: str = "mpi_sgd"
+    sync_mode: str = "mpi_sgd"      # "mpi_sgd" | "mpi_esgd"
     num_clients: int = 1
+    esgd_alpha: float = 0.5
+    esgd_interval: int = 64
     allreduce_method: str = "psum"
     num_rings: int = 2
     fused_update: bool = True
+    # the ESGD exchange packed through the FlatBuffer and one fused kernel
+    flat_exchange: bool = True
     bucket_bytes: Optional[int] = None
     wire_dtype: str = "f32"
     # flat optimizer-state stream dtype ("f32" | "bf16"); for SGD a bf16
     # momentum keeps the per-leaf path that honors it
     state_dtype: str = "f32"
+    # params sharded over 'data' on a mesh (no mesh in the port: carried)
+    fsdp: bool = False
     overlap: bool = False
     overlap_buckets: int = 4
+    microbatch: int = 1
+    # deterministic fault schedule (core/faults.py string form); "" = clean
+    faults: str = ""
+    # seconds before the sync PS barrier releases with the survivor group
+    # (None blocks forever; kill/drop schedules need it)
+    barrier_timeout: Optional[float] = None
     checkpoint_every: int = 0
     restore: str = ""
     policy_src: Optional[CollectivePolicy] = field(
@@ -164,11 +177,21 @@ class TrainSettings:
         object.__setattr__(self, "overlap", pol.overlap)
         object.__setattr__(self, "overlap_buckets", pol.overlap_buckets)
 
+    def fault_schedule(self, seed: int = 0):
+        """The parsed ``core.faults.FaultSchedule`` (None when clean)."""
+        from repro_torch.core.faults import as_schedule
+
+        return as_schedule(self.faults or None, seed)
+
     def sync_config(self):
         from repro_torch.core.hierarchy import SyncConfig
 
-        return SyncConfig(mode=self.sync_mode, num_clients=self.num_clients,
-                          fused_update=self.fused_update, policy=self.policy)
+        return SyncConfig(
+            mode=self.sync_mode, num_clients=self.num_clients,
+            esgd_alpha=self.esgd_alpha, esgd_interval=self.esgd_interval,
+            fused_update=self.fused_update, flat_exchange=self.flat_exchange,
+            fsdp=self.fsdp, policy=self.policy,
+        )
 
     def _state_dtype(self) -> Optional[torch.dtype]:
         if self.state_dtype not in ("f32", "bf16"):

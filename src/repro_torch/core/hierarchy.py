@@ -79,19 +79,27 @@ class SyncConfig:
         if self.mode not in ("mpi_sgd", "mpi_esgd"):
             raise ValueError(f"lowerable modes are mpi_sgd/mpi_esgd, got {self.mode}")
         self.policy.validate(where="SyncConfig")
+        # the reference's messages, word for word
         if self.overlap:
             if not self.fused_update:
                 raise ValueError(
-                    "overlap=True rides the fused flat path; set "
-                    "fused_update=True")
+                    "overlap=True rides the fused flat path — the staged "
+                    "grad fn hands the update ONE bucket-major shard "
+                    "buffer, which only the fused Pallas kernel consumes; "
+                    "set fused_update=True (per-leaf updates would need "
+                    "the full gradient pytree the overlapped step never "
+                    "materializes)")
             if self.mode != "mpi_sgd":
                 raise ValueError(
-                    f"overlap=True is the mpi_sgd (C=1) gradient leg, got "
-                    f"mode={self.mode!r}")
+                    f"overlap=True is the mpi_sgd (C=1) gradient leg — "
+                    f"mode={self.mode!r} runs per-client local updates "
+                    "(p=1 geometry, no ring leg to hide); drop overlap "
+                    "or use mode='mpi_sgd'")
             if self.fsdp:
                 raise ValueError(
-                    "overlap=True assumes replicated params; fsdp=True "
-                    "shards them — pick one")
+                    "overlap=True assumes replicated params (the staged "
+                    "grad fn re-stages the full param tree per device); "
+                    "fsdp=True shards them over 'data' — pick one")
 
 
 def clientize(params: Any, num_clients: int) -> Any:

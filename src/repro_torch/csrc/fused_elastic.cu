@@ -1,20 +1,25 @@
-// One side of the elastic exchange (paper eqs. (2) and (3)) for Hopper.
+// The elastic exchange's one-output passes (paper eqs. (2) and (3)) for Hopper.
 //
 // Replaces, in src/repro/kernels/fused_elastic/fused_elastic.py:
 //   elastic_client_flat (:83)  eq. (3): w' = w - a (w - w~), new w in w's dtype
 //   elastic_server_flat (:97)  eq. (2): w~' = w~ + a (w - w~), new w~ in w~'s dtype
-// (their bodies _elastic_client_kernel / _elastic_server_kernel, launched
-// through _flat_call's pallas_call at :47).
+//   elastic_center_flat (:131) eq. (2) on one device's 1/p center shard, fed
+//                              the ring-reduce-scattered sum of the clients'
+//                              differences: w~' = w~ + a S, in w~'s dtype
+// (their bodies _elastic_client_kernel / _elastic_server_kernel /
+// _elastic_center_kernel, each launched through _flat_call's pallas_call
+// at :47).
 //
-// What bounds it: HBM bytes. Each element reads w and w~ once and writes
-// one output, 12 B at f32, for 3 flops: at the full-width packed buffer
-// (n = 494,147,584) 5.93 GB, 1.770 ms at 3.35 TB/s.
+// What bounds it: HBM bytes. Each element reads two operands once and
+// writes one output, 12 B at f32, for 2-3 flops: at the full-width packed
+// buffer (n = 494,147,584) 5.93 GB, 1.770 ms at 3.35 TB/s; the center's
+// (2, 2)-driver shards (4 x 247,073,792 values) 11.86 GB, 3.540 ms.
 //
 // Design (route (b): nvcc into a shared library with a plain C
 // interface, loaded through ctypes by kernels/cuda_build.py):
 //   - one CTA per TILE elements; one elected thread copies the CTA's
-//     tiles of w and w~ into shared memory with two 1-D bulk async copies
-//     (cp.async.bulk, the TMA's non-tensor form) that complete one
+//     tiles of both operands into shared memory with two 1-D bulk async
+//     copies (cp.async.bulk, the TMA's non-tensor form) that complete one
 //     mbarrier by their byte count, so no thread spends registers or
 //     instructions on the loads;
 //   - THREADS threads wait on the barrier, each computes 4 elements in
@@ -29,10 +34,10 @@
 // sweep.py; its numbers in PERF.md): a persistent grid that walks tiles
 // through a ring of bulk copies ran 3-5 % slower at every ring depth, and
 // bulk stores of the output tile ran no faster than these register stores.
-// Rounding as the reference's compiled code: d = w - w~ rounded, then ONE
-// fused multiply-add, fma(a, d, w~) / fma(-a, d, w); bf16 operands are
-// widened exactly and outputs rounded to nearest even. Never build with
-// --use_fast_math.
+// Rounding as the reference's compiled code: eqs. (2)/(3) on (w, w~) round
+// d = w - w~, then ONE fused multiply-add, fma(a, d, w~) / fma(-a, d, w);
+// the center is fma(a, S, w~) alone; bf16 operands are widened exactly and
+// outputs rounded to nearest even. Never build with --use_fast_math.
 //
 // Every entry point returns the cudaError_t of cudaGetLastError() right
 // after its launch, as an int; cuda_error_string() names it.
@@ -84,11 +89,22 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// eq. (2) (SERVER) or eq. (3): the difference rounded, then one FMA
-template <bool SERVER>
-__device__ __forceinline__ float one_side(float a, float w, float c) {
-  const float d = __fsub_rn(w, c);
-  return SERVER ? __fmaf_rn(a, d, c) : __fmaf_rn(-a, d, w);
+// which equation a pass computes from its operands (x, y):
+//   kClient  eq. (3), x = w, y = w~: the difference rounded, then one FMA
+//   kServer  eq. (2), x = w, y = w~: the same difference and one FMA
+//   kCenter  eq. (2) on a center shard, x = w~, y = S (the summed
+//            differences): one FMA
+enum class Eq { kClient, kServer, kCenter };
+
+// the output has y's dtype for the server pass and x's for the others
+template <Eq E, typename TX, typename TY>
+using OutT = typename std::conditional<E == Eq::kServer, TY, TX>::type;
+
+template <Eq E>
+__device__ __forceinline__ float update(float a, float x, float y) {
+  if constexpr (E == Eq::kCenter) return __fmaf_rn(a, y, x);
+  const float d = __fsub_rn(x, y);
+  return E == Eq::kServer ? __fmaf_rn(a, d, y) : __fmaf_rn(-a, d, x);
 }
 
 // -- the bulk-copy and mbarrier primitives (PTX) ---------------------------
@@ -128,16 +144,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 
 // -- the kernel --------------------------------------------------------------
 
-template <typename TW, typename TC, bool SERVER>
+template <typename TX, typename TY, Eq E>
 __global__ void __launch_bounds__(THREADS, 2048 / THREADS)   // registers for a full SM
-one_side_tile(const float* __restrict__ alpha, const TW* __restrict__ w,
-              const TC* __restrict__ c,
-              typename std::conditional<SERVER, TC, TW>::type* __restrict__ out,
-              long long n) {
-  constexpr uint32_t W_BYTES = TILE * sizeof(TW);
-  constexpr uint32_t C_BYTES = TILE * sizeof(TC);
-  __shared__ __align__(128) TW wt[TILE];
-  __shared__ __align__(128) TC ct[TILE];
+elastic_tile(const float* __restrict__ alpha, const TX* __restrict__ x,
+             const TY* __restrict__ y, OutT<E, TX, TY>* __restrict__ out,
+             long long n) {
+  constexpr uint32_t X_BYTES = TILE * sizeof(TX);
+  constexpr uint32_t Y_BYTES = TILE * sizeof(TY);
+  __shared__ __align__(128) TX xt[TILE];
+  __shared__ __align__(128) TY yt[TILE];
   __shared__ __align__(8) uint64_t bar;
   __shared__ float a_shared;
 
@@ -145,55 +160,54 @@ one_side_tile(const float* __restrict__ alpha, const TW* __restrict__ w,
   if (off + TILE > n) {   // the ragged last tile: ordinary loads and stores
     const float a = *alpha;
     for (long long i = off + threadIdx.x; i < n; i += THREADS)
-      narrow(out + i, one_side<SERVER>(a, widen(w[i]), widen(c[i])));
+      narrow(out + i, update<E>(a, widen(x[i]), widen(y[i])));
     return;
   }
   const uint32_t b = smem_addr(&bar);
   if (threadIdx.x == 0) {
     a_shared = *alpha;
     mbar_init(b);
-    mbar_expect_tx(b, W_BYTES + C_BYTES);
-    bulk_load(smem_addr(wt), w + off, W_BYTES, b);
-    bulk_load(smem_addr(ct), c + off, C_BYTES, b);
+    mbar_expect_tx(b, X_BYTES + Y_BYTES);
+    bulk_load(smem_addr(xt), x + off, X_BYTES, b);
+    bulk_load(smem_addr(yt), y + off, Y_BYTES, b);
   }
   __syncthreads();        // the barrier is initialised before anyone waits
   const float a = a_shared;
   mbar_wait(b, 0);
 
   const int i = threadIdx.x * 4;
-  float wv[4], cv[4], ov[4];
-  load4(wt + i, wv);
-  load4(ct + i, cv);
+  float xv[4], yv[4], ov[4];
+  load4(xt + i, xv);
+  load4(yt + i, yv);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) ov[j] = one_side<SERVER>(a, wv[j], cv[j]);
+  for (int j = 0; j < 4; ++j) ov[j] = update<E>(a, xv[j], yv[j]);
   store4(out + off + i, ov);
 }
 
 // -- host side ---------------------------------------------------------------
 
-template <typename TW, typename TC, bool SERVER>
-cudaError_t launch_typed(const float* alpha, const void* w, const void* c, void* out,
+template <typename TX, typename TY, Eq E>
+cudaError_t launch_typed(const float* alpha, const void* x, const void* y, void* out,
                          long long n, cudaStream_t stream) {
-  using TO = typename std::conditional<SERVER, TC, TW>::type;
   const long long grid = (n + TILE - 1) / TILE;
-  one_side_tile<TW, TC, SERVER><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
-      alpha, static_cast<const TW*>(w), static_cast<const TC*>(c),
-      static_cast<TO*>(out), n);
+  elastic_tile<TX, TY, E><<<static_cast<unsigned>(grid), THREADS, 0, stream>>>(
+      alpha, static_cast<const TX*>(x), static_cast<const TY*>(y),
+      static_cast<OutT<E, TX, TY>*>(out), n);
   return cudaGetLastError();
 }
 
-// dispatch on (w bf16?, w~ bf16?) for one side
-template <bool SERVER>
-int launch(const void* alpha, const void* w, const void* c, void* out, long long n,
-           int w_bf16, int c_bf16, void* stream) {
+// dispatch on (x bf16?, y bf16?) for one equation
+template <Eq E>
+int launch(const void* alpha, const void* x, const void* y, void* out, long long n,
+           int x_bf16, int y_bf16, void* stream) {
   using bf = __nv_bfloat16;
   const float* a = static_cast<const float*>(alpha);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!w_bf16 && !c_bf16) err = launch_typed<float, float, SERVER>(a, w, c, out, n, s);
-  else if (!w_bf16) err = launch_typed<float, bf, SERVER>(a, w, c, out, n, s);
-  else if (!c_bf16) err = launch_typed<bf, float, SERVER>(a, w, c, out, n, s);
-  else err = launch_typed<bf, bf, SERVER>(a, w, c, out, n, s);
+  if (!x_bf16 && !y_bf16) err = launch_typed<float, float, E>(a, x, y, out, n, s);
+  else if (!x_bf16) err = launch_typed<float, bf, E>(a, x, y, out, n, s);
+  else if (!y_bf16) err = launch_typed<bf, float, E>(a, x, y, out, n, s);
+  else err = launch_typed<bf, bf, E>(a, x, y, out, n, s);
   return static_cast<int>(err);
 }
 
@@ -204,13 +218,19 @@ extern "C" {
 // eq. (3): out = w - a (w - w~) in w's dtype
 int elastic_client_flat_cuda(const void* alpha, const void* w, const void* c, void* out,
                              long long n, int w_bf16, int c_bf16, void* stream) {
-  return launch<false>(alpha, w, c, out, n, w_bf16, c_bf16, stream);
+  return launch<Eq::kClient>(alpha, w, c, out, n, w_bf16, c_bf16, stream);
 }
 
 // eq. (2): out = w~ + a (w - w~) in w~'s dtype
 int elastic_server_flat_cuda(const void* alpha, const void* w, const void* c, void* out,
                              long long n, int w_bf16, int c_bf16, void* stream) {
-  return launch<true>(alpha, w, c, out, n, w_bf16, c_bf16, stream);
+  return launch<Eq::kServer>(alpha, w, c, out, n, w_bf16, c_bf16, stream);
+}
+
+// eq. (2) on a center shard: out = w~ + a S in w~'s dtype
+int elastic_center_flat_cuda(const void* alpha, const void* c, const void* ds, void* out,
+                             long long n, int c_bf16, int ds_bf16, void* stream) {
+  return launch<Eq::kCenter>(alpha, c, ds, out, n, c_bf16, ds_bf16, stream);
 }
 
 const char* cuda_error_string(int err) {

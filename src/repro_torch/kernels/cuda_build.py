@@ -46,15 +46,16 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared", "-Xptxas", "-v")
 
-#: alpha, w, c, out, n, w_bf16, c_bf16, stream
-_ONE_SIDE = (c_void_p, c_void_p, c_void_p, c_void_p, c_longlong, c_int, c_int, c_void_p)
+#: alpha, x, y, out, n, x_bf16, y_bf16, stream
+_ELASTIC = (c_void_p, c_void_p, c_void_p, c_void_p, c_longlong, c_int, c_int, c_void_p)
 #: per library, every bound function and its argument types: pointers and
 #: the stream as ``c_void_p``, element counts as ``c_longlong``, flags as
 #: ``c_int``
 SIGNATURES = {
     "fused_elastic": {
-        "elastic_client_flat_cuda": _ONE_SIDE,
-        "elastic_server_flat_cuda": _ONE_SIDE,
+        "elastic_client_flat_cuda": _ELASTIC,
+        "elastic_server_flat_cuda": _ELASTIC,
+        "elastic_center_flat_cuda": _ELASTIC,
     },
 }
 

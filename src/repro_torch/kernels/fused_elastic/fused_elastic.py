@@ -28,20 +28,25 @@ element (read w, w̃; write both), the client and server passes 12 B
 the center pass 12 B, the C-client pass (2C + 2)·4 B — each for a few
 flops per element, far below the card's compute-to-bandwidth ratio.
 
-Two routes. ``elastic_client_flat`` and ``elastic_server_flat`` are CUDA
-C++ for ``sm_90a`` (``src/repro_torch/csrc/fused_elastic.cu``, built with
-``nvcc`` at first use into ``build/cuda/`` and bound through ``ctypes``
-by ``kernels/cuda_build``): the main path runs them on the whole packed
-buffer, and they lost to ``torch.lerp`` by ~1 % as Triton passes, so they
-were the first redesign for the card. One CTA per 4096 elements brings
-its tiles of w and w̃ into shared memory with two 1-D bulk async copies
-on one mbarrier, and 1024 threads compute and store them from registers;
-the ragged last tile takes ordinary loads. On the H100 it runs at ~91 %
-of the HBM bound, level with ``torch.lerp`` (0.3 % under it, timed in
-turns; PERF.md): bulk copies buy parity, not more, and a persistent grid
-that streamed tiles through a ring of them ran 3–5 % slower.
+Two routes. ``elastic_client_flat``, ``elastic_server_flat`` and
+``elastic_center_flat`` are CUDA C++ for ``sm_90a``
+(``src/repro_torch/csrc/fused_elastic.cu``, built with ``nvcc`` at first
+use into ``build/cuda/`` and bound through ``ctypes`` by
+``kernels/cuda_build``): three entry points of one kernel template, each
+a 12 B/element stream (two operands read, one output written). As Triton
+passes they lost to their one-call yardsticks (``torch.lerp``,
+``torch.add``) by ~1 %, so they were the redesigns for the card. One CTA
+per 4096 elements brings its tiles of both operands into shared memory
+with two 1-D bulk async copies on one mbarrier, and 1024 threads compute
+and store them from registers; the ragged last tile takes ordinary
+loads. On the H100 the three passes run at ~92 % of the HBM bound: the
+client and server passes level with ``torch.lerp`` timed in turns, the
+center pass at or just under ``torch.add(c, ds, alpha=a)`` at f32 c and
+~40 % under it at bf16 c, where ``torch.add`` writes f32 (PERF.md).
+Bulk copies buy parity, not more, and a persistent grid that streamed
+tiles through a ring of them ran 3–5 % slower.
 
-The other four are Triton: single fused elementwise passes, and for the
+The other three are Triton: single fused elementwise passes, and for the
 C-client kernel an elementwise pass plus a reduction over the C ≤ 8 rows
 that each program carries in registers.
 Each Triton program takes one ``BLOCK`` of the flat buffer and masks the
@@ -54,9 +59,9 @@ emulated device) is one launch over the whole contiguous buffer, as one
 Rounding, as the reference's compiled code rounds: eq. (3) in the
 one-pair exchange, the client and client-diff passes and eq. (2) in the
 one-pair exchange, the server and center passes are each ONE fused
-multiply-add (``tl.fma``, ``__fmaf_rn`` in the CUDA kernel after
-``__fsub_rn``; the plain versions form the exact product and
-sum in f64 and round once) — XLA's CPU code contracts all of them,
+multiply-add (``tl.fma``; ``__fmaf_rn`` in the CUDA kernel, after
+``__fsub_rn`` for the client and server passes; the plain versions form
+the exact product and sum in f64 and round once) — XLA's CPU code contracts all of them,
 interpreted or under ``jit``: the one-pair kernel's d = α (w − w̃) is
 never rounded on its own, w' = fma(−α, w − w̃, w) and w̃' = fma(α,
 w − w̃, w̃) — while the C-client
@@ -195,28 +200,6 @@ def _client_diff_kernel():
 
 
 @functools.cache
-def _center_kernel():
-    global tl
-    tr = triton()
-    import triton.language as tl
-
-    @tr.jit
-    def center_kernel(alpha_ptr, c_ptr, ds_ptr, c_out_ptr, n,
-                      BLOCK: tl.constexpr):
-        pid = tl.program_id(0).to(tl.int64)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        alpha = tl.load(alpha_ptr)
-        c = tl.load(c_ptr + offs, mask=mask).to(tl.float32)
-        ds = tl.load(ds_ptr + offs, mask=mask).to(tl.float32)
-        tl.store(c_out_ptr + offs,
-                 tl.fma(alpha, ds, c).to(c_out_ptr.dtype.element_ty),
-                 mask=mask)
-
-    return center_kernel
-
-
-@functools.cache
 def _mc_kernel():
     global tl
     tr = triton()
@@ -262,31 +245,35 @@ def _check_alpha(alpha: torch.Tensor) -> None:
                          f"{tuple(alpha.shape)} {alpha.dtype}")
 
 
-def _one_side(w: torch.Tensor, c: torch.Tensor, alpha: torch.Tensor,
-              server: bool) -> torch.Tensor:
-    """Launch ``csrc/fused_elastic.cu``'s eq. (2) (``server``) or eq. (3)
-    pass on CUDA tensors: checks, then one launch on the current stream;
-    raises on a refused launch."""
-    _check("w", w, w.shape)
-    _check("c", c, w.shape)
+def _cuda_pass(eq: str, x: torch.Tensor, y: torch.Tensor,
+               alpha: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/fused_elastic.cu``'s ``elastic_<eq>_flat_cuda`` on
+    CUDA tensors: eq. (3) (``"client"``, x = w, y = w̃), eq. (2)
+    (``"server"``, the same operands) or eq. (2) on a center shard
+    (``"center"``, x = w̃, y = the summed differences). Checks, then one
+    launch on the current stream; raises on a refused launch. The output
+    takes y's dtype for the server pass and x's for the others."""
+    xn, yn = ("c", "diff_sum") if eq == "center" else ("w", "c")
+    _check(xn, x, x.shape)
+    _check(yn, y, x.shape)
     _check_alpha(alpha)
-    for name, t in (("w", w), ("c", c)):
+    for name, t in ((xn, x), (yn, y)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{name}: dtype {t.dtype}, want float32 or bfloat16")
-    out = torch.empty_like(c if server else w)
-    for name, t in (("w", w), ("c", c), ("out", out)):
+    out = torch.empty_like(y if eq == "server" else x)
+    for name, t in ((xn, x), (yn, y), ("out", out)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data_ptr not 16-byte aligned (the bulk "
                              "copies need it; a fresh tensor is)")
-    n = w.numel()
+    n = x.numel()
     if n:
         lib = cuda_build.load_library("fused_elastic")
-        fn = lib.elastic_server_flat_cuda if server else lib.elastic_client_flat_cuda
-        with torch.cuda.device(w.device):   # the library launches on the current one
-            err = fn(alpha.data_ptr(), w.data_ptr(), c.data_ptr(), out.data_ptr(), n,
-                     int(w.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
-                     torch.cuda.current_stream(w.device).cuda_stream)
-        cuda_build.check(lib, err, f"elastic_{'server' if server else 'client'}_flat")
+        fn = getattr(lib, f"elastic_{eq}_flat_cuda")
+        with torch.cuda.device(x.device):   # the library launches on the current one
+            err = fn(alpha.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                     int(x.dtype == torch.bfloat16), int(y.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_build.check(lib, err, f"elastic_{eq}_flat")
     return out
 
 
@@ -322,7 +309,7 @@ def elastic_client_flat(w: torch.Tensor, c: torch.Tensor,
     the CUDA kernel of ``csrc/fused_elastic.cu``."""
     if on_cpu(w, c, alpha):
         return elastic_client_flat_plain(w, c, alpha)
-    out = _one_side(w, c, alpha, server=False)
+    out = _cuda_pass("client", w, c, alpha)
     if w.numel():
         elastic_client_flat.launches += 1
     return out
@@ -336,7 +323,7 @@ def elastic_server_flat(w: torch.Tensor, c: torch.Tensor,
     the CUDA kernel of ``csrc/fused_elastic.cu``."""
     if on_cpu(w, c, alpha):
         return elastic_server_flat_plain(w, c, alpha)
-    out = _one_side(w, c, alpha, server=True)
+    out = _cuda_pass("server", w, c, alpha)
     if w.numel():
         elastic_server_flat.launches += 1
     return out
@@ -369,22 +356,17 @@ def elastic_client_diff_flat(w: torch.Tensor, c: torch.Tensor,
 def elastic_center_flat(c: torch.Tensor, diff_sum: torch.Tensor,
                         alpha: torch.Tensor) -> torch.Tensor:
     """Eq. (2) on a center shard: ``c + α·diff_sum`` in c's dtype, for
-    equal-shape contiguous ``c`` and ``diff_sum`` (flat or stacked). A
-    CPU tensor takes the plain version; a CUDA tensor launches the Triton
-    kernel."""
+    equal-shape contiguous ``c`` and ``diff_sum`` (flat, or stacked
+    ``(…, n)``: one launch over the whole buffer), each f32 or bf16 with
+    its data 16-byte aligned; ``alpha`` is one f32 value on the same
+    device. A CPU tensor takes the plain version; a CUDA tensor launches
+    the CUDA kernel of ``csrc/fused_elastic.cu``."""
     if on_cpu(c, diff_sum, alpha):
         return elastic_center_flat_plain(c, diff_sum, alpha)
-    _check("c", c, c.shape)
-    _check("diff_sum", diff_sum, c.shape)
-    _check_alpha(alpha)
-    c_out = torch.empty_like(c)
-    n = c.numel()
-    if n:
-        grid = (triton().cdiv(n, BLOCK),)
-        _center_kernel()[grid](alpha, c, diff_sum, c_out, n, BLOCK=BLOCK,
-                               num_warps=NUM_WARPS)
+    out = _cuda_pass("center", c, diff_sum, alpha)
+    if c.numel():
         elastic_center_flat.launches += 1
-    return c_out
+    return out
 
 
 def elastic_exchange_flat_mc(w: torch.Tensor, c: torch.Tensor,

@@ -16,14 +16,17 @@
             kernel) pulls the replicas and the center together
 
 Entry points default to the CUDA device and raise when there is none,
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``. The CLI takes the reference
+worker's flags and lowers them as it does (``settings_from_args``):
 
   python -m repro_torch.launch.train --full-size --steps 5
+  python -m repro_torch.launch.train --device cpu --steps 3 --wire-dtype int8 --allreduce ring
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 from typing import Any, Callable, Optional
 
 import torch
@@ -239,41 +242,82 @@ def train_loop(model: Model, optimizer: Optimizer, sync: SyncConfig,
     return state, history
 
 
-class _NotPorted(argparse.Action):
-    """A flag of the reference's CLI whose path is not ported yet."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not yet ported (this slice runs "
-                     "mpi-SGD with one client in one process)")
-
-
-#: the reference CLI's flags for paths later slices port: (flag, takes a value)
-_UNPORTED_FLAGS = (
-    ("--shape", True), ("--client", True), ("--num-clients", True),
-    ("--scheduler", True), ("--no-fused-update", False),
-    ("--flat-exchange", False), ("--no-flat-exchange", False),
-    ("--bucket-bytes", True), ("--wire-dtype", True), ("--overlap", False),
-    ("--overlap-buckets", True), ("--allreduce", True), ("--num-rings", True),
-    ("--policy", True), ("--tune-p", True), ("--faults", True),
-    ("--barrier-timeout", True), ("--transport", True),
-    ("--rendezvous", True), ("--mode", True), ("--problem", True),
-    ("--mesh", True),
-)
+#: the reference CLI's flag values whose paths are not ported yet: (flag,
+#: value) -> what is missing
+_NOT_PORTED = {
+    ("overlap", True): "--overlap needs backward overlap (the staged "
+                       "backward with per-bucket reduce-scatter legs)",
+    ("policy", "auto"): "--policy auto needs the cost-model autotuner "
+                        "(launch.autotune)",
+    ("transport", "tcp"): "--transport tcp needs the socket transport tier "
+                          "(net/: rendezvous, workers, the socket PS)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The reference worker CLI's flags, defaults and choices
+    (``repro/launch/train.py``), plus the port's ``--device``."""
     ap = argparse.ArgumentParser(
-        description="mpi-SGD training worker (PyTorch port, one client)")
+        description="per-client training worker (PyTorch port)")
     ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--shape", default="train_4k",
+                    help="job-spec input shape id (recorded)")
+    ap.add_argument("--client", type=int, default=0)
+    ap.add_argument("--num-clients", type=int, default=1)
+    ap.add_argument("--scheduler", default=None,
+                    help="scheduler host:port from the job spec (recorded; "
+                         "one process runs one client standalone)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--momentum", type=float, default=0.9)
     ap.add_argument("--optimizer", default="sgd",
                     choices=("sgd", "adagrad", "adamw"),
-                    help="update rule; every choice rides the fused flat path")
+                    help="update rule; every choice rides the fused flat "
+                         "path when --fused-update is set")
     ap.add_argument("--weight-decay", type=float, default=0.0)
+    ap.add_argument("--fused-update", dest="fused_update",
+                    action="store_true", default=True)
+    ap.add_argument("--no-fused-update", dest="fused_update",
+                    action="store_false")
+    ap.add_argument("--flat-exchange", dest="flat_exchange",
+                    action="store_true", default=True)
+    ap.add_argument("--no-flat-exchange", dest="flat_exchange",
+                    action="store_false")
+    ap.add_argument("--bucket-bytes", type=int, default=0)
+    ap.add_argument("--wire-dtype", default="f32",
+                    choices=("f32", "bf16", "int8"),
+                    help="low-precision wire protocol on the ring hops "
+                         "(requires a ring-family --allreduce method; "
+                         "f32 = full precision)")
     ap.add_argument("--state-dtype", default="f32", choices=("f32", "bf16"),
                     help="flat optimizer-state stream dtype")
+    ap.add_argument("--overlap", action="store_true", default=False,
+                    help="backward-overlapped bucketed reduce-scatter "
+                         "(not yet ported)")
+    ap.add_argument("--overlap-buckets", type=int, default=4,
+                    help="schedule buckets == backward stages")
+    ap.add_argument("--allreduce", default=None,
+                    choices=("psum", "ring", "multi_ring", "tree",
+                             "scatter_gather"),
+                    help="intra-client collective (default: psum, or ring "
+                         "when --wire-dtype is low-precision)")
+    ap.add_argument("--num-rings", type=int, default=0,
+                    help="concurrent rings for ring-family methods "
+                         "(0 = default: 2, or 1 under --overlap)")
+    ap.add_argument("--policy", default=None, choices=("auto",),
+                    help="'auto' ranks the collective-policy space with the "
+                         "cost model (not yet ported)")
+    ap.add_argument("--tune-p", type=int, default=8,
+                    help="devices per client --policy auto scores the "
+                         "candidates at")
+    ap.add_argument("--faults", default="",
+                    help="deterministic fault schedule (core/faults.py "
+                         "string form, e.g. 'kill@12:unit=1'); validated "
+                         "here, injected by the drivers that own a clock "
+                         "(core/algorithms.py, shard_driver.drive)")
+    ap.add_argument("--barrier-timeout", type=float, default=None,
+                    help="seconds before the sync PS barrier releases with "
+                         "the survivor group (kill/drop schedules need it)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="checkpoint cadence in completed steps (0 = off)")
     ap.add_argument("--checkpoint-dir", default="checkpoints")
@@ -281,42 +325,88 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint to restore params/opt-state/step from")
     ap.add_argument("--full-size", action="store_true",
                     help="full architecture (default: reduced smoke config)")
+    ap.add_argument("--transport", default="loopback",
+                    choices=("loopback", "tcp"),
+                    help="'loopback' runs the standalone in-process worker; "
+                         "'tcp' (a socket transport worker) is not yet ported")
+    ap.add_argument("--rendezvous", default=os.environ.get("REPRO_RDZV_ADDR"),
+                    help="rendezvous host:port for --transport tcp (recorded)")
+    ap.add_argument("--mode", default="",
+                    help="transport algorithm mode (recorded for the spec)")
+    ap.add_argument("--problem", default="logreg8",
+                    help="transport training problem (recorded)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "kernel versions)")
-    for flag, takes_value in _UNPORTED_FLAGS:
-        ap.add_argument(flag, action=_NotPorted, nargs=None if takes_value else 0,
-                        help=argparse.SUPPRESS)
     return ap
 
 
-def main(argv: Optional[list] = None) -> list:
+def settings_from_args(args: argparse.Namespace):
+    """Lower parsed CLI flags as the reference's ``main`` does: ->
+    ``(model config, TrainSettings)``. The fault schedule is parsed here,
+    so a bad one fails before any compute."""
     from repro_torch.configs.base import TrainSettings, get_config, reduced
-    from repro_torch.data.pipeline import DataConfig, TokenPipeline
-    from repro_torch.models.model import build_model
 
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full_size:
         cfg = reduced(cfg)
+    method = args.allreduce or (
+        "psum" if args.wire_dtype == "f32" and not args.overlap else "ring")
+    pol = comm_lib.CollectivePolicy(
+        method=method,
+        num_rings=1 if args.overlap else (args.num_rings or 2),
+        bucket_bytes=args.bucket_bytes or None,
+        wire_dtype=None if args.wire_dtype == "f32" else args.wire_dtype,
+        overlap=args.overlap, overlap_buckets=args.overlap_buckets)
     settings = TrainSettings(lr=args.lr, momentum=args.momentum,
                              optimizer_name=args.optimizer,
                              weight_decay=args.weight_decay,
+                             fused_update=args.fused_update,
+                             flat_exchange=args.flat_exchange,
+                             policy=pol,
                              state_dtype=args.state_dtype,
+                             faults=args.faults,
+                             barrier_timeout=args.barrier_timeout,
                              checkpoint_every=args.checkpoint_every,
                              restore=args.restore)
+    settings.fault_schedule()  # parse errors surface before any compute
+    return cfg, settings
+
+
+def main(argv: Optional[list] = None) -> list:
+    """The worker: one process is one client (C = 1 inside it); the job
+    spec's ``--client`` picks its data shard, the rest is recorded."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import build_model
+
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for (dest, value), missing in _NOT_PORTED.items():
+        if getattr(args, dest) == value:
+            ap.error(f"not yet ported: {missing}")
+    device = resolve_device(args.device)
+    cfg, settings = settings_from_args(args)
     model = build_model(cfg)
+    sync = settings.sync_config()
+    optimizer = settings.optimizer()
     pipe = TokenPipeline(DataConfig(
         seed=0, vocab_size=min(cfg.padded_vocab, 256), seq_len=64,
-        batch_size=8, steps_per_epoch=args.steps), device=device)
-    print(f"[train] arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
-          f"dtype={cfg.dtype} device={device} "
+        batch_size=8, steps_per_epoch=args.steps, shard=args.client),
+        device=device)
+    print(f"[train] client {args.client}/{args.num_clients} arch={cfg.name} "
+          f"shape={args.shape} scheduler={args.scheduler} "
           f"optimizer={settings.optimizer_name} "
-          f"state_dtype={settings.state_dtype} fused_update=True", flush=True)
-    _, hist = train_loop(model, settings.optimizer(), settings.sync_config(),
-                         None, pipe.epoch(0), device=device,
-                         log_every=max(args.steps // 10, 1),
+          f"fused_update={settings.fused_update} "
+          f"bucket_bytes={settings.bucket_bytes} "
+          f"wire_dtype={settings.wire_dtype} "
+          f"state_dtype={settings.state_dtype} "
+          f"overlap={settings.overlap} "
+          f"overlap_buckets={settings.overlap_buckets} "
+          f"faults={settings.faults!r} "
+          f"barrier_timeout={settings.barrier_timeout} "
+          f"device={device}", flush=True)
+    _, hist = train_loop(model, optimizer, sync, None, pipe.epoch(0),
+                         device=device, log_every=max(args.steps // 10, 1),
                          checkpoint_every=settings.checkpoint_every,
                          checkpoint_dir=args.checkpoint_dir,
                          restore=settings.restore)

@@ -147,23 +147,6 @@ def test_elastic_client_diff_kernel_matches_plain(cuda, n, dtype):
         _bf16_within_one_ulp(kw, rw)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", ELASTIC_SIZES)
-def test_elastic_center_kernel_matches_plain(cuda, n, dtype):
-    c, _ = _elastic_inputs((n,), cuda, dtype, 50 + n)
-    ds = torch.randn(n, device=cuda)
-    alpha = torch.tensor(0.25, device=cuda)
-    before = fe.elastic_center_flat.launches
-    kc = fe.elastic_center_flat(c, ds, alpha)
-    torch.cuda.synchronize()
-    assert fe.elastic_center_flat.launches == before + 1
-    rc = fe.elastic_center_flat_plain(c, ds, alpha)
-    if dtype == torch.float32:
-        torch.testing.assert_close(kc, rc, rtol=1e-6, atol=1e-7)
-    else:
-        _bf16_within_one_ulp(kc, rc)
-
-
 @pytest.mark.parametrize("C", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", ELASTIC_SIZES)
@@ -265,7 +248,7 @@ def test_elastic_one_side_kernel_matches_plain(cuda, n, pair, side):
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("side", ["client", "server"])
+@pytest.mark.parametrize("side", ["client", "server", "center"])
 def test_elastic_one_side_kernel_on_a_side_stream(cuda, side):
     """Launched on the current stream: on a non-default stream, equal to
     the plain version once that stream is synchronised."""
@@ -281,7 +264,7 @@ def test_elastic_one_side_kernel_on_a_side_stream(cuda, side):
     assert torch.equal(got, getattr(fe, f"elastic_{side}_flat_plain")(w, c, alpha))
 
 
-@pytest.mark.parametrize("side", ["client", "server"])
+@pytest.mark.parametrize("side", ["client", "server", "center"])
 def test_elastic_one_side_kernel_rejects_misaligned(cuda, side):
     """The bulk copies need 16-byte aligned data: a view one f32 into a
     fresh buffer raises, and launches nothing."""
@@ -296,6 +279,80 @@ def test_elastic_one_side_kernel_rejects_misaligned(cuda, side):
     with pytest.raises(ValueError, match="dtype"):
         kernel(buf.half(), buf.half(), alpha)
     assert kernel.launches == before
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: "c%s-ds%s" % tuple(
+    str(d).split(".")[1] for d in p))
+@pytest.mark.parametrize("n", ONE_SIDE_SIZES)
+def test_elastic_center_kernel_matches_plain(cuda, n, pair):
+    """Eq. (2) on a center shard through the CUDA kernel: one fused
+    multiply-add in the kernel, the exact product and sum rounded once in
+    the plain version — equal for every (w̃, Σ) dtype pair and both α, in
+    w̃'s dtype; one launch per call, none for an empty shard."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + n)
+    c = torch.randn(n, generator=gen, device=cuda).to(pair[0])
+    ds = (0.1 * torch.randn(n, generator=gen, device=cuda)).to(pair[1])
+    for a in (0.5, 0.5 / 3):
+        alpha = torch.tensor(a, device=cuda)
+        before = fe.elastic_center_flat.launches
+        got = fe.elastic_center_flat(c, ds, alpha)
+        torch.cuda.synchronize()
+        assert fe.elastic_center_flat.launches == before + (1 if n else 0)
+        want = fe.elastic_center_flat_plain(c, ds, alpha)
+        assert got.dtype == c.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_elastic_center_kernel_stacked_rows_match_plain(cuda):
+    """The emulated driver's stacked ``(pods, devices, n)`` shards: one
+    launch over the whole contiguous buffer, equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c = torch.randn(2, 2, 3 * 4096 + 128, generator=gen, device=cuda).bfloat16()
+    ds = 0.1 * torch.randn(2, 2, 3 * 4096 + 128, generator=gen, device=cuda)
+    alpha = torch.tensor(0.25, device=cuda)
+    before = fe.elastic_center_flat.launches
+    got = fe.elastic_center_flat(c, ds, alpha)
+    torch.cuda.synchronize()
+    assert fe.elastic_center_flat.launches == before + 1
+    assert got.shape == c.shape
+    assert torch.equal(got, fe.elastic_center_flat_plain(c, ds, alpha))
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.elastic_center_flat(c.transpose(0, 1), ds, alpha)
+
+
+@pytest.mark.parametrize("world", ["local", "pod2", "pod4-resized-3"])
+def test_sharded_exchange_card_equals_cpu(cuda, world):
+    """``elastic_exchange_sharded`` on the card against the CPU on the
+    same stacked trees, on every kind of group that calls the center
+    kernel: the trivial group (the shard is the whole buffer and Σ is the
+    client-diff kernel's own output), a pod group of 2, and a world of 4
+    re-split to 3 after a membership change — the shards the collectives
+    hand the kernel stay 16-byte aligned, and the result is equal."""
+    from repro_torch.core import comm as comm_lib, flatbuf
+    from repro_torch.core.elastic import elastic_exchange_sharded
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if world == "local":
+        comm, lead = comm_lib.LOCAL, ()
+    elif world == "pod2":
+        comm, lead = comm_lib.Communicator.world(("pod",), (2,)), (2,)
+    else:
+        comm, lead = comm_lib.Communicator.world(("pod",), (4,)).resized(3), (3,)
+    gen = torch.Generator().manual_seed(4)
+    member = {"a": torch.randn(5, 700, generator=gen), "b": torch.randn(9, generator=gen)}
+    params = tree_map(lambda t: torch.randn(lead + tuple(t.shape), generator=gen)
+                      .bfloat16(), member)
+    center = tree_map(lambda t: (t.float() + 0.1 * torch.randn(t.shape, generator=gen))
+                      .bfloat16(), params)
+    spec = flatbuf.spec_for(tree_map(lambda t: t[(0,) * len(lead)], params))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = fe.elastic_center_flat.launches
+        out[dev] = elastic_exchange_sharded(spec, tree_map(lambda t: t.to(dev), params),
+                                            tree_map(lambda t: t.to(dev), center),
+                                            0.5 / max(comm.resolve_size(), 1), comm=comm)
+        assert fe.elastic_center_flat.launches == before + (dev == "cuda")
+    for got, want in zip(tree_leaves(out["cuda"]), tree_leaves(out["cpu"])):
+        assert torch.equal(got.cpu(), want)
 
 
 def test_ps_wrappers_reject_bad_layouts(cuda):

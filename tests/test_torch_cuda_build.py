@@ -76,12 +76,14 @@ def test_every_binding_matches_its_extern_c_declaration(name):
         assert declared[fn] == len(argtypes), (fn, declared[fn], len(argtypes))
 
 
-@pytest.mark.parametrize("side", ["client", "server"])
+@pytest.mark.parametrize("side", ["client", "server", "center"])
 @pytest.mark.parametrize("pair", [(torch.float32, torch.float32),
                                   (torch.float32, torch.bfloat16),
                                   (torch.bfloat16, torch.float32),
                                   (torch.bfloat16, torch.bfloat16)])
 def test_cpu_tensors_take_the_plain_version(side, pair):
+    """Every pass of ``csrc/fused_elastic.cu`` on CPU tensors: the plain
+    version, no launch counted (the center's operands are w̃ and Σ)."""
     gen = torch.Generator().manual_seed(3)
     w = torch.randn(4099, generator=gen).to(pair[0])
     c = torch.randn(4099, generator=gen).to(pair[1])
