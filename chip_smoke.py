@@ -67,6 +67,26 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  int8 wire; (iv) the p = 4 mpi-SGD shard driver under a
                  kill and a rejoin — launch counts, byte counts and the
                  membership outcomes checked, times and peak memory
+  8. overlap  slice 7, backward overlap (SyncConfig.overlap, mpi-SGD):
+              a) [overlap:small] the reduced model, 3 steps on the card
+                 against the CPU: make_train_step at p = 1 (sgd, adamw,
+                 adagrad), the p = 4 driver (sgd; f32, bf16, int8 wire)
+                 and the (2, 2) driver (f32); losses within rtol 1e-4;
+                 the int8 codes and each bucket leg on identical inputs
+                 card == CPU
+              b) [overlap] full-width qwen2-0.5b in bf16, 4 schedule
+                 buckets: the p = 4 driver (momentum SGD, 6 steps of
+                 2 x 512 per device) over the f32 and then the int8 wire,
+                 each beside the same run without overlap; then
+                 make_train_step at p = 1 with AdamW (8 x 512, 3 steps).
+                 Per run: launch counts (one per step over the whole
+                 bucket-major shard), WireMeter bytes == the per-bucket
+                 legs + the one trailing allgather of the cost model,
+                 the issue-order share == cost_model.overlap_fraction,
+                 losses finite and falling and within the reference's
+                 band of the run without overlap, the optimizer kernel
+                 on one more step's own operands held against its plain
+                 version, step time, its split, peak memory, device busy
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -117,10 +137,13 @@ from repro_torch.kernels.tensor_reduce import tensor_reduce as tr  # noqa: E402
 from repro_torch.kernels.timing import interleaved_ms, spread  # noqa: E402
 from repro_torch.core import elastic as elastic_mod  # noqa: E402
 from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
-from repro_torch.launch import shard_driver as sd  # noqa: E402
+from repro_torch.core.comm import Communicator, from_sync  # noqa: E402
+from repro_torch.launch import shard_driver as sd, train as train_mod  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
-    grad_spec, make_grad_fn, make_train_state, make_train_step, stacked_grads)
+    grad_spec, make_grad_fn, make_overlap_grad_fn, make_train_state, make_train_step,
+    overlap_schedule, stacked_grads)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.optim import sgd as sgd_mod  # noqa: E402
 from repro_torch.optim.sgd import flat_hp, sgd as sgd_optimizer  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -234,6 +257,15 @@ FAULTS_SCHED = "straggle@0:unit=0:factor=3:duration=2;drop@2:unit=0:duration=1;k
 #: 12 x 512 global batch, device 3 killed before step 2 and back at step 4
 DRIVE_SCHED = "kill@2:unit=3;restart@4:unit=3"
 DRIVE_STEPS = 6
+#: slice 7's full-width runs: 4 schedule buckets ([embed] + 2 layer slices
+#: + [head]); the p = 4 driver takes 6 momentum-SGD steps of 2 x 512 per
+#: device, the p = 1 train step 3 AdamW steps of 8 x 512
+OVERLAP_BUCKETS = 4
+OVERLAP_STEPS = 6
+OVERLAP_ADAMW_STEPS = 3
+#: the full-width schedule's issue-order share at p = 4
+#: (cost_model.overlap_fraction of the bucket bytes)
+OVERLAP_SHARE_P4 = 0.7242739853201428
 
 
 def log(msg: str) -> None:
@@ -927,11 +959,11 @@ def _device_busy(step, state, batch) -> tuple:
     return busy_ms / wall_ms, busy_ms, wall_ms
 
 
-def _check_launches(label, got, want) -> None:
+def _check_launches(label, got, want, steps: int = ESGD_STEPS) -> None:
     for name, c in got.items():
         if c != want.get(name, 0):
             raise AssertionError(f"{label}: {name} launched {c} times in "
-                                 f"{ESGD_STEPS} steps, want {want.get(name, 0)}")
+                                 f"{steps} steps, want {want.get(name, 0)}")
 
 
 def phase_esgd(dev) -> tuple[dict, dict]:
@@ -1863,6 +1895,410 @@ def phase_faults(dev) -> tuple[dict, dict, dict]:
     return launches, errs, report
 
 
+# ---------------------------------------------------------------------------
+# phase 8: slice 7 — backward overlap
+# ---------------------------------------------------------------------------
+
+def _overlap_sync(wire=None, overlap=True) -> SyncConfig:
+    return SyncConfig(mode="mpi_sgd", policy=CollectivePolicy(
+        method="ring", num_rings=1, wire_dtype=wire, overlap=overlap,
+        overlap_buckets=OVERLAP_BUCKETS))
+
+
+def phase_overlap_small(dev) -> dict:
+    """Reduced model, f32, 4 schedule buckets: 3 overlapped steps on the
+    card against the same steps on the CPU, from the same weights, for
+    make_train_step at p = 1 (sgd, adamw at eps 1e-5, adagrad at eps
+    1e-4), the p = 4 driver (sgd; f32, bf16, int8 wire) and the (2, 2)
+    driver (f32). Losses within rtol 1e-4; params rtol 1e-3 / atol 1e-5,
+    over a bf16 or int8 wire the reference's band for a quantized leg
+    (rtol 1e-2, atol 2e-3: a value next to a rounding boundary can take
+    the neighbouring code on one device and not the other). Then the
+    int8 codes and every bucket's leg at p = 4 on identical inputs, card
+    == CPU. Every optimizer kernel the card runs launch is held against its
+    plain version on its own operands (``_KernelHold``); returns the
+    worst error per kernel."""
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    errs: dict = {}
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=64, batch_size=8))
+    momentum_sgd = sgd_optimizer(0.1, momentum=0.9)
+    runs = [("train p=1 sgd", 1, momentum_sgd, None),
+            ("train p=1 adamw", 1, sgd_mod.adamw(3e-3, eps=1e-5), None),
+            ("train p=1 adagrad", 1, sgd_mod.adagrad(1e-2, eps=1e-4), None)]
+    runs += [(f"driver p=4 sgd {w or 'f32'}", 4, momentum_sgd, w)
+             for w in (None, "bf16", "int8")]
+    runs.append(("driver (2, 2) sgd f32", (2, 2), momentum_sgd, None))
+    for label, p, opt, wire in runs:
+        sync = _overlap_sync(wire)
+        out = []
+        for d in ("cpu", dev):
+            if p == 1:
+                state = make_train_state(model, opt, sync, device="cpu")
+                step = make_train_step(model, opt, sync, device=d)
+                split = lambda b: b
+            else:
+                state = sd.make_driver_state(model, opt, sync, p, device="cpu")
+                step = sd.make_emulated_step(model, opt, sync, p)
+                split = lambda b, p=p: sd.shard_batch(b, p)
+            state = tree_map(lambda a: a.to(d), state)
+            losses = []
+            with _KernelHold() as hold:
+                for i in range(3):
+                    state, met = step(state, split(pipe.batch_at(0, i)))
+                    losses.append(float(met["loss"]))
+            out.append((losses, state))
+        for name, e in hold.err.items():    # the card run's holds
+            errs[name] = max(errs.get(name, 0.0), e)
+        (cl, cs), (gl, gs) = out
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl),
+                                   rtol=1e-4, atol=0)
+        tol = (dict(rtol=1e-3, atol=1e-5) if wire is None
+               else dict(rtol=1e-2, atol=2e-3))
+        _close_trees(gs["params"], cs["params"], tol)
+        log(f"[overlap:small] {label}: card {gl} == cpu {cl} (rtol 1e-4); "
+            f"params within {tol}")
+    _, sched = overlap_schedule(model, _overlap_sync("int8"), 4)
+    comm = Communicator.world(("dev",), (4,), policy=CollectivePolicy(
+        method="ring", wire_dtype="int8"))
+    got = []
+    for d in ("cpu", dev):
+        got.append([])
+        for b, n in enumerate(sched.sizes):
+            gen = torch.Generator().manual_seed(b)
+            x = torch.randn((4, n), generator=gen).to(d)
+            got[-1] += [*qb.wire_encode(x), comm.reduce_scatter_bucket(x, sched, b)]
+    for a, b in zip(*got):
+        if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
+            raise AssertionError("[overlap:small] int8 codes / bucket legs: "
+                                 "card != cpu on identical inputs")
+    log(f"[overlap:small] int8 wire at p = 4, buckets {sched.sizes}: codes, "
+        f"scales and every bucket's reduce-scatter leg card == cpu; kernel "
+        f"holds on the card runs' operands: max_abs_err {errs}")
+    return errs
+
+
+class _IssueLog:
+    """The overlapped step's issue order: each stage backward
+    (``launch.train.stage_backward``, with the bytes metered before it)
+    and each bucket leg (``Communicator.reduce_scatter_bucket``, with its
+    bytes), as tests/test_torch_overlap.py reads it."""
+
+    def __init__(self, meter: WireMeter):
+        self.meter, self.events = meter, []
+        self._bwd = train_mod.stage_backward
+        self._rs = Communicator.reduce_scatter_bucket
+
+    def __enter__(self):
+        meter, events, bwd, rs = self.meter, self.events, self._bwd, self._rs
+
+        def logged_bwd(s, *args):
+            events.append(("bwd", s, meter.bytes))
+            return bwd(s, *args)
+
+        def logged_rs(comm, seg, schedule, b):
+            before = meter.bytes
+            out = rs(comm, seg, schedule, b)
+            events.append(("rs", b, meter.bytes - before))
+            return out
+
+        train_mod.stage_backward = logged_bwd
+        Communicator.reduce_scatter_bucket = logged_rs
+        return self
+
+    def __exit__(self, *exc):
+        train_mod.stage_backward = self._bwd
+        Communicator.reduce_scatter_bucket = self._rs
+
+    def step_share(self, num_buckets: int) -> float:
+        """Check one step's order (stage s's backward, then bucket s's
+        leg, head first) and return the share of reduce-scatter bytes
+        metered before the embedding stage's backward."""
+        want = [ev for s in range(num_buckets - 1, -1, -1)
+                for ev in (("bwd", s), ("rs", s))]
+        if [e[:2] for e in self.events] != want:
+            raise AssertionError(f"[overlap] issue order {self.events}")
+        legs = {e[1]: e[2] for e in self.events if e[0] == "rs"}
+        total = sum(legs.values())
+        # 1 - (bytes issued at or after the embedding stage's backward)
+        # / total: the cost model's form of the same share
+        share = 1.0 - legs[0] / total if total else 0.0
+        self.events.clear()
+        return share
+
+
+class _KernelHold:
+    """Wraps the optimizer kernels as ``optim.sgd`` launches them, for one
+    step: each launch's outputs held against the plain version on the
+    operands the path gave it, at phase 2's tolerances (1-D streams in
+    2^26-element pieces, AdamW row by row: the plain version's f32
+    temporaries for the whole buffer would not fit beside the run)."""
+
+    PIECE = 1 << 26
+
+    def __init__(self):
+        self.err, self.calls = {}, []
+        self._orig = {name: getattr(sgd_mod, name) for name in KERNELS}
+
+    def _wrap(self, name, orig):
+        k = KERNELS[name]
+
+        def call(p, s, g, hp):
+            out = orig(p, s, g, hp)
+            if name == "adamw_flat":
+                rows = p.shape[0] if p.dim() == 2 else 1
+                view = lambda t, *shape: t.reshape(rows, *shape)
+                pieces = [(view(p, -1)[i], view(s, 2, -1)[i], view(g, -1)[i],
+                           view(out[0], -1)[i], view(out[1], 2, -1)[i])
+                          for i in range(rows)]
+            else:
+                pieces = [tuple(t[i:i + self.PIECE] for t in (p, s, g, *out))
+                          for i in range(0, p.numel(), self.PIECE)]
+            err = 0.0
+            for pp, ss, gg, op, os_ in pieces:
+                for got, want in zip((op, os_), k["plain"](pp, ss, gg, hp)):
+                    torch.testing.assert_close(got, want, rtol=k["rtol"],
+                                               atol=k["atol"])
+                    err = max(err, float((got.float() - want.float()).abs().max()))
+            self.err[name] = max(self.err.get(name, 0.0), err)
+            self.calls.append(f"{name} on {tuple(p.shape)} {str(p.dtype)[6:]}")
+            return out
+
+        return call
+
+    def __enter__(self):
+        for name, orig in self._orig.items():
+            setattr(sgd_mod, name, self._wrap(name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(sgd_mod, name, orig)
+
+
+def _overlap_split(model, opt, sync, p, state, batch) -> dict:
+    """One overlapped step's pieces, each timed alone: the staged grad fn
+    (every device's forward + staged backward with the bucket legs issued
+    inside it), the bucket legs alone, the update leg (pack, shard
+    select, ONE kernel, the trailing allgather, unpack), the kernel
+    alone and the allgather alone. Staged forward + backward is the grad
+    fn less the legs. Then the gradient half of the step in its two
+    forms, timed in turns (``interleaved_ms``, 3 rounds of 2 calls a
+    block): the staged grad fn against the monolithic one (every
+    device's forward + backward, pack, and the one reduce-scatter at the
+    same ring count)."""
+    shape = sd._factorize(p)[0] if p != 1 else ()
+    comm = sd.driver_world(sync, p) if p != 1 else from_sync(sync)
+    stages, sched = overlap_schedule(model, sync, comm.static_size)
+    device = tree_leaves(state["params"])[0].device
+    to_world = lambda t: t.reshape(shape + tuple(t.shape[1:])) if shape else t
+    params, opt_state = tree_map(to_world, state["params"]), tree_map(to_world, state["opt"])
+    wbatch = {k: to_world(v.to(device)) for k, v in batch.items()}
+    gfn = make_overlap_grad_fn(model, stages, sched, comm)
+    out = {"grad_fn_ms": cuda_ms(lambda: gfn(params, wbatch), reps=2, warmup=1)}
+    if comm.static_size > 1:
+        segs = [torch.ones(shape + (n,), device=device) for n in sched.sizes]
+        out["bucket_legs_ms"] = cuda_ms(lambda: [
+            comm.reduce_scatter_bucket(seg, sched, b) for b, seg in enumerate(segs)],
+            reps=2, warmup=1)
+        del segs
+    else:
+        out["bucket_legs_ms"] = 0.0
+    out["staged_fwd_bwd_ms"] = out["grad_fn_ms"] - out["bucket_legs_ms"]
+    _, _, g_shard = gfn(params, wbatch)
+    engine = make_sync_engine(opt, sync, comm=comm, spec=grad_spec(model),
+                              schedule=sched)
+    staged = stages.stage(params, len(shape))
+    out["update_leg_ms"] = cuda_ms(lambda: engine.update_overlapped(
+        g_shard, staged, opt_state), reps=2, warmup=1)
+    p_shard = comm.shard_select_sched(sched.spec.pack(staged), sched)
+    hp = flat_hp(opt.hyper, device)
+    name = sgd_mod._flat_name(opt.hyper)
+    out["kernel_ms"] = cuda_ms(lambda: sgd_mod._fused_shard_update(
+        name, hp, p_shard, opt_state, g_shard), reps=5)
+    out["allgather_ms"] = (cuda_ms(lambda: comm.allgather_sched(p_shard, sched),
+                                   reps=2, warmup=1)
+                           if comm.static_size > 1 else 0.0)
+    del g_shard, p_shard, staged
+    spec = grad_spec(model)
+    grad_fn = make_grad_fn(model)
+    _, total = flatbuf.shard_geometry(spec.size, comm.static_size, 1)
+
+    def monolithic():
+        if shape:
+            grads = stacked_grads(grad_fn, params, wbatch, len(shape))[2]
+        else:
+            grads = grad_fn(params, wbatch)[2]
+        buf = flatbuf.pack_padded(spec, grads, total)
+        del grads
+        return comm.reduce_scatter(buf, num_rings=1) if shape else buf
+
+    turns = interleaved_ms(lambda: gfn(params, wbatch), monolithic,
+                           rounds=3, reps=2, warmup=1)
+    out["grad_half_staged_ms"] = turns["kernel"]
+    out["grad_half_monolithic_ms"] = turns["library"]
+    return out
+
+
+def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
+    """One full-width run of ``len(batches)`` steps: the launch counts set
+    to 0 just before and read just after; the per-step wire bytes and the
+    issue-order share checked on every step."""
+    dev = batches[0]["tokens"].device
+    meter = WireMeter()
+    if p == 1:
+        state = make_train_state(model, opt, sync, device=dev)
+        step = make_train_step(model, opt, sync, device=dev)
+        split = lambda b: b
+    else:
+        state = sd.make_driver_state(model, opt, sync, p, device=dev)
+        step = sd.make_emulated_step(model, opt, sync, p, meter=meter)
+        split = lambda b: sd.shard_batch(b, p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, wire, shares = [], [], [], []
+    with _IssueLog(meter) as issue:
+        reset_counts()
+        for batch in batches:
+            meter.reset()
+            t0 = time.perf_counter()
+            state, met = step(state, split(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            wire.append(meter.bytes)
+            if sync.overlap:
+                shares.append(issue.step_share(OVERLAP_BUCKETS))
+        got = counts(ALL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(label, got, want, len(batches))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall {losses}")
+    rec = {"losses": losses, "step_ms": step_ms, "peak_mem_bytes": peak,
+           "wire_bytes_per_step": wire, "issue_share_per_step": shares,
+           "launches": {k: v for k, v in got.items() if v}}
+    if sync.overlap:
+        with _KernelHold() as hold:       # one more step, not timed
+            step(state, split(batches[0]))
+        rec["hold_max_abs_err"] = hold.err
+        rec["split"] = _overlap_split(model, opt, sync, p, state, split(batches[0]))
+        share, busy_ms, wall_ms = _device_busy(step, state, split(batches[0]))
+        rec["split"].update(device_busy_share=share, device_busy_ms=busy_ms,
+                            profiled_step_ms=wall_ms)
+        log(f"[overlap] {label}: kernel hold ({'; '.join(hold.calls)}) == plain "
+            f"within phase 2's tolerances: max_abs_err {hold.err}")
+        log(f"[overlap] {label}: gradient half in turns: staged (legs inside) "
+            f"{spread(rec['split']['grad_half_staged_ms'])} ms against monolithic "
+            f"(+ pack + one reduce-scatter) "
+            f"{spread(rec['split']['grad_half_monolithic_ms'])} ms")
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_overlap(dev) -> tuple[dict, dict]:
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    p = 4
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512,
+                                    batch_size=8), device=dev)
+    batches = [pipe.batch_at(0, i) for i in range(OVERLAP_STEPS)]
+    stages, sched = overlap_schedule(model, _overlap_sync(), p)
+    share_model = cost_model.overlap_fraction([n * 4 for n in sched.sizes], p)
+    if share_model != OVERLAP_SHARE_P4:
+        raise AssertionError(f"[overlap] modeled share {share_model}")
+    log(f"[overlap] full-width {cfg.name} {cfg.dtype}, depth uncut: "
+        f"{stages.num_stages} stages, staged spec size {sched.spec.size}, "
+        f"buckets {sched.sizes}, p = {p} chunks {sched.chunks}, shard "
+        f"{sched.shard_size}; global batch 8 x 512 (2 x 512 per device); "
+        f"momentum SGD lr {ESGD_LR}, {OVERLAP_STEPS} steps")
+    report, errs = {}, {}
+    sgd_want = {"sgd_momentum_flat": OVERLAP_STEPS}
+    for wire in (None, "int8"):
+        tag = wire or "f32"
+        mono = _overlap_run(f"driver p=4 {tag} without overlap", model,
+                            sgd_optimizer(ESGD_LR, momentum=0.9),
+                            _overlap_sync(wire, overlap=False), p, batches, sgd_want)
+        label = f"driver p=4 {tag} overlap"
+        rec = _overlap_run(label, model, sgd_optimizer(ESGD_LR, momentum=0.9),
+                           _overlap_sync(wire), p, batches, sgd_want)
+        legs = [cost_model.grad_leg_bytes(sched.bucket_padded(b) * 4, p, wire)
+                for b in range(sched.num_buckets)]
+        gather = cost_model.param_leg_bytes(p * sched.shard_size * 4, p, wire)
+        want_bytes = sum(legs) + gather
+        mono_bytes = _wire_per_step(grad_spec(model), _overlap_sync(wire, overlap=False),
+                                    p)[0]
+        if any(b != want_bytes for b in rec["wire_bytes_per_step"]):
+            raise AssertionError(f"{label}: wire bytes {rec['wire_bytes_per_step']}, "
+                                 f"cost model {want_bytes}")
+        if any(b != mono_bytes for b in mono["wire_bytes_per_step"]):
+            raise AssertionError(f"{label} without overlap: wire bytes "
+                                 f"{mono['wire_bytes_per_step']}, cost model {mono_bytes}")
+        if any(x != share_model for x in rec["issue_share_per_step"]):
+            raise AssertionError(f"{label}: issue-order share "
+                                 f"{rec['issue_share_per_step']} != {share_model}")
+        band = 1e-6 if wire is None else 2e-3      # tests/test_overlap.py _band
+        rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], mono["losses"])]
+        if max(rel) > band:
+            raise AssertionError(f"{label}: losses {rec['losses']} vs without "
+                                 f"overlap {mono['losses']}: rel {rel} > {band}")
+        rec.update(cost_model_bytes=want_bytes, cost_model_legs=legs,
+                   cost_model_allgather=gather, monolithic_bytes=mono_bytes,
+                   padding_bytes=want_bytes - mono_bytes, loss_rel_vs_monolithic=rel,
+                   monolithic=mono)
+        report[label] = rec
+        errs["sgd_momentum_flat"] = max(errs.get("sgd_momentum_flat", 0.0),
+                                        rec["hold_max_abs_err"]["sgd_momentum_flat"])
+        br = rec["split"]
+        log(f"[overlap] {label}: losses {[round(x, 4) for x in rec['losses']]} "
+            f"(without overlap {[round(x, 4) for x in mono['losses']]}, max rel "
+            f"{max(rel):.3e} <= {band}); step_ms {[round(x, 1) for x in rec['step_ms']]} "
+            f"(without overlap {[round(x, 1) for x in mono['step_ms']]}); peak_mem "
+            f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB (without "
+            f"{mono['peak_mem_bytes'] / 2**30:.2f}); launches {rec['launches']}")
+        log(f"[overlap] {label}: wire bytes/step {rec['wire_bytes_per_step']} == "
+            f"cost model legs {legs} + allgather {gather:.0f} = {want_bytes:.0f}; "
+            f"without overlap {mono_bytes:.0f} (per-bucket padding "
+            f"{want_bytes - mono_bytes:.0f} B); issue-order share "
+            f"{rec['issue_share_per_step'][0]!r} == overlap_fraction {share_model!r}")
+        log(f"[overlap] {label} split: staged grad fn {br['grad_fn_ms']:.2f} ms "
+            f"(staged fwd+bwd {br['staged_fwd_bwd_ms']:.2f} + bucket legs "
+            f"{br['bucket_legs_ms']:.2f}), update leg {br['update_leg_ms']:.2f} ms "
+            f"(kernel {br['kernel_ms']:.3f}, allgather {br['allgather_ms']:.2f}); "
+            f"profiled step {br['profiled_step_ms']:.1f} ms, device busy "
+            f"{br['device_busy_ms']} ms (share {br['device_busy_share']})")
+    adam_batches = batches[:OVERLAP_ADAMW_STEPS]
+    label = "train p=1 adamw overlap"
+    adam_want = {"adamw_flat": OVERLAP_ADAMW_STEPS}
+    mono = _overlap_run(f"{label} without overlap", model, sgd_mod.adamw(1e-3),
+                        _overlap_sync(overlap=False), 1, adam_batches, adam_want)
+    rec = _overlap_run(label, model, sgd_mod.adamw(1e-3), _overlap_sync(), 1,
+                       adam_batches, adam_want)
+    if rec["wire_bytes_per_step"] != [0] * OVERLAP_ADAMW_STEPS:
+        raise AssertionError(f"{label}: wire bytes {rec['wire_bytes_per_step']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], mono["losses"])]
+    if rel != [0.0] * OVERLAP_ADAMW_STEPS:   # p = 1: bitwise (tests/test_overlap.py)
+        raise AssertionError(f"{label}: losses {rec['losses']} vs without "
+                             f"overlap {mono['losses']}")
+    rec["monolithic"] = mono
+    report[label] = rec
+    errs["adamw_flat"] = rec["hold_max_abs_err"]["adamw_flat"]
+    br = rec["split"]
+    log(f"[overlap] {label}: losses {[round(x, 4) for x in rec['losses']]} == "
+        f"without overlap; step_ms {[round(x, 1) for x in rec['step_ms']]} (without "
+        f"overlap {[round(x, 1) for x in mono['step_ms']]}); peak_mem "
+        f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB (without "
+        f"{mono['peak_mem_bytes'] / 2**30:.2f}) launches {rec['launches']}; split: "
+        f"staged fwd+bwd {br['staged_fwd_bwd_ms']:.2f} ms, update leg "
+        f"{br['update_leg_ms']:.2f} ms (kernel {br['kernel_ms']:.3f}); profiled step "
+        f"{br['profiled_step_ms']:.1f} ms, device busy {br['device_busy_ms']} ms "
+        f"(share {br['device_busy_share']})")
+    log("[overlap] " + json.dumps({"overlap": report}, default=str))
+    launches = {"sgd_momentum_flat": OVERLAP_STEPS, "adamw_flat": OVERLAP_ADAMW_STEPS}
+    return launches, errs
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -1891,6 +2327,11 @@ def main() -> None:
     fault_launches, fault_errs, _ = phase_faults(dev)
     launches.update(fault_launches)
     for name, e in fault_errs.items():  # worst hold: phase 2 or the [faults] run
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    overlap_errs = phase_overlap_small(dev)
+    for name, e in phase_overlap(dev)[1].items():
+        overlap_errs[name] = max(overlap_errs.get(name, 0.0), e)
+    for name, e in overlap_errs.items():  # worst hold: phase 2 or the overlapped runs
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     for name, key in (("sgd_momentum_flat", "sgd_max_abs_err"),
                       ("elastic_center_flat", "center_max_abs_err")):

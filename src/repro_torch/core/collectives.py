@@ -1,8 +1,10 @@
 """Ring collectives over emulated devices, with the bf16/int8 wire.
 
-Ports ``repro/core/collectives.py`` (lines 88-353): ``ring_reduce_scatter``,
+Ports ``repro/core/collectives.py`` (lines 88-387): ``ring_reduce_scatter``,
 ``ring_allgather``, ``shard_select``, ``ring_allreduce``,
-``tree_allreduce``, ``scatter_gather_allreduce`` and ``allreduce``.
+``tree_allreduce``, ``scatter_gather_allreduce``, ``allreduce``, and the
+schedule-bucketed legs of backward overlap (``sched_reduce_scatter_bucket``,
+``sched_reassemble``).
 
 **Emulation backend.** The reference writes every algorithm against
 ``lax.ppermute`` over a named axis and runs it per device, under
@@ -323,3 +325,49 @@ def allreduce(x: torch.Tensor, dim: int, method: str = "ring", *,
         return scatter_gather_allreduce(x, dim, num_rings=num_rings,
                                         meter=meter)
     raise ValueError(f"unknown allreduce method {method!r}")
+
+
+# --------------------------------------------------------------------------
+# Schedule-bucketed legs (backward overlap)
+# --------------------------------------------------------------------------
+#
+# A ``flatbuf.BucketSchedule`` partitions the packed buffer at stage
+# boundaries; each bucket gets its OWN single-ring reduce-scatter leg so
+# the grad fn can issue bucket b's leg while earlier-in-forward stages are
+# still differentiating. One trailing allgather moves the whole updated
+# shard, and ``sched_reassemble`` re-stitches the device-major gather into
+# the packed layout. Multi-axis (pod×data) nesting lives on
+# ``Communicator.reduce_scatter_bucket`` / ``allgather_sched``.
+
+def sched_reduce_scatter_bucket(seg: torch.Tensor, dim: int, schedule,
+                                b: int, *, wire_dtype: "str | None" = None,
+                                meter: Optional[WireMeter] = None
+                                ) -> torch.Tensor:
+    """One schedule bucket's ring reduce-scatter leg over one axis.
+
+    ``seg`` is bucket ``b``'s stacked ``(…, sizes[b])`` segment (or its
+    already padded ``(…, p*chunks[b])`` form); returns each device's
+    fully-reduced ``(…, chunks[b])`` chunk. Single-ring on purpose: the
+    schedule buckets are the overlap units."""
+    return ring_reduce_scatter(_pad_to(seg, schedule.bucket_padded(b)), dim,
+                               num_rings=1, wire_dtype=wire_dtype,
+                               meter=meter)
+
+
+def sched_reassemble(gathered: torch.Tensor, schedule) -> torch.Tensor:
+    """Invert the scheduled allgather: ``gathered`` is the device-major
+    ``(…, p * shard_size)`` concatenation of per-device schedule shards
+    (each the bucket-major concat of its per-bucket chunks); returns the
+    ``(…, spec.size)`` packed buffer. Static slices, one copy."""
+    m = schedule.shard_size
+    out = gathered.new_empty(tuple(gathered.shape[:-1])
+                             + (schedule.spec.size,))
+    for b, off in enumerate(schedule.shard_offsets):
+        cb, start, size = schedule.chunks[b], schedule.starts[b], schedule.sizes[b]
+        for d in range(schedule.p):
+            lo, hi = d * cb, min((d + 1) * cb, size)
+            if lo >= hi:
+                break
+            src = d * m + off
+            out[..., start + lo:start + hi] = gathered[..., src:src + hi - lo]
+    return out

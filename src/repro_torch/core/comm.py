@@ -30,9 +30,10 @@ same ring programs on the packed buffer; ``emulate_reduce`` runs one over
 a stacked member dim, as the in-process PS tier (``core/kvstore``,
 ``core/algorithms``) holds a group's values.
 
-Not ported yet, and raising ``NotImplementedError`` naming their item:
-the schedule-bucketed legs of backward overlap. A real multi-GPU backend (``torch.distributed``) is
-queued in ROADMAP.
+The schedule-bucketed legs of backward overlap (``reduce_scatter_bucket``,
+``allgather_sched``, ``shard_select_sched``) run one single-ring leg per
+``flatbuf.BucketSchedule`` bucket. A real multi-GPU backend
+(``torch.distributed``) is queued in ROADMAP.
 """
 from __future__ import annotations
 
@@ -107,7 +108,7 @@ class CollectivePolicy:
                 raise ValueError(
                     f"{where}: overlap buckets come from the layer-keyed "
                     "schedule — bucket_bytes does not compose with "
-                    "overlap")
+                    "overlap (byte-budget bucketing is a ROADMAP item)")
             if self.num_rings != 1:
                 raise ValueError(
                     f"{where}: overlap already pipelines the buckets — "
@@ -391,12 +392,46 @@ class Communicator:
             out = C.shard_select(out, self._dim(a), num_rings=nr)
         return out
 
-    # -- later slices --------------------------------------------------------
-    def reduce_scatter_bucket(self, *args, **kw):
-        raise NotImplementedError(
-            "not yet ported: schedule-bucketed legs (backward overlap)")
+    # -- schedule-bucketed legs (backward overlap) ----------------------------
+    def reduce_scatter_bucket(self, seg: torch.Tensor, schedule,
+                              b: int) -> torch.Tensor:
+        """One schedule bucket's reduce-scatter leg over the whole group,
+        nested per axis (pod first, then data on the shard — the same
+        hierarchy as ``reduce_scatter``, at the telescoped (p-1)/p·size_b
+        wire bytes). Single-ring per bucket: the schedule buckets ARE the
+        overlap units. Returns each device's ``(…, chunks[b])`` chunk."""
+        out = C._pad_to(self._flat(seg), schedule.bucket_padded(b))
+        for a in self.axes:
+            out = C.ring_reduce_scatter(out, self._dim(a), num_rings=1,
+                                        wire_dtype=self.wire, meter=self.meter)
+        return out
 
-    allgather_sched = shard_select_sched = reduce_scatter_bucket
+    def allgather_sched(self, shard: torch.Tensor, schedule) -> torch.Tensor:
+        """The ONE trailing allgather of the overlapped step: gather each
+        device's whole schedule shard (bucket-major concat of chunks,
+        ``schedule.shard_size`` long) level by level, innermost axis
+        first, then re-stitch the device-major result into the
+        ``(…, spec.size)`` packed layout."""
+        out = self._flat(shard)
+        for a in reversed(self.axes):
+            out = C.ring_allgather(out, self._dim(a), num_rings=1,
+                                   wire_dtype=self.wire, meter=self.meter)
+        return C.sched_reassemble(out, schedule)
+
+    def shard_select_sched(self, buf: torch.Tensor, schedule) -> torch.Tensor:
+        """Each device's schedule shard of a *replicated* packed buffer —
+        per bucket exactly the chunk ``reduce_scatter_bucket`` leaves
+        there, concatenated bucket-major to pair with the reduced grads.
+        Static slices and per-axis selection, no communication."""
+        flat = self._flat(buf)
+        parts = []
+        for b in range(schedule.num_buckets):
+            s, n = schedule.starts[b], schedule.sizes[b]
+            seg = C._pad_to(flat[..., s:s + n], schedule.bucket_padded(b))
+            for a in self.axes:
+                seg = C.shard_select(seg, self._dim(a), num_rings=1)
+            parts.append(seg)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
     # -- tensor (fused-pytree) collectives ------------------------------------
     def _member_spec(self, tree) -> flatbuf.FlatBuffer:

@@ -10,6 +10,9 @@ The layout is the reference's exactly (``repro/core/flatbuf.py``): leaves
 in sorted-key order (``repro_torch.tree``), offsets aligned to ``LANE``,
 the total a multiple of ``LANE * SUBLANE``. The buffer is f32 whatever the
 param dtype: ``pack`` widens and ``unpack`` rounds back.
+
+``BucketSchedule`` partitions a packed buffer at leaf boundaries into the
+backward-overlap schedule buckets, one per backward stage.
 """
 from __future__ import annotations
 
@@ -20,10 +23,8 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.common import LANE, SUBLANE
-from repro_torch.tree import TreeDef, tree_flatten, tree_unflatten
-
-#: the int8 wire codec's scale-group width (``repro/kernels/quant_bucket``)
-WIRE_BLOCK = 128
+from repro_torch.kernels.quant_bucket.quant_bucket import WIRE_BLOCK
+from repro_torch.tree import TreeDef, tree_flatten, tree_leaves, tree_unflatten
 
 
 def _align(n: int, a: int) -> int:
@@ -186,3 +187,124 @@ def shard_size(spec: FlatBuffer, p: int = 1, num_rings: int = 1,
     r = effective_rings(spec.nbytes, num_rings, bucket_bytes)
     _, total = shard_geometry(spec.size, p, r)
     return total // p
+
+
+# --------------------------------------------------------------------------
+# Schedule buckets: the backward-overlap partition of a packed buffer
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BucketSchedule:
+    """Leaf-boundary-keyed partition of a packed buffer into schedule
+    buckets, one per backward stage (``repro/core/flatbuf.py``).
+
+    Bucket ``b`` spans ``[starts[b], starts[b] + sizes[b])`` of the packed
+    buffer and owns leaves ``[leaf_starts[b], leaf_starts[b+1])`` of the
+    spec. Every edge sits on the LANE × WIRE_BLOCK grid, so per-bucket
+    int8 wire scales never straddle a bucket. The buckets tile the spec
+    exactly: ``starts[0] == 0`` and ``sum(sizes) == spec.size``.
+
+    ``chunks[b]`` is the per-device ring chunk of bucket ``b``'s
+    single-ring reduce-scatter leg at ``p`` total shards. A device's shard
+    of the whole schedule is the concatenation of its per-bucket chunks:
+    length ``shard_size = sum(chunks)``, bucket ``b``'s chunk at
+    ``shard_offsets[b]``.
+    """
+
+    spec: FlatBuffer
+    starts: tuple      # bucket start offsets in the packed buffer
+    sizes: tuple       # bucket extents; sum == spec.size
+    leaf_starts: tuple  # first spec-leaf index of each bucket, + sentinel
+    p: int             # total shard count the per-bucket legs run at
+    chunks: tuple      # per-device chunk of each bucket's ring leg
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def shard_size(self) -> int:
+        """Per-device shard length (= overlapped optimizer-state length)."""
+        return sum(self.chunks)
+
+    @property
+    def shard_offsets(self) -> tuple:
+        offs, off = [], 0
+        for c in self.chunks:
+            offs.append(off)
+            off += c
+        return tuple(offs)
+
+    def bucket_padded(self, b: int) -> int:
+        """Padded length of bucket ``b``'s ring leg (p × chunk)."""
+        return self.p * self.chunks[b]
+
+    def pack_bucket(self, b: int, tree_b: Any) -> torch.Tensor:
+        """Pack bucket ``b``'s leaves (a stage's grad subtree, in spec
+        leaf order) into its ``(sizes[b],)`` segment of the buffer."""
+        leaves = tree_leaves(tree_b)
+        lo, hi = self.leaf_starts[b], self.leaf_starts[b + 1]
+        if len(leaves) != hi - lo:
+            raise ValueError(
+                f"bucket {b} owns {hi - lo} leaves but the stage tree has "
+                f"{len(leaves)} — the stage partition and the schedule "
+                f"must come from the same overlap_stages split")
+        buf = torch.zeros((self.sizes[b],), dtype=self.spec.dtype,
+                          device=leaves[0].device)
+        base = self.starts[b]
+        for i, leaf in zip(range(lo, hi), leaves):
+            off = self.spec.offsets[i] - base
+            buf[off:off + self.spec.sizes[i]].copy_(leaf.reshape(-1))
+        return buf
+
+    def with_p(self, p: int) -> "BucketSchedule":
+        """The same stage partition re-laid-out for ``p`` shards (e.g. the
+        local p=1 state geometry vs a device-sharded driver's p)."""
+        if p == self.p:
+            return self
+        counts = tuple(self.leaf_starts[b + 1] - self.leaf_starts[b]
+                       for b in range(self.num_buckets))
+        return bucket_schedule(self.spec, counts, p)
+
+
+def bucket_schedule(spec: FlatBuffer, leaf_counts, p: int) -> BucketSchedule:
+    """Build the backward-overlap schedule for ``spec`` split at leaf
+    boundaries: ``leaf_counts[b]`` spec leaves go to bucket ``b`` (stage
+    order — the packing order of the spec). ``p`` is the total shard
+    count the per-bucket reduce-scatter legs will run at."""
+    counts = tuple(int(c) for c in leaf_counts)
+    if any(c <= 0 for c in counts):
+        raise ValueError(
+            f"every schedule bucket needs at least one leaf, got "
+            f"leaf_counts={counts} — merge empty stages before building "
+            f"the schedule (lower overlap_buckets)")
+    if sum(counts) != spec.num_leaves:
+        raise ValueError(
+            f"leaf_counts {counts} sum to {sum(counts)} but the spec has "
+            f"{spec.num_leaves} leaves — the schedule must tile the "
+            f"packed buffer exactly")
+    leaf_starts, li = [], 0
+    for c in counts:
+        leaf_starts.append(li)
+        li += c
+    leaf_starts.append(li)
+    starts = [spec.offsets[leaf_starts[b]] for b in range(len(counts))]
+    ends = starts[1:] + [spec.size]
+    sizes = [e - s for s, e in zip(starts, ends)]
+    grid = edge_grid()
+    for b, (s, n) in enumerate(zip(starts, sizes)):
+        if s % grid or (s + n) % grid:
+            raise ValueError(
+                f"bucket {b} edge [{s}, {s + n}) is off the LANE×"
+                f"WIRE_BLOCK grid ({grid}) — pack with make_flatbuf's "
+                f"default LANE alignment so leaf boundaries are valid "
+                f"bucket edges")
+        if n < WIRE_BLOCK:
+            raise ValueError(
+                f"bucket {b} spans {n} elements < one WIRE_BLOCK "
+                f"({WIRE_BLOCK}) — an int8 wire scale group would "
+                f"straddle buckets; merge stages (lower overlap_buckets) "
+                f"until every bucket holds at least one wire block")
+    chunks = tuple(shard_geometry(n, p, 1)[0] for n in sizes)
+    return BucketSchedule(spec, tuple(starts), tuple(sizes),
+                          tuple(leaf_starts), int(p), chunks)

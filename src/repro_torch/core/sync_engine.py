@@ -8,12 +8,15 @@ of HOW a step syncs and updates is made once, here (``make_sync_engine``):
   update                the sync+update leg (pack -> reduce-scatter ->
                         fused kernel -> allgather -> unpack, vs per-leaf
                         ``Optimizer.update``)
+  update_overlapped     the post-backward half of the overlapped step
+                        (``SyncConfig.overlap``): fused kernel on the
+                        bucket-major schedule shard + the one trailing
+                        allgather; the per-bucket reduce-scatter legs ran
+                        inside the staged backward (``launch/train``)
   exchange_multiclient  the elastic leg for C stacked replicas (packed
                         single-launch kernel vs per-leaf tree maps)
   check_opt_layout      loud guard that the state factory and the step
                         factory agreed on the layout
-
-The backward-overlapped leg comes with a later slice.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from repro_torch.optim.sgd import (
     FLAT_STATE_STREAMS,
     Optimizer,
     flat_hp,
+    optstate_sched_init,
     optstate_shard_init,
+    overlap_update,
     scatter_update_gather,
 )
 from repro_torch.tree import tree_leaves
@@ -108,25 +113,48 @@ class FlatEngine(SyncEngine):
     as flat buffers in the declared stream dtype."""
 
     fused = True
+    # backward-overlapped path (SyncConfig.overlap): the schedule over the
+    # STAGED param spec (bucket == backward stage), built at the gradient
+    # group's p. None = the monolithic leg.
+    schedule: Optional[flatbuf.BucketSchedule] = None
     # the step-invariant kernel hyperparameters, one f32 vector per device
     _hp: dict = field(default_factory=dict, repr=False, compare=False)
 
     def _num_rings(self) -> int:
         return self.comm.rings_for(self.spec.nbytes)
 
+    def _hp_on(self, device) -> torch.Tensor:
+        hp = self._hp.get(device)
+        if hp is None:
+            hp = self._hp[device] = flat_hp(self.optimizer.hyper, device)
+        return hp
+
     def init_opt(self, params: Any) -> Any:
+        # local (p=1) geometry; the shard driver inits per device with
+        # optstate_shard_init / optstate_sched_init at its p
         device = tree_leaves(params)[0].device
+        if self.schedule is not None:
+            return optstate_sched_init(self.optimizer.hyper,
+                                       self.schedule.with_p(1), device=device)
         return optstate_shard_init(self.optimizer.hyper, self.spec, 1,
                                    self._num_rings(), device=device)
 
     def update(self, grads: Any, opt_state: Any, params: Any):
-        device = tree_leaves(params)[0].device
-        hp = self._hp.get(device)
-        if hp is None:
-            hp = self._hp[device] = flat_hp(self.optimizer.hyper, device)
+        hp = self._hp_on(tree_leaves(params)[0].device)
         return scatter_update_gather(
             self.spec, grads, params, opt_state,
             hyper=self.optimizer.hyper, comm=self.comm, hp=hp)
+
+    def update_overlapped(self, g_shard: torch.Tensor, staged_params: Any,
+                          opt_state: Any):
+        """The post-backward half of the overlapped step: fused kernel on
+        the bucket-major shard + the ONE trailing allgather. ``g_shard``
+        comes from the staged grad fn (per-bucket reduce-scatter legs
+        already issued mid-backward); returns staged params."""
+        return overlap_update(
+            self.schedule, g_shard, staged_params, opt_state,
+            hyper=self.optimizer.hyper, comm=self.comm,
+            hp=self._hp_on(g_shard.device))
 
     def check_opt_layout(self, opt_state: Any, num_clients: int = 1) -> None:
         if self.optimizer.hyper.get("name", "").endswith("adamw"):
@@ -145,8 +173,12 @@ class FlatEngine(SyncEngine):
             buf, streams = opt_state, 1
         # C > 1 updates every client in its local (p=1) geometry
         p = 1 if num_clients > 1 else self.comm.resolve_size()
-        want = flatbuf.shard_size(self.spec, p, self.sync.num_rings,
-                                  self.sync.bucket_bytes)
+        if self.schedule is not None:
+            # overlapped layout: bucket-major concat of per-bucket chunks
+            want = self.schedule.with_p(p).shard_size
+        else:
+            want = flatbuf.shard_size(self.spec, p, self.sync.num_rings,
+                                      self.sync.bucket_bytes)
         per_client = buf.numel() // (streams * max(num_clients, 1))
         if per_client != want:
             raise ValueError(
@@ -159,22 +191,35 @@ class FlatEngine(SyncEngine):
 def make_sync_engine(optimizer: Optimizer, sync: SyncConfig, mesh=None, *,
                      comm: Optional[comm_lib.Communicator] = None,
                      spec: Optional[flatbuf.FlatBuffer] = None,
+                     schedule: Optional[flatbuf.BucketSchedule] = None,
                      ) -> SyncEngine:
     """Resolve the strategy for (optimizer, sync) once. ``comm`` is the
     gradient group the update leg syncs over (trivial when omitted).
     ``spec`` (the param-tree FlatBuffer, ``launch.train.grad_spec``) is
-    required when a flat leg engages."""
+    required when a flat leg engages; ``schedule`` (``launch.train.
+    overlap_schedule``) when ``sync.overlap`` is set."""
     if mesh is not None:
         raise NotImplementedError("not yet ported: device meshes")
-    if sync.overlap:
-        raise NotImplementedError("not yet ported: backward overlap")
     if comm is None:
         comm = comm_lib.from_sync(sync)
+    fused = flat_update_supported(optimizer, sync, mesh)
     flat_ex = flat_exchange_active(sync, mesh)
-    if flat_update_supported(optimizer, sync, mesh):
-        if spec is None:
-            raise ValueError("flat-update engine needs the FlatBuffer spec")
+    if fused and spec is None:
+        raise ValueError("flat-update engine needs the FlatBuffer spec")
+    if sync.overlap and not fused:
+        raise ValueError(
+            "SyncConfig.overlap=True but the fused flat update cannot "
+            "engage for this (optimizer, sync, mesh) — overlap rides the "
+            "fused path only (core.sync_engine.flat_update_supported): "
+            "use momentum SGD / AdaGrad / AdamW with fused_update=True "
+            "and no ambient mesh")
+    if sync.overlap and schedule is None:
+        raise ValueError(
+            "overlap engine needs the BucketSchedule — build it with "
+            "launch.train.overlap_schedule(model, sync, p) from the "
+            "model's staged param spec")
+    if fused:
         return FlatEngine(optimizer, sync, comm=comm, flat_exchange=flat_ex,
-                          spec=spec)
+                          spec=spec, schedule=schedule)
     return SyncEngine(optimizer, sync, comm=comm, flat_exchange=flat_ex,
                       spec=spec)

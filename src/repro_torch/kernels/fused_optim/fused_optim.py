@@ -23,6 +23,17 @@ client: ``(R, n)`` params, ``(R, 2, n)`` m/v) are one launch over a 2-D
 grid (blocks × rows) sharing one hp vector, since every member steps
 together. Square roots and divisions are the IEEE round-to-nearest forms (``sqrt_rn``, ``div_rn``): plain ``tl.sqrt`` and
 ``/`` lower to approximate instructions.
+
+Why Triton and not CUDA C++: each update is one elementwise pass, a pure
+stream. On an NVIDIA H100 80GB HBM3 at 700 W every 12 B/element stream
+measured stopped at 91–92 % of the 3.35 TB/s bound whatever the load
+path — 1-D bulk async copies (``csrc/fused_elastic.cu``), vector loads,
+Triton passes and PyTorch's own ``torch.lerp`` / ``torch.add``
+(``kernels/fused_elastic/sweep.py`` and ``chip_smoke.py``) — and these
+passes reach ~91 % of their bounds and beat ``torch._fused_adamw_`` /
+``torch._fused_adagrad_`` on the same card (``chip_smoke.py``, PERF.md).
+A hand-written CUDA C++ stream would move the same bytes no faster; only
+moving fewer bytes would.
 """
 from __future__ import annotations
 

@@ -25,6 +25,13 @@ Two layouts:
             pod-client (state sharded 1/D) and the exchange crosses 'pod'
             with α = esgd_alpha / P.
 
+With ``SyncConfig.overlap`` (mpi_sgd) the gradient leg is backward
+overlapped: every device runs the staged backward in lockstep
+(``launch.train.make_overlap_grad_fn``), each schedule bucket's
+(hierarchical) reduce-scatter is issued as soon as its stage's grads
+exist, and the optimizer state is laid out bucket-major
+(``optstate_sched_init`` at the gradient group's p).
+
 Driver state is *stacked*: every leaf carries a leading device dim
 p_total (pod-major for 2-axis), the reference's layout. The reference
 maps a per-device program with one named vmap per axis; here ONE program
@@ -64,11 +71,13 @@ from repro_torch.core.sync_engine import flat_update_supported, make_sync_engine
 from repro_torch.launch.train import (
     grad_spec,
     make_grad_fn,
+    make_overlap_grad_fn,
+    overlap_schedule,
     resolve_device,
     stacked_grads,
 )
 from repro_torch.models.model import Model
-from repro_torch.optim.sgd import Optimizer, optstate_shard_init
+from repro_torch.optim.sgd import Optimizer, optstate_sched_init, optstate_shard_init
 from repro_torch.tree import tree_map
 
 AXIS = "dev"                         # the 1-axis layout's single axis
@@ -105,10 +114,6 @@ def _require_supported(model: Model, optimizer: Optimizer, sync: SyncConfig,
             "momentum-SGD (f32 state), AdaGrad or AdamW with "
             "SyncConfig.fused_update=True")
     sync.validate()
-    if sync.overlap:
-        raise NotImplementedError(
-            "not yet ported: backward overlap (SyncConfig.overlap) under "
-            "the shard driver")
     if sync.mode == "mpi_esgd":
         _, ex = sync_comms(sync, world)
         pods = ex.static_size
@@ -149,14 +154,21 @@ def make_driver_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
     mpi_sgd: params replicated, optimizer state sharded 1/p_total per
     device. mpi_esgd: one replica per client, optimizer state sharded over
     the client's gradient group (1-axis: full local state per device;
-    2-axis: 1/D per device), replicated center."""
+    2-axis: 1/D per device), replicated center. With overlap the state is
+    the bucket-major schedule shard at the gradient group's p."""
     device = resolve_device(device)
     world = driver_world(sync, p)
     spec = _require_supported(model, optimizer, sync, world)
     grad_comm, _ = sync_comms(sync, world)
     n = world.static_size
-    opt0 = optstate_shard_init(optimizer.hyper, spec, grad_comm.static_size,
-                               grad_comm.rings_for(spec.nbytes), device=device)
+    if sync.overlap:
+        _, schedule = overlap_schedule(model, sync, grad_comm.static_size)
+        opt0 = optstate_sched_init(optimizer.hyper, schedule, device=device)
+    else:
+        opt0 = optstate_shard_init(optimizer.hyper, spec,
+                                   grad_comm.static_size,
+                                   grad_comm.rings_for(spec.nbytes),
+                                   device=device)
     params = model.init(device=device, seed=seed)
     state = {
         "params": _stack(params, n),
@@ -176,20 +188,43 @@ def make_device_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
     leading dims.
 
     ``device_step`` computes each device's grads on its batch shard and
-    runs the engine's sync+update leg over the gradient communicator;
-    ``device_exchange`` (mpi_esgd only) is the sharded elastic exchange
-    over the exchange (pod) communicator."""
+    runs the engine's sync+update leg over the gradient communicator (with
+    overlap, the staged backward issues the per-bucket legs and the
+    engine's ``update_overlapped`` finishes); ``device_exchange``
+    (mpi_esgd only) is the sharded elastic exchange over the exchange
+    (pod) communicator."""
     grad_comm, ex_comm = sync_comms(sync, world)
     spec = grad_spec(model)
-    engine = make_sync_engine(optimizer, sync, None, comm=grad_comm, spec=spec)
-    grad_fn = make_grad_fn(model, microbatch)
     ndim = len(world.frame)
+    stages = schedule = None
+    if sync.overlap:
+        if microbatch > 1:
+            raise ValueError(
+                "overlap=True with microbatch>1 would re-issue every "
+                "schedule bucket's ring leg per accumulation step (M× "
+                "the wire bytes overlap exists to hide); accumulate "
+                "without overlap, or raise the per-step batch instead")
+        stages, schedule = overlap_schedule(model, sync,
+                                            grad_comm.resolve_size())
+    engine = make_sync_engine(optimizer, sync, None, comm=grad_comm, spec=spec,
+                              schedule=schedule)
+    if sync.overlap:
+        ograd_fn = make_overlap_grad_fn(model, stages, schedule, grad_comm)
+    else:
+        grad_fn = make_grad_fn(model, microbatch)
 
     def device_step(state, batch):
-        loss, metrics, grads = stacked_grads(grad_fn, state["params"], batch,
-                                             ndim)
-        new_p, new_o = engine.update(grads, state["opt"], state["params"])
-        del grads
+        if sync.overlap:
+            loss, metrics, g_shard = ograd_fn(state["params"], batch)
+            new_staged, new_o = engine.update_overlapped(
+                g_shard, stages.stage(state["params"], ndim), state["opt"])
+            del g_shard
+            new_p = stages.unstage(new_staged, ndim)
+        else:
+            loss, metrics, grads = stacked_grads(grad_fn, state["params"],
+                                                 batch, ndim)
+            new_p, new_o = engine.update(grads, state["opt"], state["params"])
+            del grads
         metrics = {k: world.pmean(v) for k, v in
                    {"loss": loss, **metrics}.items()}
         return dict(state, params=new_p, opt=new_o,

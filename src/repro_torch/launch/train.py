@@ -15,6 +15,14 @@
             every INTERVAL steps the elastic exchange (eqs. 2/3, one fused
             kernel) pulls the replicas and the center together
 
+With ``SyncConfig.overlap`` (mpi_sgd, C = 1) the step is the reference's
+``step_overlap``: ``make_overlap_grad_fn`` runs the forward stage by
+stage (``Model.overlap_stages``), then the backward head first, one
+``torch.autograd.grad`` per stage, and issues each schedule bucket's
+reduce-scatter leg as soon as its stage's grads exist; the engine's
+``update_overlapped`` runs the fused kernel ONCE over the bucket-major
+shard and the one trailing allgather.
+
 Entry points default to the CUDA device and raise when there is none,
 unless the caller passes ``device="cpu"``. The CLI takes the reference
 worker's flags and lowers them as it does (``settings_from_args``):
@@ -40,7 +48,7 @@ from repro_torch.core.sync_engine import (
 )
 from repro_torch.models.model import Model
 from repro_torch.optim.sgd import Optimizer
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -52,6 +60,14 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run on the CPU")
     return device
+
+
+def fused_path_active(optimizer: Optimizer, sync: SyncConfig,
+                      mesh=None) -> bool:
+    """Whether the flat fused update replaces the per-leaf update
+    (``core.sync_engine.flat_update_supported``); make_train_state and
+    make_train_step must agree, so both ask with the same mesh."""
+    return flat_update_supported(optimizer, sync, mesh)
 
 
 def grad_spec(model: Model) -> flatbuf.FlatBuffer:
@@ -67,16 +83,145 @@ def _engine_spec(model: Model, optimizer: Optimizer, sync: SyncConfig):
     return None
 
 
+def overlap_schedule(model: Model, sync: SyncConfig, p: int = 1):
+    """(OverlapStages, BucketSchedule) for the backward-overlapped path.
+
+    The schedule is built once over the STAGED param spec — the
+    FlatBuffer of ``stage(params)``'s stage-subtree tuple, whose leaf
+    order (tuple order, sorted keys inside each dict) groups each
+    backward stage's params contiguously, so every schedule bucket is a
+    leaf-boundary slice. ``p`` is the gradient group's shard count (1 for
+    the local state geometry)."""
+    if model.overlap_stages is None:
+        raise ValueError(
+            f"SyncConfig.overlap=True but model {model.cfg.name!r} does "
+            "not publish overlap_stages — the staged-backward hook is "
+            "wired for the decoder family (models/model.py "
+            "_decoder_overlap_stages); run this architecture without "
+            "overlap")
+    stages = model.overlap_stages(sync.overlap_buckets)
+    staged = stages.stage(model.init(device="meta"))
+    spec = flatbuf.spec_for(staged)
+    counts = tuple(len(tree_leaves(s)) for s in staged)
+    return stages, flatbuf.bucket_schedule(spec, counts, p)
+
+
+def stage_backward(s: int, outputs: list, inputs: list,
+                   cotangents: list) -> tuple:
+    """Stage ``s``'s backward for every member of the emulated world at
+    once: the grads of ``inputs`` (the stage's params and incoming carry)
+    given the ``cotangents`` of its ``outputs`` (the loss at the head)."""
+    return torch.autograd.grad(outputs, inputs, cotangents,
+                               materialize_grads=True)
+
+
+def _fresh_leaf(t: torch.Tensor) -> torch.Tensor:
+    """A stage input as a leaf of its own graph (values shared, no copy)."""
+    return t.detach().requires_grad_(True) if t.requires_grad else t
+
+
+def make_overlap_grad_fn(model: Model, stages, schedule,
+                         comm: comm_lib.Communicator) -> Callable:
+    """``(params, batch) -> (loss, metrics, g_shard)`` with the wire leg
+    issued DURING backward.
+
+    The params and batch carry the gradient group's frame (its world's
+    device dims) as leading dims; every emulated device runs the staged
+    backward in lockstep, as the reference's vmap does. Forward runs
+    stage by stage for every device, each stage's params and incoming
+    carry made fresh leaves of that stage's graph; backward then runs
+    head first, one ``stage_backward`` per stage over all devices, and
+    bucket ``s``'s ring reduce-scatter is issued right after stage
+    ``s``'s backward, before stage ``s-1``'s. ``g_shard`` is each
+    device's bucket-major ``(…, schedule.shard_size)`` concat of its
+    reduced chunks — feed it to ``FlatEngine.update_overlapped``. All
+    devices' activations stay live until their stage's backward."""
+    S = stages.num_stages
+    ndim = len(comm.frame)
+
+    def grad_fn(params, batch):
+        lead = tuple(tree_leaves(params)[0].shape[:ndim])
+        n = math.prod(lead)
+        rows = lambda t: t.reshape((n,) + tuple(t.shape[ndim:]))
+        p_rows = tree_map(rows, params)
+        b_rows = {k: rows(v) for k, v in batch.items()}
+        parts = [stages.stage(tree_map(lambda t: t[m], p_rows))
+                 for m in range(n)]
+        # forward: record each stage's (param leaves, carry in, output)
+        # for every member
+        recs = [[None] * n for _ in range(S)]
+        for m in range(n):
+            bm = {k: v[m] for k, v in b_rows.items()}
+            carry = None
+            for s in range(S):
+                leaves, treedef = tree_flatten(parts[m][s])
+                leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
+                ps = tree_unflatten(treedef, leaves)
+                if s == 0:
+                    cin, out = {}, stages.fns[0](ps, bm)
+                else:
+                    cin = {k: _fresh_leaf(v) for k, v in carry.items()}
+                    out = stages.fns[s](ps, cin, bm)
+                recs[s][m] = (leaves, cin, out)
+                carry = out
+        del parts
+        losses = [recs[S - 1][m][2][0].detach() for m in range(n)]
+        metrics = {k: torch.stack([recs[S - 1][m][2][1][k].detach()
+                                   for m in range(n)]).reshape(lead)
+                   for k in recs[S - 1][0][2][1]}
+        # backward: head first, embedding last; each bucket's
+        # reduce-scatter issued as soon as its grads exist
+        cts: list = [None] * n
+        shards = [None] * S
+        for s in range(S - 1, -1, -1):
+            outputs, cots, inputs = [], [], []
+            for m in range(n):
+                leaves, cin, out = recs[s][m]
+                if s == S - 1:
+                    outputs.append(out[0])
+                    cots.append(torch.ones_like(out[0]))
+                else:
+                    for k, v in out.items():
+                        if v.requires_grad:
+                            outputs.append(v)
+                            cots.append(cts[m][k])
+                inputs += leaves + [v for v in cin.values() if v.requires_grad]
+            grads = stage_backward(s, outputs, inputs, cots)
+            rows_s, i = [], 0
+            for m in range(n):
+                leaves, cin, _ = recs[s][m]
+                rows_s.append(schedule.pack_bucket(s, list(grads[i:i + len(leaves)])))
+                i += len(leaves)
+                cts[m] = {}
+                for k, v in cin.items():
+                    if v.requires_grad:
+                        cts[m][k] = grads[i]
+                        i += 1
+            recs[s] = None
+            del grads, outputs, cots, inputs
+            seg = torch.stack(rows_s).reshape(lead + (schedule.sizes[s],))
+            del rows_s
+            shards[s] = comm.reduce_scatter_bucket(seg, schedule, s)
+        g_shard = shards[0] if S == 1 else torch.cat(shards, -1)
+        return torch.stack(losses).reshape(lead), metrics, g_shard
+
+    return grad_fn
+
+
 def make_train_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
                      seed: int = 0, *, device="cuda", mesh=None) -> dict:
     """Initial state ``{"params", "opt", "step"}`` (+ ``"center"``, the
     center variables w̃, for mpi_esgd). On the fused path the optimizer
     state is the flat state buffer (momentum / AdaGrad accumulator /
     AdamW ``{"mv", "t"}``) in local (p=1) geometry — one per client when
-    C > 1."""
+    C > 1; with overlap, laid out bucket-major over the local schedule."""
     device = resolve_device(device)
+    schedule = None
+    if sync.overlap:
+        _, schedule = overlap_schedule(model, sync, 1)
     engine = make_sync_engine(optimizer, sync, mesh,
-                              spec=_engine_spec(model, optimizer, sync))
+                              spec=_engine_spec(model, optimizer, sync),
+                              schedule=schedule)
     params = model.init(device=device, seed=seed)
     state = {
         "params": clientize(params, sync.num_clients),
@@ -164,15 +309,48 @@ def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
                     device="cuda") -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
     reference's ``step_c1`` for C = 1, ``step_multiclient`` for C > 1
-    (batch leaves then carry a leading client dim C)."""
+    (batch leaves then carry a leading client dim C), ``step_overlap``
+    with ``sync.overlap``."""
     device = resolve_device(device)
     sync.validate(mesh)
     C = sync.num_clients
     if C > 1:
         # each client updates in its local (p=1) geometry
         comm = comm.local() if comm is not None else None
+    if comm is None:
+        comm = comm_lib.from_sync(sync)
+    stages = schedule = None
+    if sync.overlap:
+        if microbatch > 1:
+            raise ValueError(
+                "overlap=True with microbatch>1 would re-issue every "
+                "schedule bucket's ring leg per accumulation step (M× the "
+                "wire bytes — exactly the traffic overlap exists to "
+                "hide); accumulate without overlap, or raise the per-step "
+                "batch instead")
+        stages, schedule = overlap_schedule(model, sync, comm.resolve_size())
     engine = make_sync_engine(optimizer, sync, mesh, comm=comm,
-                              spec=_engine_spec(model, optimizer, sync))
+                              spec=_engine_spec(model, optimizer, sync),
+                              schedule=schedule)
+
+    if sync.overlap:
+        ograd_fn = make_overlap_grad_fn(model, stages, schedule, comm)
+
+        def step_overlap(state, batch):
+            engine.check_opt_layout(state["opt"])
+            batch = {k: v.to(device) for k, v in batch.items()}
+            loss, metrics, g_shard = ograd_fn(state["params"], batch)
+            new_staged, new_o = engine.update_overlapped(
+                g_shard, stages.stage(state["params"]), state["opt"])
+            del g_shard
+            return (
+                {"params": stages.unstage(new_staged), "opt": new_o,
+                 "step": state["step"] + 1},
+                {"loss": loss, **metrics},
+            )
+
+        return step_overlap  # overlap is mpi_sgd / C = 1 (validate)
+
     grad_fn = make_grad_fn(model, microbatch)
 
     def step_c1(state, batch):
@@ -245,8 +423,6 @@ def train_loop(model: Model, optimizer: Optimizer, sync: SyncConfig,
 #: the reference CLI's flag values whose paths are not ported yet: (flag,
 #: value) -> what is missing
 _NOT_PORTED = {
-    ("overlap", True): "--overlap needs backward overlap (the staged "
-                       "backward with per-bucket reduce-scatter legs)",
     ("policy", "auto"): "--policy auto needs the cost-model autotuner "
                         "(launch.autotune)",
     ("transport", "tcp"): "--transport tcp needs the socket transport tier "
@@ -292,10 +468,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--state-dtype", default="f32", choices=("f32", "bf16"),
                     help="flat optimizer-state stream dtype")
     ap.add_argument("--overlap", action="store_true", default=False,
-                    help="backward-overlapped bucketed reduce-scatter "
-                         "(not yet ported)")
+                    help="backward-overlapped bucketed reduce-scatter: "
+                         "stage backprop and issue each schedule bucket's "
+                         "ring leg while earlier layers still "
+                         "differentiate (forces a ring allreduce and "
+                         "num_rings=1)")
     ap.add_argument("--overlap-buckets", type=int, default=4,
-                    help="schedule buckets == backward stages")
+                    help="schedule buckets == backward stages "
+                         "(1 = degenerate non-overlapped schedule)")
     ap.add_argument("--allreduce", default=None,
                     choices=("psum", "ring", "multi_ring", "tree",
                              "scatter_gather"),

@@ -3,6 +3,8 @@
   init(device, seed=0)      -> params (nested dict, stacked layer leaves)
   loss_fn(params, batch)    -> (loss, metrics)
   forward(params, batch)    -> logits
+  overlap_stages(num_buckets) -> OverlapStages (loss_fn as a stage chain
+                               for the backward-overlapped step)
 
 Slice 1 ports the dense decoder family (``repro/models/model.py``
 ``_build_decoder``). ``init(device="meta")`` gives shape-only params, the
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import apply_stack, init_stack
+from repro_torch.tree import tree_map
 
 XENT_CHUNK = 512
 
@@ -28,6 +31,38 @@ class Model:
     init: Callable
     loss_fn: Callable
     forward: Callable
+    # backward-overlap staging: overlap_stages(num_buckets) -> OverlapStages
+    # splitting loss_fn into a chain of stages whose param subtrees become
+    # the reduce-scatter schedule buckets. None = no staged form.
+    overlap_stages: "Callable | None" = None
+
+
+@dataclass(frozen=True)
+class OverlapStages:
+    """``loss_fn`` as a chain of stages for backward-overlapped sync
+    (``repro/models/model.py``).
+
+    ``stage(params, ndim=0)`` splits the param tree into per-stage
+    subtrees (tuple, forward order); ``fns[0](p0, batch)`` produces the
+    first carry and ``fns[s](ps, carry, batch)`` the next, with the LAST
+    stage returning ``(loss, metrics)`` — composing all stages replays
+    ``loss_fn``'s ops in its order. ``unstage(parts, ndim=0)`` inverts
+    ``stage``. ``ndim`` is the number of leading stacked dims (emulated
+    devices) the leaves carry ahead of the layer dim. A leaf used by
+    several stages (the tied embedding: token lookup in stage 0, the
+    logits product in the head) is a stage param of ONLY its earliest
+    stage and its VALUE rides the carry to later stages, so each leaf
+    lives in exactly one schedule bucket and its full gradient is
+    complete when its owning stage's backward runs.
+    """
+
+    stage: Callable
+    fns: tuple
+    unstage: Callable
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.fns)
 
 
 def _generator(device, seed: int) -> torch.Generator | None:
@@ -127,4 +162,78 @@ def _build_decoder(cfg: ModelConfig, dtype) -> Model:
         xent = _sequence_xent(p, h, batch["labels"], cfg)
         return xent + aux, {"xent": xent, "aux": aux}
 
-    return Model(cfg, init, loss_fn, forward)
+    return Model(cfg, init, loss_fn, forward,
+                 overlap_stages=_decoder_overlap_stages(cfg, loss_fn))
+
+
+def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
+    """Stage factory for the decoder family: [embed] + k layer slices +
+    [head], where k = num_buckets - 2 clamped to [1, num_layers] (ceil
+    split: the first ``num_layers % k`` slices take one layer more). Each
+    stage replays exactly the ops ``loss_fn`` runs over its span, the
+    chunked cross-entropy included, so the composed chain gives the
+    monolithic loss and, stage by stage, its gradient bits. With tied
+    embeddings the embedding is stage 0's param and its VALUE rides the
+    carry to the head's logits product."""
+
+    def factory(num_buckets: int) -> OverlapStages:
+        if num_buckets <= 1:
+            # degenerate single-bucket schedule: the whole loss is one
+            # stage, the one reduce-scatter leg simply trails backward
+            return OverlapStages(stage=lambda p, ndim=0: (p,),
+                                 fns=(lambda p0, batch: loss_fn(p0, batch),),
+                                 unstage=lambda parts, ndim=0: parts[0])
+        k = min(cfg.num_layers, max(1, int(num_buckets) - 2))
+        base, rem = divmod(cfg.num_layers, k)
+        slices, lo = [], 0
+        for i in range(k):
+            hi = lo + base + (1 if i < rem else 0)
+            slices.append((lo, hi))
+            lo = hi
+
+        def stage(p, ndim=0):
+            head = {"final_norm": p["final_norm"]}
+            if not cfg.tie_embeddings:
+                head["lm_head"] = p["lm_head"]
+            return (({"embedding": p["embedding"]},)
+                    + tuple(tree_map(lambda a, lo=lo, hi=hi:
+                                     a.narrow(ndim, lo, hi - lo), p["layers"])
+                            for lo, hi in slices)
+                    + (head,))
+
+        def unstage(parts, ndim=0):
+            layers = parts[1:-1]
+            p = {"embedding": parts[0]["embedding"],
+                 "layers": (layers[0] if len(layers) == 1 else tree_map(
+                     lambda *xs: torch.cat(xs, ndim), *layers)),
+                 "final_norm": parts[-1]["final_norm"]}
+            if not cfg.tie_embeddings:
+                p["lm_head"] = parts[-1]["lm_head"]
+            return p
+
+        def embed_fn(p0, batch):
+            x = _embed(p0, batch["tokens"], cfg)
+            carry = {"x": x,
+                     "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+            if cfg.tie_embeddings:
+                carry["emb"] = p0["embedding"]
+            return carry
+
+        def layer_fn(ps, carry, batch):
+            h, a = apply_stack(ps, carry["x"], cfg)
+            out = dict(carry)
+            out["x"] = h
+            out["aux"] = carry["aux"] + a
+            return out
+
+        def head_fn(ph, carry, batch):
+            h = rms_norm(carry["x"], ph["final_norm"], cfg.norm_eps)
+            pl = ({"embedding": carry["emb"]} if cfg.tie_embeddings
+                  else {"lm_head": ph["lm_head"]})
+            xent = _sequence_xent(pl, h, batch["labels"], cfg)
+            return xent + carry["aux"], {"xent": xent, "aux": carry["aux"]}
+
+        fns = (embed_fn,) + (layer_fn,) * k + (head_fn,)
+        return OverlapStages(stage=stage, fns=fns, unstage=unstage)
+
+    return factory

@@ -59,8 +59,10 @@ def init_stack(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 def apply_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the stacked layers in order; the stack's own leading dim (all
+    ``cfg.num_layers``, or one stage's slice of them) sets the depth."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
+    for i in range(stacked["attn_norm"].shape[0]):
         layer = tree_map(lambda a: a[i], stacked)
         x, a = apply_block(layer, x, cfg, prefix_len=prefix_len)
         aux = aux + a

@@ -10,6 +10,11 @@ gradient Communicator between them when the group has p > 1 members.
 Stacked inputs (a leading device or client dim on every leaf, as the
 shard driver and the multi-client step hold them) run the same way, with
 ONE kernel launch over the whole stacked buffer.
+
+``overlap_update`` is the update half of the backward-overlapped step:
+the grad fn has already reduce-scattered each schedule bucket, and the
+same fused kernel runs ONCE over the bucket-major schedule shard
+(``optstate_sched_init`` lays its state out).
 """
 from __future__ import annotations
 
@@ -281,6 +286,88 @@ def scatter_update_gather(spec: flatbuf.FlatBuffer, grads: Any, params: Any,
     new_p = (comm.allgather(new_p_shard, num_rings=nr) if p > 1
              else new_p_shard)
     return spec.unpack(new_p[..., :spec.size]), new_state
+
+
+def optstate_sched_init(hyper, schedule: flatbuf.BucketSchedule,
+                        state_dtypes=None, *, device=None) -> Any:
+    """``optstate_shard_init`` for the overlapped (schedule-bucketed)
+    layout: the per-device state length is ``schedule.shard_size`` — the
+    bucket-major concat of single-ring per-bucket chunks — instead of the
+    monolithic ``flatbuf.shard_size`` geometry."""
+    name = _flat_name(hyper)
+    sd = state_stream_dtype(hyper, state_dtypes)
+    n = schedule.shard_size
+    k = FLAT_STATE_STREAMS[name]
+    if name == "adamw":
+        return {"mv": torch.zeros((k, n), dtype=sd, device=device),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
+    return torch.zeros((n,), dtype=sd, device=device)
+
+
+def overlap_update(schedule: flatbuf.BucketSchedule, g_shard: torch.Tensor,
+                   staged_params: Any, opt_state: Any, *,
+                   hyper: Mapping,
+                   comm=None,
+                   num_rings: Optional[int] = None,
+                   bucket_bytes: int | None = None,
+                   wire_dtype: Optional[str] = None,
+                   mean: bool = True,
+                   hp: Optional[torch.Tensor] = None) -> tuple[Any, Any]:
+    """The update half of the backward-overlapped step.
+
+    The grad fn already issued each schedule bucket's reduce-scatter leg
+    mid-backward (``Communicator.reduce_scatter_bucket``) and hands over
+    ``g_shard``: the bucket-major ``(…, schedule.shard_size)`` concat of
+    each device's fully-reduced per-bucket chunks. What is left:
+
+      1. select each device's matching param shard from the packed staged
+         params (``shard_select_sched``: static, no communication)
+      2. ONE fused optimizer kernel over the whole shard, every stacked
+         device at once (the buckets share the launch; only the WIRE was
+         bucketed)
+      3. the ONE trailing allgather of the updated shard
+         (``allgather_sched``), re-stitched to the packed layout
+
+    ``staged_params`` is the stage-subtree tuple of the same
+    ``overlap_stages`` split the schedule was built from; the return is
+    ``(new_staged_params, new_opt_state)``. ``comm`` carries the whole
+    policy: explicit ``num_rings`` / ``bucket_bytes`` / ``wire_dtype``
+    would desync the wire legs from the schedule layout and are refused.
+    ``hp`` is the cached ``flat_hp`` vector (built here when omitted).
+    """
+    if num_rings is not None or bucket_bytes is not None \
+            or wire_dtype is not None:
+        raise ValueError(
+            "overlap_update: the bucket/ring/wire policy lives on the "
+            "communicator and the BucketSchedule — set wire_dtype on the "
+            "comm (Communicator.with_policy) and the bucket split via "
+            "overlap_buckets, not as arguments; explicit knobs here "
+            "would desync the wire legs from the schedule layout")
+    comm = comm_lib.LOCAL if comm is None else comm
+    name = _flat_name(hyper)
+    p = comm.resolve_size()
+    if p != schedule.p:
+        raise ValueError(
+            f"schedule was built for p={schedule.p} shards but the "
+            f"communicator spans {p} — rebuild the BucketSchedule with "
+            f"the gradient group's size (bucket_schedule(spec, counts, "
+            f"p={p}))")
+
+    p_shard = comm.shard_select_sched(schedule.spec.pack(staged_params),
+                                      schedule)
+    if mean and p > 1:
+        g_shard = g_shard / p
+    wd = hyper.get("weight_decay", 0.0) or 0.0
+    if name == "sgd" and wd:
+        g_shard = g_shard + wd * p_shard
+
+    if hp is None:
+        hp = flat_hp(hyper, p_shard.device)
+    new_p_shard, new_state = _fused_shard_update(
+        name, hp, p_shard, opt_state, g_shard)
+    del g_shard, p_shard
+    new_pbuf = comm.allgather_sched(new_p_shard, schedule)
+    return schedule.spec.unpack(new_pbuf), new_state
 
 
 def _flat_optimizer(hyper: dict, spec: flatbuf.FlatBuffer,

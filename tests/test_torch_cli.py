@@ -176,6 +176,7 @@ ACCEPTED = {
                "--barrier-timeout", "1.5"],
     "job-spec": ["--client", "1", "--num-clients", "2", "--scheduler", "h:7000",
                  "--shape", "prefill_32k", "--overlap-buckets", "2"],
+    "overlap": ["--overlap", "--overlap-buckets", "3", "--wire-dtype", "bf16"],
     "adamw": ["--optimizer", "adamw", "--lr", "0.003", "--weight-decay", "0.1",
               "--state-dtype", "bf16"],
     "adagrad": ["--optimizer", "adagrad", "--lr", "0.01", "--momentum", "0.5"],

@@ -165,10 +165,18 @@ def test_unported_paths_raise_naming_their_slice(tmodel):
     opt = tsgd.sgd(0.1, 0.9)
     sync = SyncConfig(mode="mpi_sgd", policy=CollectivePolicy(method="ring"))
     overlap = SyncConfig(policy=CollectivePolicy(method="ring", overlap=True))
-    with pytest.raises(NotImplementedError, match="overlap"):
-        TSD.make_emulated_step(tmodel, opt, overlap, 2)
-    with pytest.raises(NotImplementedError, match="overlap"):
-        ttrain.make_train_step(tmodel, opt, overlap, device="cpu")
+    # backward overlap is ported: the driver and the train step build and
+    # step (tests/test_torch_overlap.py holds them against the reference)
+    batch = {"tokens": torch.zeros(4, 8, dtype=torch.int32),
+             "labels": torch.ones(4, 8, dtype=torch.int32)}
+    state = TSD.make_driver_state(tmodel, opt, overlap, 2, device="cpu")
+    state, met = TSD.make_emulated_step(tmodel, opt, overlap, 2)(
+        state, TSD.shard_batch(batch, 2))
+    assert int(state["step"][0]) == 1 and torch.isfinite(met["loss"])
+    state = ttrain.make_train_state(tmodel, opt, overlap, device="cpu")
+    state, met = ttrain.make_train_step(tmodel, opt, overlap, device="cpu")(
+        state, batch)
+    assert int(state["step"]) == 1 and torch.isfinite(met["loss"])
     # drive(faults=) runs now: with no batches the schedule never fires
     assert TSD.drive(tmodel, opt, sync, [], p=2, device="cpu",
                      faults="kill@1:unit=0")[1] == []
@@ -178,8 +186,10 @@ def test_unported_paths_raise_naming_their_slice(tmodel):
         TSD.drive(tmodel, opt, sync, [], mesh=object(), device="cpu")
     world = TSD.driver_world(sync, (2, 2))
     assert world.resized(1, "pod").sizes == (1, 2)
-    with pytest.raises(NotImplementedError, match="overlap"):
-        world.reduce_scatter_bucket(None, None, 0)
+    # one schedule bucket's leg over the 2-axis world: pod, then data
+    _, sched = ttrain.overlap_schedule(tmodel, overlap, 4)
+    chunk = world.reduce_scatter_bucket(torch.ones(2, 2, sched.sizes[0]), sched, 0)
+    assert torch.equal(chunk, torch.full((2, 2, sched.chunks[0]), 4.0))
     from repro_torch.core.elastic import elastic_exchange_packed
 
     # the one refusal the reference also makes: the removed int8 alias

@@ -3,6 +3,7 @@ adaptive optimizers, bf16 state streams, weight decay, microbatching, the
 per-leaf path) and its entry points' contracts (CUDA by default, the CLI,
 the still unported paths, checkpoint resume)."""
 import importlib
+import sys
 
 import pytest
 
@@ -12,6 +13,7 @@ jax = pytest.importorskip("jax")
 import numpy as np  # noqa: E402
 
 from _torch_parity import assert_params_close, port_run, reference_run  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core.comm import CollectivePolicy  # noqa: E402
 from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
@@ -99,13 +101,17 @@ def test_engine_selection_and_layout_guards():
         adam.check_opt_layout(torch.zeros(3))
     with pytest.raises(ValueError, match="FlatBuffer spec"):
         make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig())
-    # mpi_esgd and C > 1 engines exist now; overlap and meshes do not yet
+    # mpi_esgd, C > 1 and overlap engines exist now; meshes do not yet
     esgd = make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(mode="mpi_esgd"),
                             spec=spec)
     assert isinstance(esgd, FlatEngine) and esgd.flat_exchange
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(
-            policy=CollectivePolicy(method="ring", overlap=True)), spec=spec)
+    overlap = SyncConfig(policy=CollectivePolicy(method="ring", overlap=True))
+    with pytest.raises(ValueError, match="BucketSchedule"):
+        make_sync_engine(tsgd.sgd(0.1, 0.9), overlap, spec=spec)
+    _, sched = ttrain.overlap_schedule(model, overlap, 1)
+    ov = make_sync_engine(tsgd.sgd(0.1, 0.9), overlap, spec=spec, schedule=sched)
+    assert isinstance(ov, FlatEngine) and ov.schedule is sched
+    ov.check_opt_layout(ov.init_opt(params))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(), object(), spec=spec)
 
@@ -165,9 +171,8 @@ def test_cli_trains_on_cpu(argv, capsys):
     assert "[train] client 0/1 arch=qwen2-0.5b" in out and "final loss" in out
 
 
-@pytest.mark.parametrize("argv", [["--overlap"], ["--policy", "auto"],
+@pytest.mark.parametrize("argv", [["--policy", "auto"],
                                   ["--transport", "tcp"],
-                                  ["--overlap", "--wire-dtype", "int8"],
                                   ["--transport", "tcp", "--mode", "dist_esgd"]])
 def test_cli_unported_flags_raise(argv, capsys):
     """The reference's flags whose paths are not ported yet exit with a
@@ -176,8 +181,47 @@ def test_cli_unported_flags_raise(argv, capsys):
         ttrain.main(["--device", "cpu", "--steps", "1"] + argv)
     err = capsys.readouterr().err
     assert "not yet ported" in err
-    assert ("backward overlap" if "--overlap" in argv else
-            "autotuner" if "--policy" in argv else "socket transport") in err
+    assert ("autotuner" if "--policy" in argv else "socket transport") in err
+
+
+@pytest.mark.parametrize("argv", [["--overlap"], ["--overlap", "--wire-dtype", "int8"]],
+                         ids=["overlap", "overlap-int8"])
+def test_cli_overlap_flags_run_like_reference(argv, monkeypatch, capsys):
+    """``--overlap`` runs in the port: both CLIs' ``main`` on the same
+    flags, 3 steps on the CPU, the port from the reference's initial
+    weights; the printed losses agree at rtol 1e-4 and both headers say
+    ``overlap=True``."""
+    import re
+
+    jtrain = importlib.import_module("repro.launch.train")
+    argv = ["--steps", "3"] + argv
+    init = {}
+    make_state = jtrain.make_train_state
+
+    def jmake_state(*a, **kw):
+        state = make_state(*a, **kw)
+        init["params"] = jax.tree.map(np.asarray, state["params"])
+        return state
+
+    monkeypatch.setattr(jtrain, "make_train_state", jmake_state)
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    jtrain.main()
+    jout = capsys.readouterr().out
+    tmake_state = ttrain.make_train_state
+
+    def from_reference(*a, **kw):
+        state = tmake_state(*a, **kw)
+        state["params"] = params_from_numpy(init["params"])
+        return state
+
+    monkeypatch.setattr(ttrain, "make_train_state", from_reference)
+    ttrain.main(argv + ["--device", "cpu"])
+    tout = capsys.readouterr().out
+    losses = lambda out: [float(x) for x in re.findall(r"^step +\d+ loss (\S+)$",
+                                                       out, re.M)]
+    assert len(losses(tout)) == len(losses(jout)) == 3
+    np.testing.assert_allclose(losses(tout), losses(jout), rtol=1e-4)
+    assert "overlap=True" in jout and "overlap=True" in tout
 
 
 def test_train_loop_checkpoint_resume_continues_the_curve(tmp_path):
