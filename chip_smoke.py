@@ -87,6 +87,26 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  band of the run without overlap, the optimizer kernel
                  on one more step's own operands held against its plain
                  version, step time, its split, peak memory, device busy
+  9. serve    slice 8, serving (no kernel on this path: every serve phase
+              sets the 14 launch counts to 0 first and fails unless they
+              read 0 after), the new phases' wall time printed:
+              a) [serve:small] the four reduced dense configs, f32, the
+                 same weights: 12 serve steps' logits and the cache on the
+                 card within rtol 1e-4 / atol 1e-5 of the CPU, and
+                 BatchedServer's greedy tokens equal
+              b) [serve] full-width qwen2-0.5b in bf16: BatchedServer
+                 (batch 8, max_seq 256, 64-token prompts, 64 new tokens;
+                 every step's logits within SERVE_BAND_REL of forward over
+                 the same 128 tokens); decode_32k (B 128, a 32,768-slot
+                 cache filled in place, KV == 51,539,607,552 B, 8 steps,
+                 no copy of the cache in a profiled step); prefill_32k
+                 (forward 1 x 32,768); the chunked attention against one
+                 block at S = 4096 — ms per token beside the bytes bound,
+                 tokens/s, peak memory, device busy
+              c) [serve:configs] qwen2.5-3b, qwen3-4b, phi3-medium-14b at
+                 full width in bf16, one at a time: init on the card (tree
+                 numel, init peak), BatchedServer batch 4, 32 + 32 tokens
+                 with b)'s holds, ms per token beside the weight bound
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -120,7 +140,7 @@ import torch  # noqa: E402
 
 # the port itself: fails here (exit 1) outside a checkout of the repo
 from repro_torch.checkpoint.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
-from repro_torch.configs.base import TrainSettings, get_config, reduced  # noqa: E402
+from repro_torch.configs.base import INPUT_SHAPES, TrainSettings, get_config, reduced  # noqa: E402
 from repro_torch.core import algorithms as alg, cost_model, flatbuf  # noqa: E402
 from repro_torch.core.collectives import WireMeter  # noqa: E402
 from repro_torch.core.comm import CollectivePolicy, sync_comms  # noqa: E402
@@ -139,6 +159,7 @@ from repro_torch.core import elastic as elastic_mod  # noqa: E402
 from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
 from repro_torch.core.comm import Communicator, from_sync  # noqa: E402
 from repro_torch.launch import shard_driver as sd, train as train_mod  # noqa: E402
+from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_overlap_grad_fn, make_train_state, make_train_step,
     overlap_schedule, stacked_grads)
@@ -2299,6 +2320,373 @@ def phase_overlap(dev) -> tuple[dict, dict]:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving (KV-cache decode, BatchedServer, chunked prefill)
+# ---------------------------------------------------------------------------
+
+#: decode_32k's KV cache at full-width qwen2-0.5b: 2·L·B·S·KV·D·2 bytes
+DECODE_32K_KV_BYTES = 51_539_607_552
+SERVE_DENSE = ("qwen2-0.5b", "qwen2.5-3b", "qwen3-4b", "phi3-medium-14b")
+#: the param trees' numel at full width (param_count leaves out the norms)
+SERVE_TREE_NUMEL = {"qwen2.5-3b": 3_086_200_832, "qwen3-4b": 4_412_079_616,
+                    "phi3-medium-14b": 14_659_507_200}
+#: decode against forward over the same tokens, bf16: |Δlogit| <= this x
+#: max |forward logit|. Set from CPU runs at full width with the depth cut
+#: to 2 / 4 / 8 layers (qwen2-0.5b: 1.05 / 1.17 / 1.56 %; the three other
+#: configs at 2-4 layers: 1.05-1.48 %), with room for full depth.
+SERVE_BAND_REL = 0.04
+#: chunked (1024 / 1024) against one block, bf16, at S = 4096: |Δ| <= this
+#: x max |one-block output| (CPU, full-width layer 0, S = 512 in 128-chunks:
+#: 0.15 %)
+CHUNK_BAND_REL = 1e-2
+#: the ops a decode step would copy its cache through; each must move
+#: less than one KV head's slice of one layer's k cache (B·S·D values)
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::contiguous", "aten::cat",
+            "aten::stack")
+
+
+def _check_no_launches(label: str) -> None:
+    got = counts(ALL_KERNELS)
+    if any(got.values()):
+        raise AssertionError(f"{label}: the serve path launched {got}")
+    log(f"{label} launches of the 14 kernels: all 0")
+
+
+def _logit_margins(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+class _StepRecorder:
+    """Wraps a server's serve step: keeps each step's logits and its wall
+    time (the step ends in ``torch.cuda.synchronize()``)."""
+
+    def __init__(self, srv):
+        self.step, self.logits, self.ms = srv._step, [], []
+        srv._step = self
+
+    def __call__(self, params, cache, tokens):
+        t0 = time.perf_counter()
+        logits, cache = self.step(params, cache, tokens)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.logits.append(logits)
+        return logits, cache
+
+
+def _ms_stats(ms: list) -> str:
+    s = sorted(ms)
+    return f"{s[len(s) // 2]:.3f} [{s[0]:.3f}–{s[-1]:.3f}]"
+
+
+def _serve_profile(model, params, cache, tok, max_copy_numel=None) -> dict:
+    """One more serve step under ``torch.profiler``: device busy share of
+    the profiled wall time, and the largest copy-like op's numel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        model.serve_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    def numel(shape) -> int:      # a tensor list's shapes come nested
+        return sum(map(numel, shape)) if shape and isinstance(shape[0], list) \
+            else math.prod(shape)
+
+    copy = max([numel(e.input_shapes[0]) for e in prof.events()
+                if e.name in COPY_OPS and e.input_shapes and e.input_shapes[0]]
+               or [0])
+    if max_copy_numel is not None and copy >= max_copy_numel:
+        raise AssertionError(f"a serve step copied {copy} values (one KV "
+                             f"head's slice of a layer's cache is {max_copy_numel})")
+    return {"busy_ms": busy_ms or None, "wall_ms": wall_ms,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "largest_copy_numel": copy}
+
+
+def _no_sync_step(model, params, cache, tok) -> None:
+    """One serve step with CUDA's sync debug mode set to raise: the step
+    makes no host sync (slot, mask and position stay on the device)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.serve_step(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _hold_decode_vs_forward(label, model, params, prompts, out, rec) -> dict:
+    """Every serve step's logits against ``forward`` over the same tokens,
+    within SERVE_BAND_REL; where forward's top-1 margin exceeds twice the
+    band, the greedy token equals forward's argmax."""
+    V = model.cfg.vocab_size
+    seq = torch.cat([prompts, out], dim=1)
+    with torch.no_grad():
+        fl = model.forward(params, {"tokens": seq}).float()[..., :V]
+    dec = torch.cat(rec.logits[:seq.shape[1]], dim=1).float()[..., :V]
+    scale = float(fl.abs().max())
+    diff = float((dec - fl).abs().max())
+    band = SERVE_BAND_REL * scale
+    if not diff <= band:
+        raise AssertionError(f"{label}: decode vs forward max |Δ| {diff} > band "
+                             f"{band} ({SERVE_BAND_REL} x {scale})")
+    P = prompts.shape[1]
+    chose = fl[:, P - 1:P - 1 + out.shape[1]]
+    sure = _logit_margins(chose) > 2 * band
+    agree = out.long() == chose.argmax(-1)
+    if not bool(agree[sure].all()):
+        raise AssertionError(f"{label}: greedy token differs from forward's "
+                             f"argmax at a margin > 2 x band")
+    log(f"{label} decode vs forward over {seq.shape[1]} tokens: max |Δlogit| "
+        f"{diff:.5f} <= {band:.5f} ({SERVE_BAND_REL} x max |logit| {scale:.3f}); "
+        f"greedy == forward argmax at {int(sure.sum())} of {sure.numel()} steps "
+        f"with margin > 2 x band (agree at {int(agree.sum())} of all)")
+    del fl, dec
+    return {"max_abs_diff": diff, "band": band, "checked": int(sure.sum()),
+            "agree_all": int(agree.sum()), "steps": int(sure.numel())}
+
+
+def _serve_run(label, model, params, prompts, new, max_seq, dev) -> dict:
+    """BatchedServer.generate with every step recorded and timed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchedServer(model, params, batch=prompts.shape[0], max_seq=max_seq,
+                        device=dev)
+    rec = _StepRecorder(srv)
+    t0 = time.perf_counter()
+    out = srv.generate(prompts, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, (B, P) = model.cfg, prompts.shape
+    kv = nbytes(srv.cache["k"], srv.cache["v"])
+    want_kv = (2 * cfg.num_layers * B * max_seq * cfg.num_kv_heads
+               * cfg.resolved_head_dim * 2)
+    if kv != want_kv:
+        raise AssertionError(f"{label}: KV bytes {kv} != {want_kv}")
+    if tuple(out.shape) != (B, new) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: tokens {tuple(out.shape)} max {int(out.max())}")
+    if srv.cache["index"].tolist() != [P + new] * cfg.num_layers:
+        raise AssertionError(f"{label}: cache index {srv.cache['index'].tolist()}")
+    gen_ms = rec.ms[P:]
+    weights = nbytes(*tree_leaves(params))
+    _no_sync_step(model, params, srv.cache, out[:, -1:])
+    hold = _hold_decode_vs_forward(label, model, params, prompts, out, rec)
+    prof = _serve_profile(model, params, srv.cache, out[:, -1:])
+    r = {"batch": B, "prompt": P, "new": new, "max_seq": max_seq,
+         "prefill_ms": sum(rec.ms[:P]), "step_ms": rec.ms,
+         "gen_ms_median": sorted(gen_ms)[len(gen_ms) // 2],
+         "gen_ms_min": min(gen_ms), "gen_ms_max": max(gen_ms),
+         "tokens_per_s": B * len(gen_ms) / (sum(gen_ms) / 1e3),
+         "generate_wall_s": wall, "peak_mem_bytes": peak, "kv_bytes": kv,
+         "kv_bytes_per_slot": kv // (B * max_seq), "weight_bytes": weights,
+         "weight_bound_ms": weights / HBM_BYTES_PER_S * 1e3, "hold": hold,
+         "profile": prof}
+    log(f"{label}: batch {B}, max_seq {max_seq}, {P}-token prompts, {new} new "
+        f"tokens: prefill {r['prefill_ms']:.1f} ms ({P} steps), ms per generated "
+        f"token {_ms_stats(gen_ms)} (weight-stream bound "
+        f"{r['weight_bound_ms']:.3f}: {weights} B at 3.35 TB/s), "
+        f"{r['tokens_per_s']:.1f} tokens/s; peak {peak / 2**30:.2f} GiB; KV "
+        f"{kv} B ({r['kv_bytes_per_slot']} B per token slot); a serve step "
+        f"under sync debug mode 'error' made no host sync; device busy "
+        f"{prof['busy_ms']} of {prof['wall_ms']:.2f} ms profiled "
+        f"(share {prof['busy_share']})")
+    del srv, rec
+    return r
+
+
+def phase_serve_small(dev) -> None:
+    """The four reduced dense configs from the same weights, f32: 12
+    teacher-forced serve steps' logits and the cache on the card within
+    rtol 1e-4 / atol 1e-5 of the CPU, BatchedServer's greedy tokens equal."""
+    reset_counts()
+    for name in SERVE_DENSE:
+        model = build_model(reduced(get_config(name)))
+        p0 = model.init(device="cpu", seed=0)
+        toks = torch.randint(0, model.cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(0),
+                             dtype=torch.int32)
+        out = []
+        for d in ("cpu", dev):
+            params = tree_map(lambda a: a.to(d), p0)
+            cache = model.init_cache(2, 16, d)
+            steps = []
+            for t in range(toks.shape[1]):
+                logits, cache = model.serve_step(params, cache, toks[:, t:t + 1].to(d))
+                steps.append(logits.cpu())
+            srv = BatchedServer(model, params, batch=2, max_seq=24, device=d)
+            out.append((torch.cat(steps, 1), tree_map(lambda a: a.cpu(), cache),
+                        srv.generate(toks[:, :6].to(d), 8).cpu()))
+        (cl, cc, cg), (gl, gc, gg) = out
+        torch.testing.assert_close(gl, cl, rtol=1e-4, atol=1e-5)
+        for key in ("k", "v"):
+            torch.testing.assert_close(gc[key], cc[key], rtol=1e-4, atol=1e-5)
+        if not (torch.equal(gc["index"], cc["index"]) and torch.equal(gg, cg)):
+            raise AssertionError(f"[serve:small] {name}: index or greedy tokens "
+                                 f"differ: {gg.tolist()} vs {cg.tolist()}")
+        log(f"[serve:small] {name} (reduced, f32): 12 serve steps card == cpu "
+            f"(max |Δlogit| {float((gl - cl).abs().max()):.2e}, rtol 1e-4 atol "
+            f"1e-5), cache k/v/index held, greedy {gg.tolist()} == cpu")
+    _check_no_launches("[serve:small]")
+
+
+def _decode_32k(model, params, dev) -> dict:
+    shape = INPUT_SHAPES["decode_32k"]
+    cfg, B, S = model.cfg, shape.global_batch, shape.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = model.init_cache(B, S, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for i in range(cfg.num_layers):     # in place: no f32 draw of 12.9 G values
+        cache["k"][i].normal_(generator=gen)
+        cache["v"][i].normal_(generator=gen)
+    cache["index"].fill_(S - 1)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    kv = nbytes(cache["k"], cache["v"])
+    want_kv = 2 * cfg.num_layers * B * S * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    if not kv == want_kv == DECODE_32K_KV_BYTES:
+        raise AssertionError(f"[serve] decode_32k KV bytes {kv} != {want_kv}")
+    toks = TokenPipeline(DataConfig(seed=3, vocab_size=256, seq_len=9, batch_size=B),
+                         device=dev).batch_at(0, 0)["tokens"]
+    ms = []
+    for t in range(8):
+        t0 = time.perf_counter()
+        logits, cache = model.serve_step(params, cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError("[serve] decode_32k: non-finite logits")
+    if cache["index"].tolist() != [S - 1 + 8] * cfg.num_layers:
+        raise AssertionError(f"[serve] decode_32k index {cache['index'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    weights = nbytes(*tree_leaves(params))
+    bound = (kv + weights) / HBM_BYTES_PER_S * 1e3
+    head_slice = B * S * cfg.resolved_head_dim
+    prof = _serve_profile(model, params, cache, toks[:, 8:9], head_slice)
+    r = {"batch": B, "cache_len": S, "index": S - 1, "fill_s": fill_s, "step_ms": ms,
+         "kv_bytes": kv, "weight_bytes": weights, "bound_ms": bound,
+         "peak_mem_bytes": peak, "profile": prof,
+         "tokens_per_s": B * len(ms) / (sum(ms) / 1e3)}
+    log(f"[serve] decode_32k (B {B}, cache {S}, index {S - 1}; filled in place in "
+        f"{fill_s:.2f} s): KV {kv} B == 2·L·B·S·KV·D·2; 8 serve steps ms "
+        f"{_ms_stats(ms)} against the bound {bound:.2f} ms ((KV {kv} + weights "
+        f"{weights}) B at 3.35 TB/s), {r['tokens_per_s']:.1f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; device busy {prof['busy_ms']} of "
+        f"{prof['wall_ms']:.2f} ms profiled (share {prof['busy_share']}); "
+        f"largest copy in a step {prof['largest_copy_numel']} values (< one "
+        f"KV head's slice of a layer's cache, {head_slice})")
+    return r
+
+
+def _prefill_32k(model, params, dev) -> dict:
+    S = INPUT_SHAPES["prefill_32k"].seq_len
+    toks = TokenPipeline(DataConfig(seed=4, vocab_size=256, seq_len=S, batch_size=1),
+                         device=dev).batch_at(0, 0)["tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits = model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ok = bool(torch.isfinite(logits[..., :model.cfg.vocab_size]).all())
+            del logits
+    peak = torch.cuda.max_memory_allocated()
+    if not ok:
+        raise AssertionError("[serve] prefill_32k: non-finite logits")
+    r = {"batch": 1, "seq": S, "ms": ms, "tokens_per_s": S / (min(ms) / 1e3),
+         "peak_mem_bytes": peak}
+    log(f"[serve] prefill_32k (batch cut 32 -> 1: the logits alone are "
+        f"{S * model.cfg.padded_vocab * 2} B per sequence): forward 1 x {S} in "
+        f"{[round(x, 1) for x in ms]} ms, {r['tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB")
+    return r
+
+
+def _chunk_hold(model, params, dev) -> dict:
+    from repro_torch.models.attention import multi_head_attention
+    from repro_torch.models.transformer import attn_spec
+
+    S = 4096
+    ap = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, S, model.cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    spec = attn_spec(model.cfg)
+    with torch.no_grad():
+        run = {"chunked": lambda: multi_head_attention(ap, x, spec),
+               "one block": lambda: multi_head_attention(ap, x, spec, q_chunk=S,
+                                                         kv_chunk=S)}
+        out = {k: f() for k, f in run.items()}
+        ms = {k: cuda_ms(f, reps=3, warmup=1) for k, f in run.items()}
+    one = out["one block"].float()
+    diff = float((out["chunked"].float() - one).abs().max())
+    band = CHUNK_BAND_REL * float(one.abs().max())
+    if not diff <= band:
+        raise AssertionError(f"[serve] chunked vs one block: {diff} > {band}")
+    log(f"[serve] chunked (1024 / 1024) vs one block, layer-0 attention at S = "
+        f"{S}, bf16: max |Δ| {diff:.5f} <= {band:.5f} ({CHUNK_BAND_REL} x max "
+        f"|out|); ms chunked {ms['chunked']:.2f}, one block {ms['one block']:.2f}")
+    return {"max_abs_diff": diff, "band": band, "ms": ms}
+
+
+def phase_serve(dev) -> dict:
+    """Full-width qwen2-0.5b, bf16: (a) BatchedServer, (b) decode_32k,
+    (c) prefill_32k, and the chunked path against one block."""
+    reset_counts()
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    params = model.init(device=dev, seed=0)
+    prompts = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=64,
+                                       batch_size=8), device=dev).batch_at(0, 0)["tokens"]
+    report = {"batched": _serve_run(f"[serve] {cfg.name} BatchedServer", model, params,
+                                    prompts, 64, 256, dev)}
+    torch.cuda.empty_cache()
+    report["decode_32k"] = _decode_32k(model, params, dev)
+    torch.cuda.empty_cache()
+    report["prefill_32k"] = _prefill_32k(model, params, dev)
+    torch.cuda.empty_cache()
+    report["chunked"] = _chunk_hold(model, params, dev)
+    _check_no_launches("[serve]")
+    return report
+
+
+def phase_serve_configs(dev) -> dict:
+    """qwen2.5-3b, qwen3-4b and phi3-medium-14b at full width, bf16, one at
+    a time: init on the card, BatchedServer batch 4 (max_seq 80), 32 + 32
+    tokens."""
+    reset_counts()
+    report = {}
+    for name in SERVE_DENSE[1:]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(get_config(name))
+        t0 = time.perf_counter()
+        params = model.init(device=dev, seed=0)
+        torch.cuda.synchronize()
+        init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        numel = sum(a.numel() for a in tree_leaves(params))
+        if numel != SERVE_TREE_NUMEL[name]:
+            raise AssertionError(f"[serve:configs] {name}: tree numel {numel}")
+        log(f"[serve:configs] {name}: init on the card {init_s:.2f} s, init peak "
+            f"{init_peak / 2**30:.2f} GiB; tree numel {numel} (param_count "
+            f"{model.cfg.param_count()}, which leaves out the norm scales)")
+        prompts = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=32,
+                                           batch_size=4), device=dev).batch_at(0, 0)["tokens"]
+        r = _serve_run(f"[serve:configs] {name}", model, params, prompts, 32, 80, dev)
+        report[name] = dict(r, init_s=init_s, init_peak_bytes=init_peak, numel=numel)
+        del params, model
+    _check_no_launches("[serve:configs]")
+    return report
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -2338,6 +2726,12 @@ def main() -> None:
         row = kernels[name]                 # worst hold: phase 2 or a run's operands
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [r[key] for r in report.values() if key in r])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_serve_small(dev)
+    serve = {"serve": phase_serve(dev), "configs": phase_serve_configs(dev)}
+    log("[serve] " + json.dumps(serve, default=str))
+    log(f"[serve] the serve phases took {time.perf_counter() - t0:.1f} s")
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -3,7 +3,8 @@
 The port's own copy of ``repro/configs/base.py`` (which cannot be imported:
 it pulls in JAX through ``repro.core.comm``). ``get_config(name)`` resolves
 ``configs/<id>.py``; ``reduced(cfg)`` is the CPU smoke-test variant of the
-same family. Slice 1 ports the dense family; other families raise.
+same family; ``INPUT_SHAPES`` are the reference's four workload shapes.
+The port has the dense family (four configs); other families raise.
 
 ``TrainSettings`` is the run-settings half: optimizer hyperparameters, the
 gradient-sync and elastic knobs, the fault schedule and checkpointing,
@@ -37,7 +38,7 @@ class ModelConfig:
     reference's ``ModelConfig``). Frozen: derive variants with replace()."""
 
     name: str
-    arch_type: str  # slice 1: "dense"
+    arch_type: str  # the port builds "dense" only
     num_layers: int
     d_model: int
     num_heads: int
@@ -67,8 +68,51 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
 
-ARCH_IDS = ["qwen2_0_5b"]
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic decode: SSM, hybrid, or sliding-window attention."""
+        return self.arch_type in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks) of the dense
+        family, the reference's formula: the norms' scales (and qk-norm's)
+        are not counted."""
+        if self.arch_type != "dense":
+            raise NotImplementedError(f"not yet ported: {self.arch_type} family")
+        d, v, h = self.d_model, self.padded_vocab, self.resolved_head_dim
+        n = v * d if self.tie_embeddings else 2 * v * d
+        attn = (d * self.num_heads * h + 2 * d * self.num_kv_heads * h
+                + self.num_heads * h * d)
+        if self.qkv_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * h
+        return n + self.num_layers * (attn + 3 * d * self.d_ff + 2 * d)
+
+    def active_param_count(self) -> int:
+        """Params touched per token: all of them in the dense family."""
+        return self.param_count()
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+#: the ported ids, in the reference's ``ARCH_IDS`` order
+ARCH_IDS = ["qwen3_4b", "qwen2_0_5b", "phi3_medium_14b", "qwen2_5_3b"]
 
 
 def _norm(name: str) -> str:
@@ -78,10 +122,14 @@ def _norm(name: str) -> str:
 def get_config(name: str) -> ModelConfig:
     if _norm(name) not in ARCH_IDS:
         raise NotImplementedError(
-            f"not yet ported: architecture {name!r} (slice 1 ports the "
+            f"not yet ported: architecture {name!r} (the port has the "
             f"dense family: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{_norm(name)}")
     return mod.CONFIG
+
+
+def list_configs() -> list[str]:
+    return list(ARCH_IDS)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

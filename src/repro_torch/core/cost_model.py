@@ -10,7 +10,7 @@ Ported: the wire-byte functions the emulated collectives are held to
 functions the six-mode simulation (``core.algorithms``) charges to its
 simulated clock, with the byte and time accounting of a membership
 change (``core.membership.reshard_optstate``, the shard driver's kills
-and joins). The one network preset is ``testbed()``, the paper's
+and joins), and Fig. 12's epoch time (``epoch_time``). The one network preset is ``testbed()``, the paper's
 InfiniBand ConnectX-4 cluster: it prices the simulated clock of the
 paper's experiments and describes no hardware this port runs on. The
 reference's second preset, a TPU's interconnect, is not carried over.
@@ -294,3 +294,32 @@ def allreduce_time(nbytes: float, p: int, net: NetParams, method: str,
         "tree": lambda: tree_allreduce_time(nbytes, p, net),
         "psum": lambda: ring_allreduce_time(nbytes, p, net),
     }[method]()
+
+
+def epoch_time(
+    *,
+    model_bytes: float,
+    num_workers: int,
+    num_clients: int,
+    num_servers: int,
+    steps_per_epoch: int,
+    compute_time_per_step: float,
+    net: NetParams,
+    mode: str,  # "dist" (pure PS) or "mpi" (hierarchical)
+    sync_every: int = 1,  # ESGD INTERVAL communicates every k steps
+) -> float:
+    """Fig. 12's quantity: average epoch wall time for one worker."""
+    per_client = num_workers // num_clients
+    if mode == "dist":
+        comm = ps_pushpull_time(model_bytes, num_workers, num_servers, net)
+    elif mode == "mpi":
+        intra = ring_allreduce_time(model_bytes, per_client, net)
+        to_ps = (
+            ps_pushpull_time(model_bytes, num_clients, num_servers, net)
+            if num_servers > 0
+            else 0.0
+        )
+        comm = intra + to_ps
+    else:
+        raise ValueError(mode)
+    return steps_per_epoch * (compute_time_per_step + comm / sync_every)

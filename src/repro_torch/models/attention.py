@@ -1,13 +1,19 @@
-"""Attention: GQA with RoPE / qk-norm / QKV-bias / sliding window.
+"""Attention: GQA with RoPE / qk-norm / QKV-bias / sliding window /
+prefix-LM, the chunked softmax for long sequences, and KV-cache decode.
 
-Plain PyTorch with an f32 masked softmax (``NEG_INF = -1e30``), the
-reference's ``repro/models/attention.py`` math on one KV block: scores in
-the activation dtype widened to f32, masked, exponentiated against the row
-max, the probabilities cast back for the value product, normalised in
-f32. No ``scaled_dot_product_attention``.
+Plain PyTorch with the reference's ``repro/models/attention.py`` math:
+scores in the activation dtype widened to f32, masked with ``NEG_INF =
+-1e30``, exponentiated against the running row max, the probabilities
+cast back for the value product, normalised in f32. The full-sequence
+path loops over query chunks with the KV range statically truncated
+(triangular skipping; the sliding window's ``k_lo``) and keeps a running
+(max, sum, acc) over KV blocks inside each chunk. A sequence that fits
+one chunk and one block runs the single-block softmax with no rescale.
+No ``scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -87,11 +93,56 @@ def _block_mask(qpos: torch.Tensor, kpos: torch.Tensor,
     return m
 
 
+def _softmax_blocks(q, k, v, qpos0: int, spec: AttnSpec,
+                    kv_chunk: int) -> torch.Tensor:
+    """Masked softmax attention of one query chunk over KV blocks.
+
+    q: (B, KV, G, qc, D); k / v: (B, KV, 1, Sk, D). Returns (B, KV, G, qc,
+    D) in q's dtype. The first block sets (max, sum, acc); each later one
+    rescales them by ``exp(m_old - m_new)`` (the reference's scan body).
+    """
+    qc, D = q.shape[-2], q.shape[-1]
+    Sk = k.shape[-2]
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    qpos = qpos0 + torch.arange(qc, device=dev)
+    m = l = acc = None
+    for lo in range(0, Sk, kv_chunk):
+        hi = min(lo + kv_chunk, Sk)
+        kb, vb = (k, v) if hi - lo == Sk else (k[..., lo:hi, :], v[..., lo:hi, :])
+        s = (q @ kb.transpose(-1, -2)).float() * scale
+        s = torch.where(_block_mask(qpos, torch.arange(lo, hi, device=dev), spec),
+                        s, NEG_INF)
+        if m is None:
+            m = torch.clamp(torch.amax(s, dim=-1), min=NEG_INF)
+            p = torch.exp(s - m[..., None])
+            l = torch.sum(p, dim=-1)
+            acc = (p.to(q.dtype) @ vb).float()
+            continue
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + (p.to(q.dtype) @ vb).float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _shift_spec(spec: AttnSpec, k_lo: int) -> AttnSpec:
+    """The spec seen from a KV range that starts at ``k_lo``."""
+    if k_lo == 0 or spec.prefix_len == 0:
+        return spec
+    return dataclasses.replace(spec, prefix_len=max(0, spec.prefix_len - k_lo))
+
+
 def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
                          x_kv: Optional[torch.Tensor] = None,
-                         positions: Optional[torch.Tensor] = None
+                         positions: Optional[torch.Tensor] = None,
+                         q_chunk: int = 1024, kv_chunk: int = 1024
                          ) -> torch.Tensor:
-    """Full-sequence attention (train / prefill). x: (B, S, d)."""
+    """Full-sequence attention (train / prefill / encoder / cross).
+    x: (B, S, d). Query chunks of ``q_chunk`` attend KV blocks of
+    ``kv_chunk``; a causal chunk skips the blocks past its diagonal."""
     B, Sq, _ = x.shape
     x_kv = x if x_kv is None else x_kv
     Sk = x_kv.shape[1]
@@ -104,14 +155,97 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     q = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)   # (B, KV, G, Sq, D)
     k = k.permute(0, 2, 1, 3)[:, :, None]                   # (B, KV, 1, Sk, D)
     v = v.permute(0, 2, 1, 3)[:, :, None]
-    s = (q @ k.transpose(-1, -2)).float() * (1.0 / math.sqrt(D))
-    mask = _block_mask(torch.arange(Sq, device=dev),
-                       torch.arange(Sk, device=dev), spec)
-    s = torch.where(mask, s, NEG_INF)
-    m = torch.clamp(torch.amax(s, dim=-1), min=NEG_INF)
-    p = torch.exp(s - m[..., None])
-    l = torch.sum(p, dim=-1)
-    acc = (p.to(q.dtype) @ v).float()
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    if Sq <= q_chunk:
+        out = _softmax_blocks(q, k, v, 0, spec, kv_chunk)
+    else:
+        outs = []
+        for lo in range(0, Sq, q_chunk):  # static triangular KV truncation
+            hi = min(lo + q_chunk, Sq)
+            k_lo, k_hi = 0, Sk
+            if spec.causal and spec.prefix_len == 0:
+                k_hi = hi  # blocks past the diagonal are skipped
+                if spec.sliding_window > 0:
+                    k_lo = max(0, (lo - spec.sliding_window) // kv_chunk * kv_chunk)
+            outs.append(_softmax_blocks(
+                q[..., lo:hi, :], k[..., k_lo:k_hi, :], v[..., k_lo:k_hi, :],
+                lo - k_lo, _shift_spec(spec, k_lo), kv_chunk))
+        out = torch.cat(outs, dim=-2)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, spec.num_heads * D)
     return out @ params["wo"]
+
+
+def reference_attention(params: dict, x: torch.Tensor, spec: AttnSpec,
+                        x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """O(S^2) oracle used by tests: one score block, ``torch.softmax``."""
+    B, Sq, _ = x.shape
+    x_kv = x if x_kv is None else x_kv
+    Sk = x_kv.shape[1]
+    dev = x.device
+    q, k, v = _project_qkv(params, x, x_kv, spec,
+                           torch.arange(Sq, device=dev)[None, :],
+                           torch.arange(Sk, device=dev)[None, :])
+    KV, G, D = spec.num_kv_heads, spec.num_heads // spec.num_kv_heads, spec.head_dim
+    q = q.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() / math.sqrt(D)
+    mask = _block_mask(torch.arange(Sq, device=dev), torch.arange(Sk, device=dev), spec)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(x.dtype), v)
+    return out.reshape(B, Sq, spec.num_heads * D) @ params["wo"]
+
+
+# --------------------------------------------------------------------------
+# KV-cache decode
+# --------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_seq: int, spec: AttnSpec, dtype,
+                  device) -> dict:
+    """Sliding-window specs allocate only a window-sized rolling buffer."""
+    size = min(max_seq, spec.sliding_window) if spec.sliding_window else max_seq
+    shape = (batch, size, spec.num_kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(params: dict, x: torch.Tensor, cache: dict,
+                     spec: AttnSpec) -> tuple[torch.Tensor, dict]:
+    """One-token decode: x (B, 1, d). Returns (out (B, 1, d), new cache).
+
+    The new k / v are written into the cache's own storage (a donated
+    buffer: the cache passed in is consumed) and the returned cache holds
+    the same tensors, with ``index + 1`` a new tensor. Slot, mask and
+    position stay on the device: no host sync. The scores and the value
+    product read the (B, S, KV, D) cache in place, one strided KV head
+    at a time.
+    """
+    B = x.shape[0]
+    idx = cache["index"]
+    q, k_new, v_new = _project_qkv(params, x, x, spec, idx[None, None],
+                                   idx[None, None])
+    k_cache, v_cache = cache["k"], cache["v"]
+    size = k_cache.shape[1]
+    slot = idx % size if spec.sliding_window > 0 else torch.clamp(idx, max=size - 1)
+    at = slot.long().reshape(1)
+    k_cache.index_copy_(1, at, k_new)
+    v_cache.index_copy_(1, at, v_new)
+
+    KV, G, D = spec.num_kv_heads, spec.num_heads // spec.num_kv_heads, spec.head_dim
+    q = q.reshape(B, KV, G, D)
+    s = torch.stack([q[:, h] @ k_cache[:, :, h].transpose(1, 2)
+                     for h in range(KV)], dim=1)          # (B, KV, G, S)
+    s = s.float() * (1.0 / math.sqrt(D))
+    slots = torch.arange(size, device=x.device)
+    if spec.sliding_window > 0:
+        # rolling buffer: a slot is valid if written within the last `size`
+        # steps (including the token just inserted at `slot`)
+        valid = (slot - slots) % size <= torch.clamp(idx, max=size - 1)
+    else:
+        valid = slots <= idx
+    s = torch.where(valid, s, NEG_INF)
+    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = (e / torch.sum(e, dim=-1, keepdim=True)).to(x.dtype)
+    out = torch.stack([p[:, h] @ v_cache[:, :, h] for h in range(KV)], dim=1)
+    out = out.reshape(B, 1, spec.num_heads * D) @ params["wo"]
+    return out, {"k": k_cache, "v": v_cache, "index": idx + 1}

@@ -18,7 +18,8 @@ def dense_init(gen: torch.Generator | None, fan_in: int, shape, dtype,
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w / max(fan_in, 1) ** 0.5).to(dtype)
+    # in place: no second f32 copy of a large leaf before the cast
+    return w.div_(max(fan_in, 1) ** 0.5).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,14 +1,22 @@
 """Model API: ``build_model(cfg)`` returns a ``Model`` whose functions are
 
   init(device, seed=0)      -> params (nested dict, stacked layer leaves)
-  loss_fn(params, batch)    -> (loss, metrics)
-  forward(params, batch)    -> logits
+  loss_fn(params, batch)    -> (loss, metrics)                [train_4k]
+  forward(params, batch)    -> logits                         [prefill_32k]
+  init_cache(batch, max_seq, device) -> KV cache              [decode shapes]
+  serve_step(params, cache, tokens)  -> (logits, cache)       [one new token]
+  input_specs(shape)        -> ``meta`` tensors standing in for the batch
   overlap_stages(num_buckets) -> OverlapStages (loss_fn as a stage chain
                                for the backward-overlapped step)
 
-Slice 1 ports the dense decoder family (``repro/models/model.py``
+The port has the dense decoder family (``repro/models/model.py``
 ``_build_decoder``). ``init(device="meta")`` gives shape-only params, the
-counterpart of ``jax.eval_shape(model.init, ...)``.
+counterpart of ``jax.eval_shape(model.init, ...)``; ``input_specs`` is the
+counterpart of the reference's ``ShapeDtypeStruct`` batches.
+
+``serve_step`` consumes the cache it is given, as a donated buffer: the
+new token's k / v are written into its storage in place, and the cache it
+returns holds the same tensors.
 """
 from __future__ import annotations
 
@@ -17,9 +25,14 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.transformer import apply_stack, init_stack
+from repro_torch.models.transformer import (
+    apply_stack,
+    decode_stack,
+    init_stack,
+    init_stack_cache,
+)
 from repro_torch.tree import tree_map
 
 XENT_CHUNK = 512
@@ -31,6 +44,9 @@ class Model:
     init: Callable
     loss_fn: Callable
     forward: Callable
+    init_cache: Callable
+    serve_step: Callable
+    input_specs: Callable
     # backward-overlap staging: overlap_stages(num_buckets) -> OverlapStages
     # splitting loss_fn into a chain of stages whose param subtrees become
     # the reduce-scatter schedule buckets. None = no staged form.
@@ -96,11 +112,9 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         logits = x @ p["lm_head"]
     pad = cfg.padded_vocab - cfg.vocab_size
-    if pad:  # mask padded vocab ids
+    if pad:  # mask padded vocab ids (a Python scalar: no host-to-device copy)
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-        logits = torch.where(valid, logits,
-                             torch.tensor(-1e30, dtype=logits.dtype,
-                                          device=x.device))
+        logits = torch.where(valid, logits, -1e30)
     return logits
 
 
@@ -162,8 +176,34 @@ def _build_decoder(cfg: ModelConfig, dtype) -> Model:
         xent = _sequence_xent(p, h, batch["labels"], cfg)
         return xent + aux, {"xent": xent, "aux": aux}
 
-    return Model(cfg, init, loss_fn, forward,
+    def init_cache(batch: int, max_seq: int, device="cuda") -> dict:
+        from repro_torch.launch.train import resolve_device
+
+        return init_stack_cache(batch, max_seq, cfg, dtype,
+                                resolve_device(device))
+
+    @torch.no_grad()
+    def serve_step(p, cache, tokens):
+        x = _embed(p, tokens, cfg)  # (B, 1, d)
+        x, cache = decode_stack(p["layers"], x, cache, cfg)
+        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+        return _logits(p, x, cfg), cache
+
+    return Model(cfg, init, loss_fn, forward, init_cache, serve_step,
+                 _decoder_specs,
                  overlap_stages=_decoder_overlap_stages(cfg, loss_fn))
+
+
+def _decoder_specs(shape: InputShape) -> dict:
+    """The batch of ``shape`` as ``meta`` tensors (shape and dtype only)."""
+    B, S = shape.global_batch, shape.seq_len
+    tok = lambda *dims: torch.empty(dims, dtype=torch.int32, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": tok(B, 1)}
+    batch = {"tokens": tok(B, S)}
+    if shape.kind == "train":
+        batch["labels"] = tok(B, S)
+    return batch
 
 
 def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:

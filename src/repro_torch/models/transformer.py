@@ -1,16 +1,24 @@
-"""Block composition: pre-norm dense transformer blocks and the layer stack.
+"""Block composition: pre-norm dense transformer blocks, the layer stack
+and its one-token decode.
 
 The layer params stay stacked — every leaf has a leading ``(L, …)`` dim —
 so the param tree, and with it the FlatBuffer layout, is the reference's
-(``repro/models/transformer.py``). A Python loop over ``L`` replaces
-``lax.scan``.
+(``repro/models/transformer.py``); so is the decode cache's (``k`` / ``v``
+of (L, B, S, KV, D), ``index`` of (L,) int32). A Python loop over ``L``
+replaces ``lax.scan``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import AttnSpec, init_attention, multi_head_attention
+from repro_torch.models.attention import (
+    AttnSpec,
+    decode_attention,
+    init_attention,
+    init_kv_cache,
+    multi_head_attention,
+)
 from repro_torch.models.layers import ffn, init_ffn, rms_norm
 from repro_torch.tree import tree_map
 
@@ -53,6 +61,15 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + ffn(params["mlp"], h), aux
 
 
+def decode_block(params: dict, x: torch.Tensor, cache: dict,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
+    a, cache = decode_attention(params["attn"], h, cache, attn_spec(cfg))
+    x = x + a
+    h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
+    return x + ffn(params["mlp"], h), cache
+
+
 def init_stack(gen, cfg: ModelConfig, dtype, device) -> dict:
     return init_block(gen, cfg, dtype, device, layers=cfg.num_layers)
 
@@ -67,3 +84,23 @@ def apply_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig, *,
         x, a = apply_block(layer, x, cfg, prefix_len=prefix_len)
         aux = aux + a
     return x, aux
+
+
+def decode_stack(stacked: dict, x: torch.Tensor, caches: dict,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One token through every layer; each layer's k / v are written in
+    place into its slice of the stacked cache."""
+    index = []
+    for i in range(stacked["attn_norm"].shape[0]):
+        layer = tree_map(lambda a: a[i], stacked)
+        x, c = decode_block(layer, x, tree_map(lambda a: a[i], caches), cfg)
+        index.append(c["index"])
+    return x, {"k": caches["k"], "v": caches["v"], "index": torch.stack(index)}
+
+
+def init_stack_cache(batch: int, max_seq: int, cfg: ModelConfig, dtype,
+                     device) -> dict:
+    one = init_kv_cache(batch, max_seq, attn_spec(cfg), dtype, "meta")
+    return {name: torch.zeros((cfg.num_layers,) + tuple(a.shape), dtype=a.dtype,
+                              device=device)
+            for name, a in one.items()}

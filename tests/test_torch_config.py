@@ -12,10 +12,10 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.configs import base as jbase  # noqa: E402
-from repro.core import comm as jcomm, hierarchy as jhier  # noqa: E402
+from repro.core import comm as jcomm, cost_model as jcost, hierarchy as jhier  # noqa: E402
 from repro.data.pipeline import DataConfig as JDataConfig, TokenPipeline as JTokenPipeline  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
-from repro_torch.core import comm as tcomm, hierarchy as thier  # noqa: E402
+from repro_torch.core import comm as tcomm, cost_model as tcost, hierarchy as thier  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 
 torch.set_num_threads(2)
@@ -37,6 +37,65 @@ def test_qwen2_config_equals_reference(reduce):
         assert value == jf[name], name
     assert t.padded_vocab == j.padded_vocab
     assert t.resolved_head_dim == j.resolved_head_dim
+
+
+DENSE = ["qwen2-0.5b", "qwen2.5-3b", "qwen3-4b", "phi3-medium-14b"]
+
+
+@pytest.mark.parametrize("reduce", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", DENSE[1:])
+def test_dense_config_equals_reference(arch, reduce):
+    """The three other dense configs field for field (and qwen2-0.5b's
+    derived flags with them)."""
+    j, t = jbase.get_config(arch), tbase.get_config(arch)
+    if reduce:
+        j, t = jbase.reduced(j), tbase.reduced(t)
+    jf = _fields(j)
+    for name, value in _fields(t).items():
+        assert value == jf[name], name
+    assert t.padded_vocab == j.padded_vocab
+    assert t.resolved_head_dim == j.resolved_head_dim
+    for a, b in ((t, j), (tbase.get_config(DENSE[0]), jbase.get_config(DENSE[0]))):
+        assert a.supports_long_decode == b.supports_long_decode
+        assert a.is_attention_free == b.is_attention_free
+
+
+@pytest.mark.parametrize("arch, count", [
+    ("qwen2-0.5b", 494_146_560), ("qwen2.5-3b", 3_086_198_784),
+    ("qwen3-4b", 4_412_067_840), ("phi3-medium-14b", 14_659_502_080)])
+def test_param_counts_equal_reference(arch, count):
+    j, t = jbase.get_config(arch), tbase.get_config(arch)
+    assert t.param_count() == j.param_count() == count
+    assert t.active_param_count() == j.active_param_count() == count
+    assert tbase.reduced(t).param_count() == jbase.reduced(j).param_count()
+
+
+def test_input_shapes_and_config_list_equal_reference():
+    assert {k: dataclasses.asdict(v) for k, v in tbase.INPUT_SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jbase.INPUT_SHAPES.items()}
+    ported = tbase.list_configs()
+    assert ported == [a for a in jbase.list_configs() if a in ported]
+    assert sorted(ported) == sorted(a.replace("-", "_").replace(".", "_") for a in DENSE)
+    for arch in ported:
+        assert tbase.get_config(arch).citation == jbase.get_config(arch).citation
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="dist", num_workers=12, num_clients=12, num_servers=2),
+    dict(mode="mpi", num_workers=12, num_clients=2, num_servers=2),
+    dict(mode="mpi", num_workers=8, num_clients=2, num_servers=0),
+    dict(mode="mpi", num_workers=16, num_clients=4, num_servers=1, sync_every=8),
+    dict(mode="dist", num_workers=4, num_clients=4, num_servers=3, sync_every=64),
+])
+@pytest.mark.parametrize("model_bytes", [1e8, 4 * 494_147_584])
+def test_epoch_time_equals_reference(kw, model_bytes):
+    common = dict(model_bytes=model_bytes, steps_per_epoch=100,
+                  compute_time_per_step=0.5)
+    want = jcost.epoch_time(net=jcost.testbed(), **common, **kw)
+    got = tcost.epoch_time(net=tcost.testbed(), **common, **kw)
+    assert got == want
+    with pytest.raises(ValueError):
+        tcost.epoch_time(net=tcost.testbed(), **common, **dict(kw, mode="nope"))
 
 
 @pytest.mark.parametrize("v", [1, 255, 256, 1000, 151936])

@@ -667,3 +667,45 @@ def test_reduced_faulted_run_card_matches_cpu(cuda):
     assert g.live_clients == 1 and g.membership_epochs == 1
     torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
                                rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-4b", "phi3-medium-14b"])
+def test_reduced_serve_card_matches_cpu(cuda, name):
+    """The reduced serve path on the card against the CPU from the same
+    weights (f32, TF32 off): 8 teacher-forced serve steps' logits and the
+    cache within rtol 1e-4, the greedy tokens of ``BatchedServer`` equal,
+    and none of the 14 kernels launched."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_map
+
+    wrappers = (fs.sgd_momentum_flat, fo.adamw_flat, fo.adagrad_flat,
+                qb.quantize_wire, qb.dequantize_wire, qb.quantize_flat,
+                qb.dequantize_flat, tr.group_reduce_flat, fe.elastic_exchange_flat,
+                fe.elastic_client_flat, fe.elastic_server_flat,
+                fe.elastic_client_diff_flat, fe.elastic_center_flat,
+                fe.elastic_exchange_flat_mc)
+    before = [w.launches for w in wrappers]
+    model = build_model(reduced(get_config(name)))
+    p0 = model.init(device="cpu", seed=0)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0), dtype=torch.int32)
+    logits, caches, greedy = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda a: a.to(dev), p0)
+        cache = model.init_cache(2, 8, dev)
+        steps = []
+        for t in range(toks.shape[1]):
+            out, cache = model.serve_step(params, cache, toks[:, t:t + 1].to(dev))
+            steps.append(out.cpu())
+        logits[dev], caches[dev] = torch.cat(steps, 1), tree_map(lambda a: a.cpu(), cache)
+        srv = BatchedServer(model, params, batch=2, max_seq=16, device=dev)
+        greedy[dev] = srv.generate(toks[:, :4].to(dev), steps=6).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(caches["cuda"][key], caches["cpu"][key],
+                                   rtol=1e-4, atol=1e-5)
+    assert torch.equal(caches["cuda"]["index"], caches["cpu"]["index"])
+    assert torch.equal(greedy["cuda"], greedy["cpu"])
+    assert [w.launches for w in wrappers] == before

@@ -32,9 +32,11 @@ from repro_torch.kernels.fused_elastic import fused_elastic
 from repro_torch.kernels.fused_optim import fused_optim
 from repro_torch.kernels.fused_sgd import fused_sgd
 from repro_torch.kernels.quant_bucket import quant_bucket
-from repro_torch.launch import shard_driver
+from repro_torch.launch import serve, shard_driver
 from repro_torch.optim import sgd
 model = build_model(reduced(get_config("qwen2-0.5b")))
+srv = serve.BatchedServer(model, model.init(device="cpu"), batch=2, max_seq=8, device="cpu")
+assert tuple(srv.generate(torch.tensor([[1, 2], [3, 4]], dtype=torch.int32), 3).shape) == (2, 3)
 s = TrainSettings(optimizer_name="adamw", lr=1e-3)
 state = make_train_state(model, s.optimizer(), s.sync_config(), device="cpu")
 step = make_train_step(model, s.optimizer(), s.sync_config(), device="cpu")
