@@ -108,6 +108,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  numel, init peak), BatchedServer batch 4, 32 + 32 tokens
                  with b)'s holds, ms per token beside the weight bound
 
+ 10. families slice 9, the MoE, SSM and hybrid families, the wall time of
+              each phase printed:
+              a) [families:small] qwen2-moe-a2.7b, mixtral-8x7b, mamba2-130m
+                 and zamba2-1.2b reduced, f32, the same weights: 3
+                 momentum-SGD steps card == CPU (rtol 1e-4) with
+                 sgd_momentum_flat launched once per step, 12 serve steps'
+                 logits and caches within rtol 1e-4 / atol 1e-5, greedy
+                 tokens equal, no kernel launched while serving
+              b) [families] full width in bf16, the bytes reckoned first:
+                 training (3 steps) mamba2-130m 8 x 512, zamba2-1.2b 4 x 512,
+                 qwen2-moe-a2.7b cut to 3 layers 4 x 512 — falling losses,
+                 sgd_momentum_flat launches == steps, the kernel held on one
+                 more step's operands, step ms, peak memory, device busy;
+                 serving (BatchedServer) mamba2-130m B 8 64 + 64, zamba2-1.2b
+                 B 4 32 + 32, qwen2-moe-a2.7b (all 24 layers) and mixtral-8x7b
+                 (cut to 8 layers) B 4 32 + 32 — ms per token beside the
+                 bytes bound (weights + cache), tokens/s, peak memory, busy,
+                 0 launches, no host sync; mamba2 / zamba2 decode against
+                 forward over the served tokens, in f32 within 1e-3 of max
+                 |logit| (the bf16 divergence printed)
+
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
 full-width buffer, n = 494,147,584, and slice 4's four (group_reduce_flat
@@ -123,6 +144,7 @@ Prints a ``kernels`` JSON line, the card line, and last the ok line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -2687,6 +2709,257 @@ def phase_serve_configs(dev) -> dict:
     return report
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the MoE, SSM and hybrid families (trained and served)
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-130m", "zamba2-1.2b")
+FAMILY_STEPS = 3
+#: the update leg's peak per param at p = 1 with bf16 params: the params
+#: and grads (bf16), the momentum (f32), the packed grads and params (f32)
+#: and both kernel outputs (f32)
+TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4 + 4 + 4 + 4
+#: [families] training cells: (config, depth, batch, seq, lr). qwen2-moe
+#: is cut to 3 of 24 layers: 2.34 G params x 24 B = 56 GB (4 layers would
+#: be 70 GB before activations); mixtral trains nowhere near one card.
+FAMILY_TRAIN = (("mamba2-130m", 24, 8, 512, 0.1), ("zamba2-1.2b", 38, 4, 512, 0.1),
+                ("qwen2-moe-a2.7b", 3, 4, 512, 0.1))
+#: [families] serving cells: (config, depth, batch, prompt, new tokens)
+FAMILY_SERVE = (("mamba2-130m", 24, 8, 64, 64), ("zamba2-1.2b", 38, 4, 32, 32),
+                ("qwen2-moe-a2.7b", 24, 4, 32, 32), ("mixtral-8x7b", 8, 4, 32, 32))
+#: f32 decode against f32 forward over the served tokens: |Δlogit| <= this
+#: x max |forward logit| (CPU at full width, 4 / 8 layers: 1.9e-6 / 8.7e-6)
+FAMILY_F32_BAND_REL = 1e-3
+
+
+def _family_cfg(name: str, depth: int):
+    return dataclasses.replace(get_config(name), num_layers=depth)
+
+
+def phase_families_small(dev) -> None:
+    """The four reduced configs from the same weights, f32: 3 momentum-SGD
+    steps on the card (one sgd_momentum_flat launch each) against the CPU,
+    losses within rtol 1e-4; 12 teacher-forced serve steps' logits and the
+    cache within rtol 1e-4 / atol 1e-5 and BatchedServer's greedy tokens
+    equal, with no launch of the 14 kernels."""
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=80, batch_size=4))
+    for name in FAMILIES:
+        model = build_model(reduced(get_config(name)))
+        p0 = model.init(device="cpu", seed=0)
+        toks = torch.randint(0, model.cfg.vocab_size, (2, 12),
+                             generator=torch.Generator().manual_seed(0),
+                             dtype=torch.int32)
+        out = {}
+        for d in ("cpu", dev):
+            opt, sync = sgd_optimizer(0.1, momentum=0.9), SyncConfig()
+            state = make_train_state(model, opt, sync, device="cpu")
+            state["params"] = p0
+            state = tree_map(lambda a: a.to(d), state)
+            step = make_train_step(model, opt, sync, device=d)
+            reset_counts()
+            losses = []
+            for i in range(FAMILY_STEPS):
+                state, met = step(state, pipe.batch_at(0, i))
+                losses.append(float(met["loss"]))
+            launches = counts(ALL_KERNELS)
+            del state, step
+            reset_counts()
+            params = tree_map(lambda a: a.to(d), p0)
+            cache = model.init_cache(2, 16, d)
+            steps = []
+            for t in range(toks.shape[1]):
+                logits, cache = model.serve_step(params, cache, toks[:, t:t + 1].to(d))
+                steps.append(logits.cpu())
+            srv = BatchedServer(model, params, batch=2, max_seq=24, device=d)
+            greedy = srv.generate(toks[:, :6].to(d), 8).cpu()
+            if str(torch.device(d).type) == "cuda":
+                _check_launches(f"[families:small] {name} train", launches,
+                                {"sgd_momentum_flat": FAMILY_STEPS}, FAMILY_STEPS)
+                _check_no_launches(f"[families:small] {name} serve")
+            out[torch.device(d).type] = (losses, torch.cat(steps, 1),
+                                         tree_map(lambda a: a.cpu(), cache), greedy)
+        (cl, clog, cc, cg), (gl, glog, gc, gg) = out["cpu"], out["cuda"]
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl), rtol=1e-4, atol=0)
+        torch.testing.assert_close(glog, clog, rtol=1e-4, atol=1e-5)
+        for a, b in zip(tree_leaves(gc), tree_leaves(cc)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        if not torch.equal(gg, cg):
+            raise AssertionError(f"[families:small] {name}: greedy tokens differ: "
+                                 f"{gg.tolist()} vs {cg.tolist()}")
+        log(f"[families:small] {name} (reduced, f32): {FAMILY_STEPS} train steps "
+            f"card {[round(x, 5) for x in gl]} == cpu (rtol 1e-4), "
+            f"sgd_momentum_flat {FAMILY_STEPS} launches; 12 serve steps card == cpu "
+            f"(max |Δlogit| {float((glog - clog).abs().max()):.2e}, rtol 1e-4 atol "
+            f"1e-5), cache held, greedy {gg.tolist()} == cpu")
+
+
+def _family_bytes(cfg) -> dict:
+    """The full-width cell's bytes, reckoned from shapes before any
+    allocation: the param tree, its bf16 weights, the training peak at
+    TRAIN_BYTES_PER_PARAM and init's largest leaf drawn in f32."""
+    meta = build_model(cfg).init(device="meta")
+    numel = sum(a.numel() for a in tree_leaves(meta))
+    return {"numel": numel, "weight_bytes": nbytes(*tree_leaves(meta)),
+            "train_bytes": numel * TRAIN_BYTES_PER_PARAM,
+            "init_f32_leaf_bytes": max(a.numel() for a in tree_leaves(meta)) * 4}
+
+
+def _family_train(name, depth, B, S, lr, dev) -> dict:
+    cfg = _family_cfg(name, depth)
+    model = build_model(cfg)
+    opt, sync = sgd_optimizer(lr, momentum=0.9), SyncConfig()
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=S, batch_size=B),
+                         device=dev)
+    batches = [pipe.batch_at(0, i) for i in range(FAMILY_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, opt, sync, device=dev)
+    step = make_train_step(model, opt, sync, device=dev)
+    label = f"[families] {name} train ({depth} layers, {B} x {S})"
+    losses, step_ms = [], []
+    reset_counts()
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    got = counts(ALL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(label, got, {"sgd_momentum_flat": FAMILY_STEPS}, FAMILY_STEPS)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall {losses}")
+    with _KernelHold() as hold:           # one more step, not timed
+        step(state, batches[0])
+    share, busy_ms, wall_ms = _device_busy(step, state, batches[0])
+    r = {"depth": depth, "batch": B, "seq": S, "lr": lr, "losses": losses,
+         "step_ms": step_ms, "peak_mem_bytes": peak,
+         "launches": {k: v for k, v in got.items() if v},
+         "hold_max_abs_err": hold.err.get("sgd_momentum_flat"),
+         "device_busy_share": share, "device_busy_ms": busy_ms,
+         "profiled_step_ms": wall_ms}
+    log(f"{label}: losses {[round(x, 4) for x in losses]} falling; step ms "
+        f"{[round(x, 1) for x in step_ms]}; peak {peak / 2**30:.2f} GiB; launches "
+        f"{r['launches']}; kernel hold ({'; '.join(hold.calls)}) == plain: "
+        f"max_abs_err {r['hold_max_abs_err']}; device busy {busy_ms} of "
+        f"{wall_ms:.1f} ms profiled (share {share})")
+    del state, step
+    torch.cuda.empty_cache()
+    return r
+
+
+def _hold_decode_vs_forward_f32(label, model, params, seq) -> dict:
+    """The served tokens again, in f32 (TF32 off): every teacher-forced
+    serve step's logits against f32 ``forward`` over the same tokens,
+    within FAMILY_F32_BAND_REL of max |logit| — the SSM decode path against
+    the chunked SSD at the card's full width."""
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    m32 = build_model(cfg)
+    p32 = tree_map(lambda a: a.float(), params)
+    V = cfg.vocab_size
+    with torch.no_grad():
+        fl = m32.forward(p32, {"tokens": seq}).float()[..., :V]
+        cache = m32.init_cache(seq.shape[0], seq.shape[1], seq.device)
+        dec = []
+        for t in range(seq.shape[1]):
+            logits, cache = m32.serve_step(p32, cache, seq[:, t:t + 1])
+            dec.append(logits.float()[..., :V])
+    dec = torch.cat(dec, 1)
+    scale = float(fl.abs().max())
+    diff = float((dec - fl).abs().max())
+    if not diff <= FAMILY_F32_BAND_REL * scale:
+        raise AssertionError(f"{label}: f32 decode vs forward max |Δ| {diff} > "
+                             f"{FAMILY_F32_BAND_REL} x {scale}")
+    del p32, cache, fl, dec
+    return {"f32_max_abs_diff": diff, "f32_scale": scale,
+            "f32_band": FAMILY_F32_BAND_REL * scale}
+
+
+def _family_serve(name, depth, B, P, new, dev) -> dict:
+    cfg = _family_cfg(name, depth)
+    model = build_model(cfg)
+    label = f"[families] {name} serve ({depth} layers)"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    prompts = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=P, batch_size=B),
+                            device=dev).batch_at(0, 0)["tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    max_seq = P + new
+    srv = BatchedServer(model, params, batch=B, max_seq=max_seq, device=dev)
+    rec = _StepRecorder(srv)
+    out = srv.generate(prompts, new)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (B, new) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: tokens {tuple(out.shape)} max {int(out.max())}")
+    logits = torch.cat(rec.logits, 1)[..., :cfg.vocab_size]
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    cache_bytes = nbytes(*tree_leaves(srv.cache))
+    weights = nbytes(*tree_leaves(params))
+    gen_ms = rec.ms[P:]
+    _no_sync_step(model, params, srv.cache, out[:, -1:])
+    prof = _serve_profile(model, params, srv.cache, out[:, -1:])
+    r = {"depth": depth, "batch": B, "prompt": P, "new": new, "max_seq": max_seq,
+         "init_s": init_s, "init_peak_bytes": init_peak,
+         "prefill_ms": sum(rec.ms[:P]), "step_ms": rec.ms,
+         "gen_ms_median": sorted(gen_ms)[len(gen_ms) // 2],
+         "gen_ms_min": min(gen_ms), "gen_ms_max": max(gen_ms),
+         "tokens_per_s": B * len(gen_ms) / (sum(gen_ms) / 1e3),
+         "peak_mem_bytes": peak, "weight_bytes": weights, "cache_bytes": cache_bytes,
+         "bound_ms": (weights + cache_bytes) / HBM_BYTES_PER_S * 1e3, "profile": prof}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        seq = torch.cat([prompts, out], dim=1)
+        with torch.no_grad():
+            fl = model.forward(params, {"tokens": seq}).float()[..., :cfg.vocab_size]
+        bf16_rel = float((logits.float() - fl).abs().max() / fl.abs().max())
+        del fl
+        r["bf16_decode_vs_forward_rel"] = bf16_rel
+        r.update(_hold_decode_vs_forward_f32(label, model, params, seq))
+        log(f"{label} decode vs forward over {seq.shape[1]} tokens: f32 max |Δlogit| "
+            f"{r['f32_max_abs_diff']:.3e} <= {r['f32_band']:.3e} "
+            f"({FAMILY_F32_BAND_REL} x max |logit| {r['f32_scale']:.3f}); bf16 "
+            f"(the served run) max |Δlogit| {bf16_rel:.4f} of max |logit|")
+    log(f"{label}: init {init_s:.2f} s, init peak {init_peak / 2**30:.2f} GiB; batch "
+        f"{B}, {P}-token prompts, {new} new tokens: prefill {r['prefill_ms']:.1f} ms, "
+        f"ms per generated token {_ms_stats(gen_ms)} (bytes bound {r['bound_ms']:.3f}: "
+        f"weights {weights} + cache {cache_bytes} B at 3.35 TB/s), "
+        f"{r['tokens_per_s']:.1f} tokens/s; peak {peak / 2**30:.2f} GiB; a serve step "
+        f"under sync debug mode 'error' made no host sync; device busy "
+        f"{prof['busy_ms']} of {prof['wall_ms']:.2f} ms profiled (share "
+        f"{prof['busy_share']})")
+    del srv, rec, params, logits
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_families(dev) -> dict:
+    """Full width in bf16, depth cut where one card forces it: the bytes
+    reckoned first, then the training cells (FAMILY_STEPS momentum-SGD
+    steps each) and the serving cells (BatchedServer), one at a time."""
+    for name, depth in dict.fromkeys(c[:2] for c in FAMILY_TRAIN + FAMILY_SERVE):
+        b = _family_bytes(_family_cfg(name, depth))
+        log(f"[families] bytes {name} at {depth} layers: {b['numel']} params, bf16 "
+            f"weights {b['weight_bytes'] / 1e9:.2f} GB, training at "
+            f"{TRAIN_BYTES_PER_PARAM} B/param {b['train_bytes'] / 1e9:.2f} GB, init's "
+            f"largest leaf in f32 {b['init_f32_leaf_bytes'] / 1e9:.2f} GB")
+    report = {"train": {}, "serve": {}}
+    for name, depth, B, S, lr in FAMILY_TRAIN:
+        report["train"][name] = _family_train(name, depth, B, S, lr, dev)
+    reset_counts()
+    for name, depth, B, P, new in FAMILY_SERVE:
+        report["serve"][name] = _family_serve(name, depth, B, P, new, dev)
+    _check_no_launches("[families] serve")
+    return report
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -2732,6 +3005,17 @@ def main() -> None:
     serve = {"serve": phase_serve(dev), "configs": phase_serve_configs(dev)}
     log("[serve] " + json.dumps(serve, default=str))
     log(f"[serve] the serve phases took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_families_small(dev)
+    log(f"[families:small] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families = phase_families(dev)
+    log("[families] " + json.dumps(families, default=str))
+    log(f"[families] took {time.perf_counter() - t0:.1f} s")
+    kernels["sgd_momentum_flat"]["max_abs_err"] = max(
+        [kernels["sgd_momentum_flat"]["max_abs_err"]]
+        + [r["hold_max_abs_err"] for r in families["train"].values()])
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -4,7 +4,8 @@ The port's own copy of ``repro/configs/base.py`` (which cannot be imported:
 it pulls in JAX through ``repro.core.comm``). ``get_config(name)`` resolves
 ``configs/<id>.py``; ``reduced(cfg)`` is the CPU smoke-test variant of the
 same family; ``INPUT_SHAPES`` are the reference's four workload shapes.
-The port has the dense family (four configs); other families raise.
+The port has the dense, MoE, SSM and hybrid families (eight configs); the
+audio and VLM families raise.
 
 ``TrainSettings`` is the run-settings half: optimizer hyperparameters, the
 gradient-sync and elastic knobs, the fault schedule and checkpointing,
@@ -34,11 +35,12 @@ def pad_vocab(v: int, multiple: int = VOCAB_PAD) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (the dense-family fields of the
-    reference's ``ModelConfig``). Frozen: derive variants with replace()."""
+    """Architecture description (the dense, MoE, SSM and hybrid fields of
+    the reference's ``ModelConfig``). Frozen: derive variants with
+    replace()."""
 
     name: str
-    arch_type: str  # the port builds "dense" only
+    arch_type: str  # dense | moe | ssm | hybrid (audio / vlm: not ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -51,6 +53,22 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full attention
     rope_theta: float = 10000.0
     use_rope: bool = True
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0  # per-expert FFN width
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    # --- hybrid (zamba2-style) ---
+    attn_period: int = 0  # shared attention block every N backbone layers
+    shared_lora_rank: int = 0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
@@ -78,10 +96,11 @@ class ModelConfig:
         return self.arch_type in ("ssm", "hybrid") or self.sliding_window > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks) of the dense
-        family, the reference's formula: the norms' scales (and qk-norm's)
-        are not counted."""
-        if self.arch_type != "dense":
+        """Analytic parameter count (embedding + blocks), the reference's
+        formula: the final norm's scale (and qk-norm's) is not counted, and
+        the hybrid's LoRA term counts three (q, k, v) pairs per invocation
+        although the hybrid's params hold the q pair only."""
+        if self.arch_type not in _PORTED_FAMILIES:
             raise NotImplementedError(f"not yet ported: {self.arch_type} family")
         d, v, h = self.d_model, self.padded_vocab, self.resolved_head_dim
         n = v * d if self.tie_embeddings else 2 * v * d
@@ -89,11 +108,33 @@ class ModelConfig:
                 + self.num_heads * h * d)
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * h
-        return n + self.num_layers * (attn + 3 * d * self.d_ff + 2 * d)
+        if self.arch_type in ("ssm", "hybrid"):
+            di = self.ssm_expand * d
+            heads = di // self.ssm_head_dim
+            mamba = (d * (2 * di + 2 * self.ssm_state + heads)
+                     + self.ssm_conv_width * (di + 2 * self.ssm_state)
+                     + di * d + 2 * heads + di)
+            n += self.num_layers * (mamba + d)
+            if self.arch_type == "hybrid":
+                n += attn + 3 * d * self.d_ff + 2 * d  # the one shared block
+                r = self.shared_lora_rank
+                if self.attn_period and r:
+                    n += (self.num_layers // self.attn_period) * 3 * (d * r + r * d)
+            return n
+        if self.arch_type == "moe":
+            ffn = ((self.num_experts + self.num_shared_experts) * 3 * d
+                   * self.moe_d_ff + d * self.num_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        return n + self.num_layers * (attn + ffn + 2 * d)
 
     def active_param_count(self) -> int:
-        """Params touched per token: all of them in the dense family."""
-        return self.param_count()
+        """Params touched per token (MoE: shared + top_k routed)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        routed = 3 * self.d_model * self.moe_d_ff
+        return (self.param_count() - self.num_layers * self.num_experts * routed
+                + self.num_layers * self.top_k * routed)
 
 
 @dataclass(frozen=True)
@@ -111,8 +152,12 @@ INPUT_SHAPES = {
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
 
+#: the families ``build_model`` builds
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 #: the ported ids, in the reference's ``ARCH_IDS`` order
-ARCH_IDS = ["qwen3_4b", "qwen2_0_5b", "phi3_medium_14b", "qwen2_5_3b"]
+ARCH_IDS = ["qwen3_4b", "qwen2_moe_a2_7b", "mamba2_130m", "qwen2_0_5b",
+            "mixtral_8x7b", "zamba2_1_2b", "phi3_medium_14b", "qwen2_5_3b"]
 
 
 def _norm(name: str) -> str:
@@ -123,7 +168,7 @@ def get_config(name: str) -> ModelConfig:
     if _norm(name) not in ARCH_IDS:
         raise NotImplementedError(
             f"not yet ported: architecture {name!r} (the port has the "
-            f"dense family: {ARCH_IDS})")
+            f"{'/'.join(_PORTED_FAMILIES)} families: {ARCH_IDS})")
     mod = importlib.import_module(f"repro_torch.configs.{_norm(name)}")
     return mod.CONFIG
 
@@ -133,8 +178,9 @@ def list_configs() -> list[str]:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Smoke-test variant: same family, 2 layers, d_model<=256, f32."""
-    if cfg.arch_type != "dense":
+    """Smoke-test variant: same family, 2 layers (the hybrid 4),
+    d_model<=256, <=4 experts, f32."""
+    if cfg.arch_type not in _PORTED_FAMILIES:
         raise NotImplementedError(f"not yet ported: {cfg.arch_type} family")
     d = min(cfg.d_model, 256)
     heads = max(2, min(cfg.num_heads, 4))
@@ -150,6 +196,16 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 1024),
         dtype="float32",
     )
+    if cfg.arch_type == "moe":
+        upd.update(num_experts=4, top_k=min(cfg.top_k, 2),
+                   num_shared_experts=min(cfg.num_shared_experts, 1),
+                   moe_d_ff=min(cfg.moe_d_ff, 128))
+    if cfg.arch_type in ("ssm", "hybrid"):
+        upd.update(ssm_state=min(cfg.ssm_state, 32), ssm_head_dim=32,
+                   ssm_chunk=64)
+    if cfg.arch_type == "hybrid":
+        upd.update(attn_period=2, num_layers=4,
+                   shared_lora_rank=min(cfg.shared_lora_rank, 8))
     if cfg.sliding_window:
         upd.update(sliding_window=64)
     return dataclasses.replace(cfg, **upd)

@@ -9,14 +9,16 @@
   overlap_stages(num_buckets) -> OverlapStages (loss_fn as a stage chain
                                for the backward-overlapped step)
 
-The port has the dense decoder family (``repro/models/model.py``
-``_build_decoder``). ``init(device="meta")`` gives shape-only params, the
+The port has the decoder family (dense and MoE, ``repro/models/model.py``
+``_build_decoder``), the pure SSM (``_build_ssm``, mamba2) and the hybrid
+(``_build_hybrid``, zamba2); the audio and VLM families raise.
+``init(device="meta")`` gives shape-only params, the
 counterpart of ``jax.eval_shape(model.init, ...)``; ``input_specs`` is the
 counterpart of the reference's ``ShapeDtypeStruct`` batches.
 
 ``serve_step`` consumes the cache it is given, as a donated buffer: the
-new token's k / v are written into its storage in place, and the cache it
-returns holds the same tensors.
+new token's k / v (and the SSM's ``h`` / ``conv`` states) are written into
+its storage in place, and the cache it returns holds the same tensors.
 """
 from __future__ import annotations
 
@@ -28,8 +30,16 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (
+    apply_hybrid,
+    apply_mamba_stack,
     apply_stack,
+    decode_hybrid,
+    decode_mamba_stack,
     decode_stack,
+    init_hybrid,
+    init_hybrid_cache,
+    init_mamba_cache,
+    init_mamba_stack,
     init_stack,
     init_stack_cache,
 )
@@ -151,9 +161,17 @@ def _sequence_xent(p: dict, h: torch.Tensor, labels: torch.Tensor,
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.arch_type != "dense":
+    build = {"dense": _build_decoder, "moe": _build_decoder,
+               "ssm": _build_ssm, "hybrid": _build_hybrid}.get(cfg.arch_type)
+    if build is None:
         raise NotImplementedError(f"not yet ported: {cfg.arch_type} family")
-    return _build_decoder(cfg, cfg.torch_dtype)
+    return build(cfg, cfg.torch_dtype)
+
+
+def _cache_device(device):
+    from repro_torch.launch.train import resolve_device
+
+    return resolve_device(device)
 
 
 def _build_decoder(cfg: ModelConfig, dtype) -> Model:
@@ -177,10 +195,7 @@ def _build_decoder(cfg: ModelConfig, dtype) -> Model:
         return xent + aux, {"xent": xent, "aux": aux}
 
     def init_cache(batch: int, max_seq: int, device="cuda") -> dict:
-        from repro_torch.launch.train import resolve_device
-
-        return init_stack_cache(batch, max_seq, cfg, dtype,
-                                resolve_device(device))
+        return init_stack_cache(batch, max_seq, cfg, dtype, _cache_device(device))
 
     @torch.no_grad()
     def serve_step(p, cache, tokens):
@@ -192,6 +207,67 @@ def _build_decoder(cfg: ModelConfig, dtype) -> Model:
     return Model(cfg, init, loss_fn, forward, init_cache, serve_step,
                  _decoder_specs,
                  overlap_stages=_decoder_overlap_stages(cfg, loss_fn))
+
+
+def _build_ssm(cfg: ModelConfig, dtype) -> Model:
+    """Pure SSM (mamba2): the Mamba2 stack under ``params["layers"]``."""
+    return _build_recurrent(
+        cfg, dtype,
+        init_body=lambda gen, device: {
+            "layers": init_mamba_stack(gen, cfg, dtype, device)},
+        backbone=lambda p, x: apply_mamba_stack(p["layers"], x, cfg),
+        init_cache=lambda batch, max_seq, device: init_mamba_cache(
+            batch, cfg, dtype, device),
+        decode=lambda p, x, cache: (
+            decode_mamba_stack(p["layers"], x, cache, cfg), cache))
+
+
+def _build_hybrid(cfg: ModelConfig, dtype) -> Model:
+    """Hybrid (zamba2): the Mamba2 stack with the shared attention block
+    every ``attn_period`` layers."""
+    return _build_recurrent(
+        cfg, dtype,
+        init_body=lambda gen, device: init_hybrid(gen, cfg, dtype, device),
+        backbone=lambda p, x: apply_hybrid(p, x, cfg)[0],
+        init_cache=lambda batch, max_seq, device: init_hybrid_cache(
+            batch, max_seq, cfg, dtype, device),
+        decode=lambda p, x, cache: decode_hybrid(p, x, cache, cfg))
+
+
+def _build_recurrent(cfg: ModelConfig, dtype, *, init_body, backbone,
+                     init_cache, decode) -> Model:
+    """The SSM and hybrid families around their backbone: the embedding,
+    the final norm and the head, a loss with no aux term and no staged
+    form (``overlap_stages`` None, as in the reference)."""
+
+    def init(device="cuda", seed: int = 0) -> dict:
+        gen = _generator(device, seed)
+        p = _embed_init(gen, cfg, dtype, device)
+        p.update(init_body(gen, device))
+        return p
+
+    def hidden(p, tokens):
+        x = backbone(p, _embed(p, tokens, cfg))
+        return rms_norm(x, p["final_norm"], cfg.norm_eps)
+
+    def forward(p, batch):
+        return _logits(p, hidden(p, batch["tokens"]), cfg)
+
+    def loss_fn(p, batch):
+        loss = _sequence_xent(p, hidden(p, batch["tokens"]), batch["labels"], cfg)
+        return loss, {"xent": loss}
+
+    def cache_fn(batch: int, max_seq: int, device="cuda") -> dict:
+        return init_cache(batch, max_seq, _cache_device(device))
+
+    @torch.no_grad()
+    def serve_step(p, cache, tokens):
+        x, cache = decode(p, _embed(p, tokens, cfg), cache)
+        x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+        return _logits(p, x, cfg), cache
+
+    return Model(cfg, init, loss_fn, forward, cache_fn, serve_step,
+                 _decoder_specs)
 
 
 def _decoder_specs(shape: InputShape) -> dict:
@@ -207,7 +283,8 @@ def _decoder_specs(shape: InputShape) -> dict:
 
 
 def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
-    """Stage factory for the decoder family: [embed] + k layer slices +
+    """Stage factory for the decoder family (dense / moe; the MoE's aux
+    loss rides the carry): [embed] + k layer slices +
     [head], where k = num_buckets - 2 clamped to [1, num_layers] (ceil
     split: the first ``num_layers % k`` slices take one layer more). Each
     stage replays exactly the ops ``loss_fn`` runs over its span, the

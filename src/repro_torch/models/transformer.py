@@ -1,11 +1,15 @@
-"""Block composition: pre-norm dense transformer blocks, the layer stack
-and its one-token decode.
+"""Block composition: pre-norm transformer blocks (dense FFN or MoE), the
+layer stack and its one-token decode, and the zamba2-style hybrid backbone
+(Mamba2 layers + one shared attention block with per-invocation LoRA
+adapters).
 
 The layer params stay stacked — every leaf has a leading ``(L, …)`` dim —
 so the param tree, and with it the FlatBuffer layout, is the reference's
-(``repro/models/transformer.py``); so is the decode cache's (``k`` / ``v``
-of (L, B, S, KV, D), ``index`` of (L,) int32). A Python loop over ``L``
-replaces ``lax.scan``.
+(``repro/models/transformer.py``); so are the decode caches' (``k`` / ``v``
+of (L, B, S, KV, D), ``index`` of (L,) int32; the hybrid's ``{"mamba":
+{"conv", "h"}, "attn": {...}}``, its attention caches stacked over the
+shared block's invocations). A Python loop over ``L`` replaces
+``lax.scan``; decode writes every cache in place.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ from repro_torch.models.attention import (
     init_kv_cache,
     multi_head_attention,
 )
-from repro_torch.models.layers import ffn, init_ffn, rms_norm
+from repro_torch.models import ssm
+from repro_torch.models.layers import dense_init, ffn, init_ffn, rms_norm
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
 
 
@@ -40,15 +46,29 @@ def attn_spec(cfg: ModelConfig, *, causal: bool = True,
 
 
 def init_block(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
-    """Params of ``layers`` stacked dense blocks (leading dim ``layers``)."""
+    """Params of ``layers`` stacked blocks (leading dim ``layers``)."""
     zeros = lambda: torch.zeros((layers, cfg.d_model), dtype=dtype, device=device)
-    return {
+    p = {
         "attn_norm": zeros(),
         "attn": init_attention(gen, cfg.d_model, attn_spec(cfg), dtype, device,
                                layers),
         "ffn_norm": zeros(),
-        "mlp": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device, layers),
     }
+    if cfg.arch_type == "moe":
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.num_experts,
+                            cfg.num_shared_experts, cfg.moe_d_ff, dtype, device,
+                            layers)
+    else:
+        p["mlp"] = init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device, layers)
+    return p
+
+
+def _moe(params: dict, h: torch.Tensor, cfg: ModelConfig,
+         capacity=None) -> tuple[torch.Tensor, torch.Tensor]:
+    return moe_block(params["moe"], h, num_experts=cfg.num_experts,
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                     aux_weight=cfg.router_aux_weight,
+                     deterministic_capacity=capacity)
 
 
 def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -57,8 +77,12 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
     x = x + multi_head_attention(params["attn"], h, spec)
     h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ffn(params["mlp"], h), aux
+    if cfg.arch_type == "moe":
+        y, aux = _moe(params, h, cfg)
+    else:
+        y = ffn(params["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def decode_block(params: dict, x: torch.Tensor, cache: dict,
@@ -67,7 +91,13 @@ def decode_block(params: dict, x: torch.Tensor, cache: dict,
     a, cache = decode_attention(params["attn"], h, cache, attn_spec(cfg))
     x = x + a
     h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
-    return x + ffn(params["mlp"], h), cache
+    if cfg.arch_type == "moe":
+        # decode never drops: every row's K entries fit this capacity
+        E, K = cfg.num_experts, cfg.top_k
+        y, _ = _moe(params, h, cfg, max(K, (x.shape[0] * K + E - 1) // E + 1))
+    else:
+        y = ffn(params["mlp"], h)
+    return x + y, cache
 
 
 def init_stack(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -104,3 +134,159 @@ def init_stack_cache(batch: int, max_seq: int, cfg: ModelConfig, dtype,
     return {name: torch.zeros((cfg.num_layers,) + tuple(a.shape), dtype=a.dtype,
                               device=device)
             for name, a in one.items()}
+
+
+# --------------------------------------------------------------------------
+# Hybrid (zamba2): Mamba2 backbone + ONE shared attention block, invoked
+# every ``attn_period`` layers with a per-invocation LoRA delta on wq.
+# --------------------------------------------------------------------------
+
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
+
+
+def init_mamba_layer(gen, cfg: ModelConfig, dtype, device, layers: int) -> dict:
+    return ssm.init_mamba(
+        gen, cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+        state=cfg.ssm_state, conv_width=cfg.ssm_conv_width, dtype=dtype,
+        device=device, layers=layers)
+
+
+def init_mamba_stack(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """``cfg.num_layers`` stacked Mamba2 layers, each with its pre-norm."""
+    return {"norm": torch.zeros((cfg.num_layers, cfg.d_model), dtype=dtype,
+                                device=device),
+            **init_mamba_layer(gen, cfg, dtype, device, cfg.num_layers)}
+
+
+def init_hybrid(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """The Mamba2 stack, the one shared block (unstacked leaves) and the
+    per-invocation LoRA pairs on wq (stacked over the invocations; the
+    ``b`` half zero, so the delta starts at 0)."""
+    mamba = init_mamba_stack(gen, cfg, dtype, device)
+    one = lambda tree: tree_map(lambda a: a[0], tree)  # drop the layer dim
+    d = cfg.d_model
+    shared = {
+        "attn_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "attn": one(init_attention(gen, d, attn_spec(cfg), dtype, device, 1)),
+        "ffn_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "mlp": one(init_ffn(gen, d, cfg.d_ff, dtype, device, 1)),
+    }
+    n = max(n_shared_invocations(cfg), 1)
+    r, h = cfg.shared_lora_rank, cfg.num_heads * cfg.resolved_head_dim
+    lora = {"lora_a_q": dense_init(gen, d, (n, d, r), dtype, device),
+            "lora_b_q": torch.zeros((n, r, h), dtype=dtype, device=device)}
+    return {"mamba": mamba, "shared": shared, "lora": lora}
+
+
+def _mamba_kw(cfg: ModelConfig) -> dict:
+    return dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                state=cfg.ssm_state)
+
+
+def apply_mamba_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
+                      lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Layers ``lo:hi`` of a Mamba2 stack: x + mamba(rms_norm(x))."""
+    hi = stacked["norm"].shape[0] if hi is None else hi
+    for i in range(lo, hi):
+        lp = {k: v[i] for k, v in stacked.items() if k != "norm"}
+        y, _ = ssm.mamba_block(lp, rms_norm(x, stacked["norm"][i], cfg.norm_eps),
+                               chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
+        x = x + y
+    return x
+
+
+def decode_mamba_stack(stacked: dict, x: torch.Tensor, cache: dict,
+                       cfg: ModelConfig, lo: int = 0,
+                       hi: int | None = None) -> torch.Tensor:
+    """One token through layers ``lo:hi``; each layer's ``h`` / ``conv``
+    state is written in place into its slice of the stacked cache."""
+    hi = stacked["norm"].shape[0] if hi is None else hi
+    for i in range(lo, hi):
+        lp = {k: v[i] for k, v in stacked.items() if k != "norm"}
+        y, (h, conv) = ssm.mamba_decode(
+            lp, rms_norm(x, stacked["norm"][i], cfg.norm_eps), cache["h"][i],
+            cache["conv"][i], **_mamba_kw(cfg))
+        cache["h"][i].copy_(h)
+        cache["conv"][i].copy_(conv)
+        x = x + y
+    return x
+
+
+def init_mamba_cache(batch: int, cfg: ModelConfig, dtype, device) -> dict:
+    """``{"h": (L, B, H, P, N) f32, "conv": (L, B, K-1, C)}``, zeros."""
+    h, conv = ssm.init_mamba_state(batch, cfg.d_model,
+                                   conv_width=cfg.ssm_conv_width, dtype=dtype,
+                                   device="meta", **_mamba_kw(cfg))
+    L = cfg.num_layers
+    return {"h": torch.zeros((L,) + tuple(h.shape), dtype=h.dtype, device=device),
+            "conv": torch.zeros((L,) + tuple(conv.shape), dtype=conv.dtype,
+                                device=device)}
+
+
+def _lora_attn(shared: dict, lora_i: dict) -> dict:
+    """The shared attention params with one invocation's q delta."""
+    params = dict(shared["attn"])
+    params["wq"] = params["wq"] + lora_i["lora_a_q"] @ lora_i["lora_b_q"]
+    return params
+
+
+def _shared_attn(shared: dict, lora_i: dict, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The shared block with ``lora_i``'s LoRA delta on the q projection."""
+    h = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
+    x = x + multi_head_attention(_lora_attn(shared, lora_i), h, attn_spec(cfg))
+    h = rms_norm(x, shared["ffn_norm"], cfg.norm_eps)
+    return x + ffn(shared["mlp"], h)
+
+
+def apply_hybrid(params: dict, x: torch.Tensor,
+                 cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Groups of ``attn_period`` mamba layers, each followed by the shared
+    block; the layers past the last whole group trail."""
+    period = cfg.attn_period or cfg.num_layers
+    done = 0
+    for i in range(n_shared_invocations(cfg)):
+        x = apply_mamba_stack(params["mamba"], x, cfg, done, done + period)
+        x = _shared_attn(params["shared"],
+                         tree_map(lambda a: a[i], params["lora"]), x, cfg)
+        done += period
+    if done < cfg.num_layers:
+        x = apply_mamba_stack(params["mamba"], x, cfg, done)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_hybrid_cache(batch: int, max_seq: int, cfg: ModelConfig, dtype,
+                      device) -> dict:
+    one = init_kv_cache(batch, max_seq, attn_spec(cfg), dtype, "meta")
+    n = max(n_shared_invocations(cfg), 1)
+    attn = {name: torch.zeros((n,) + tuple(a.shape), dtype=a.dtype, device=device)
+            for name, a in one.items()}
+    return {"mamba": init_mamba_cache(batch, cfg, dtype, device), "attn": attn}
+
+
+def decode_hybrid(params: dict, x: torch.Tensor, cache: dict,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One token; the mamba states and each invocation's k / v are written
+    in place, ``index`` advances as a new (n_inv,) tensor."""
+    period = cfg.attn_period or cfg.num_layers
+    shared, attn = params["shared"], cache["attn"]
+    spec = attn_spec(cfg)
+    done, index = 0, []
+    for i in range(n_shared_invocations(cfg)):
+        x = decode_mamba_stack(params["mamba"], x, cache["mamba"], cfg, done,
+                               done + period)
+        h = rms_norm(x, shared["attn_norm"], cfg.norm_eps)
+        lora_i = tree_map(lambda t: t[i], params["lora"])
+        a, c = decode_attention(_lora_attn(shared, lora_i), h,
+                                tree_map(lambda t: t[i], attn), spec)
+        index.append(c["index"])
+        x = x + a
+        h = rms_norm(x, shared["ffn_norm"], cfg.norm_eps)
+        x = x + ffn(shared["mlp"], h)
+        done += period
+    if done < cfg.num_layers:
+        x = decode_mamba_stack(params["mamba"], x, cache["mamba"], cfg, done)
+    new_attn = {"k": attn["k"], "v": attn["v"],
+                "index": torch.stack(index) if index else attn["index"]}
+    return x, {"mamba": cache["mamba"], "attn": new_attn}

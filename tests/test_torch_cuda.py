@@ -709,3 +709,66 @@ def test_reduced_serve_card_matches_cpu(cuda, name):
     assert torch.equal(caches["cuda"]["index"], caches["cpu"]["index"])
     assert torch.equal(greedy["cuda"], greedy["cpu"])
     assert [w.launches for w in wrappers] == before
+
+
+FAMILIES = ["qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-130m", "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_reduced_family_train_and_serve_card_matches_cpu(cuda, name):
+    """The MoE, SSM and hybrid families reduced, f32, TF32 off, from the
+    same weights: three momentum-SGD steps on the card (one
+    ``sgd_momentum_flat`` launch each) and on the CPU, losses within rtol
+    1e-4; twelve serve steps' logits and the cache within rtol 1e-4 /
+    atol 1e-5, greedy tokens equal; a card serve step makes no host sync."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.hierarchy import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import get_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(reduced(get_config(name)))
+    opt = get_optimizer("sgd", lr=0.1, momentum=0.9)
+    pipe = TokenPipeline(DataConfig(vocab_size=256, seq_len=80, batch_size=4))
+    p0 = model.init(device="cpu", seed=0)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(0), dtype=torch.int32)
+    losses, logits, caches, greedy = {}, {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        state = make_train_state(model, opt, SyncConfig(), device="cpu")
+        state["params"] = p0
+        state = tree_map(lambda a: a.to(dev), state)
+        step = make_train_step(model, opt, SyncConfig(), device=dev)
+        before = fs.sgd_momentum_flat.launches
+        losses[dev] = []
+        for i in range(3):
+            state, met = step(state, pipe.batch_at(0, i))
+            losses[dev].append(float(met["loss"]))
+        if dev == "cuda":
+            assert fs.sgd_momentum_flat.launches == before + 3
+        params = tree_map(lambda a: a.to(dev), p0)
+        cache = model.init_cache(2, 16, dev)
+        steps = []
+        for t in range(toks.shape[1]):
+            out, cache = model.serve_step(params, cache, toks[:, t:t + 1].to(dev))
+            steps.append(out.cpu())
+        if dev == "cuda":   # the step's inputs on the card before the check
+            fresh, tok = model.init_cache(2, 16, dev), toks[:, :1].to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                model.serve_step(params, fresh, tok)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        logits[dev], caches[dev] = torch.cat(steps, 1), tree_map(lambda a: a.cpu(), cache)
+        srv = BatchedServer(model, params, batch=2, max_seq=24, device=dev)
+        greedy[dev] = srv.generate(toks[:, :6].to(dev), steps=8).cpu()
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-4, atol=0)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(caches["cuda"]), tree_leaves(caches["cpu"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert torch.equal(greedy["cuda"], greedy["cpu"])

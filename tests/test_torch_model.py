@@ -191,7 +191,7 @@ def test_init_shapes_and_dtypes_match_reference():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("mamba2-130m")
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), arch_type="moe")
+        get_config("whisper-base")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), arch_type="vlm")
     with pytest.raises(NotImplementedError):
         tmodel.build_model(cfg)
