@@ -4,8 +4,8 @@ The port's own copy of ``repro/configs/base.py`` (which cannot be imported:
 it pulls in JAX through ``repro.core.comm``). ``get_config(name)`` resolves
 ``configs/<id>.py``; ``reduced(cfg)`` is the CPU smoke-test variant of the
 same family; ``INPUT_SHAPES`` are the reference's four workload shapes.
-The port has the dense, MoE, SSM and hybrid families (eight configs); the
-audio and VLM families raise.
+The port has every family of the reference: dense, MoE, SSM, hybrid,
+the audio encoder-decoder (whisper) and the VLM (paligemma), ten configs.
 
 ``TrainSettings`` is the run-settings half: optimizer hyperparameters, the
 gradient-sync and elastic knobs, the fault schedule and checkpointing,
@@ -35,12 +35,11 @@ def pad_vocab(v: int, multiple: int = VOCAB_PAD) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (the dense, MoE, SSM and hybrid fields of
-    the reference's ``ModelConfig``). Frozen: derive variants with
-    replace()."""
+    """Architecture description (the architecture fields of the
+    reference's ``ModelConfig``). Frozen: derive variants with replace()."""
 
     name: str
-    arch_type: str  # dense | moe | ssm | hybrid (audio / vlm: not ported)
+    arch_type: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -69,6 +68,11 @@ class ModelConfig:
     # --- hybrid (zamba2-style) ---
     attn_period: int = 0  # shared attention block every N backbone layers
     shared_lora_rank: int = 0
+    # --- encoder-decoder (whisper) ---
+    enc_layers: int = 0  # >0 => enc-dec; num_layers is decoder depth
+    enc_seq_len: int = 1500  # stub audio frame count
+    # --- VLM ---
+    num_image_tokens: int = 0  # stub patch-embedding count
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
@@ -87,6 +91,10 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def is_enc_dec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
     def is_attention_free(self) -> bool:
         return self.arch_type == "ssm"
 
@@ -99,9 +107,9 @@ class ModelConfig:
         """Analytic parameter count (embedding + blocks), the reference's
         formula: the final norm's scale (and qk-norm's) is not counted, and
         the hybrid's LoRA term counts three (q, k, v) pairs per invocation
-        although the hybrid's params hold the q pair only."""
-        if self.arch_type not in _PORTED_FAMILIES:
-            raise NotImplementedError(f"not yet ported: {self.arch_type} family")
+        although the hybrid's params hold the q pair only; the enc-dec's
+        learned position tables and its layer-norm biases are not counted
+        either."""
         d, v, h = self.d_model, self.padded_vocab, self.resolved_head_dim
         n = v * d if self.tie_embeddings else 2 * v * d
         attn = (d * self.num_heads * h + 2 * d * self.num_kv_heads * h
@@ -126,7 +134,13 @@ class ModelConfig:
                    * self.moe_d_ff + d * self.num_experts)
         else:
             ffn = 3 * d * self.d_ff
-        return n + self.num_layers * (attn + ffn + 2 * d)
+        n += self.num_layers * (attn + ffn + 2 * d)
+        if self.is_enc_dec:
+            # cross-attention + encoder stack (whisper's MLP has no gate)
+            n -= self.num_layers * d * self.d_ff  # dec ffn: 2dw not 3dw
+            n += self.num_layers * attn
+            n += self.enc_layers * (attn + 2 * d * self.d_ff + 2 * d)
+        return n
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: shared + top_k routed)."""
@@ -152,12 +166,10 @@ INPUT_SHAPES = {
     "long_500k": InputShape("long_500k", 524288, 1, "decode"),
 }
 
-#: the families ``build_model`` builds
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-#: the ported ids, in the reference's ``ARCH_IDS`` order
-ARCH_IDS = ["qwen3_4b", "qwen2_moe_a2_7b", "mamba2_130m", "qwen2_0_5b",
-            "mixtral_8x7b", "zamba2_1_2b", "phi3_medium_14b", "qwen2_5_3b"]
+#: the reference's ``ARCH_IDS``, in its order
+ARCH_IDS = ["paligemma_3b", "qwen3_4b", "qwen2_moe_a2_7b", "mamba2_130m",
+            "qwen2_0_5b", "whisper_base", "mixtral_8x7b", "zamba2_1_2b",
+            "phi3_medium_14b", "qwen2_5_3b"]
 
 
 def _norm(name: str) -> str:
@@ -166,9 +178,7 @@ def _norm(name: str) -> str:
 
 def get_config(name: str) -> ModelConfig:
     if _norm(name) not in ARCH_IDS:
-        raise NotImplementedError(
-            f"not yet ported: architecture {name!r} (the port has the "
-            f"{'/'.join(_PORTED_FAMILIES)} families: {ARCH_IDS})")
+        raise ValueError(f"unknown architecture {name!r}; one of {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_norm(name)}")
     return mod.CONFIG
 
@@ -180,8 +190,6 @@ def list_configs() -> list[str]:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family, 2 layers (the hybrid 4),
     d_model<=256, <=4 experts, f32."""
-    if cfg.arch_type not in _PORTED_FAMILIES:
-        raise NotImplementedError(f"not yet ported: {cfg.arch_type} family")
     d = min(cfg.d_model, 256)
     heads = max(2, min(cfg.num_heads, 4))
     kv = max(1, min(cfg.num_kv_heads, heads))
@@ -206,6 +214,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.arch_type == "hybrid":
         upd.update(attn_period=2, num_layers=4,
                    shared_lora_rank=min(cfg.shared_lora_rank, 8))
+    if cfg.is_enc_dec:
+        upd.update(enc_layers=2, enc_seq_len=64)
+    if cfg.num_image_tokens:
+        upd.update(num_image_tokens=16)
     if cfg.sliding_window:
         upd.update(sliding_window=64)
     return dataclasses.replace(cfg, **upd)

@@ -1,12 +1,15 @@
-"""Deterministic synthetic token pipeline (``repro/data/pipeline.py``).
+"""Deterministic synthetic data pipelines (``repro/data/pipeline.py``).
 
-Batches are reproducible from (seed, epoch, step, shard) alone and follow
-a learnable synthetic language (a fixed random bigram automaton), so
-losses descend. Sampling is numpy, bit-for-bit the reference's; batches
-come back as int32 torch tensors on the requested device.
+Batches are reproducible from (seed, epoch, step, shard) alone. Token
+batches follow a learnable synthetic language (a fixed random bigram
+automaton), so losses descend; image batches are class-dependent Gaussian
+prototypes plus noise. Sampling is numpy, bit-for-bit the reference's;
+batches come back as torch tensors on the requested device (tokens and
+labels int32, images f32 NHWC).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -72,3 +75,37 @@ class TokenPipeline:
         rows = rng.integers(0, self.cfg.vocab_size, size=n_mc)
         p = self._probs[rows]
         return float(-np.mean(np.sum(p * np.log(p + 1e-20), axis=1)))
+
+
+class ImagePipeline:
+    """Synthetic image classification: class-dependent Gaussian blobs +
+    noise, ``{"images": (B, H, W, 3) f32, "labels": (B,) int32}``."""
+
+    def __init__(self, cfg: DataConfig, image_size: int = 16,
+                 num_classes: int = 10, noise: float = 1.5, device="cpu"):
+        self.cfg = cfg
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.noise = noise
+        self.device = torch.device(device)
+        rng = np.random.default_rng(cfg.seed ^ 0x1333)
+        self._proto = rng.normal(
+            size=(num_classes, image_size, image_size, 3)).astype(np.float32)
+
+    def batch_at(self, epoch: int, step: int) -> dict:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, epoch, step, cfg.shard, 0x13))
+        B = cfg.batch_size
+        labels = rng.integers(0, self.num_classes, size=B)
+        noise = rng.normal(size=(B, self.image_size, self.image_size, 3))
+        images = self._proto[labels] + self.noise * noise.astype(np.float32)
+        return {"images": torch.from_numpy(images).to(self.device),
+                "labels": torch.from_numpy(labels.astype(np.int32)).to(self.device)}
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        for step in range(self.cfg.steps_per_epoch):
+            yield self.batch_at(epoch, step)
+
+
+def shard_config(cfg: DataConfig, num_shards: int, shard: int) -> DataConfig:
+    return dataclasses.replace(cfg, num_shards=num_shards, shard=shard)

@@ -1,4 +1,5 @@
-"""Shared building blocks: init helpers, RMSNorm, RoPE, SwiGLU FFN.
+"""Shared building blocks: init helpers, RMSNorm, LayerNorm, RoPE, the
+SwiGLU / GeGLU FFNs and whisper's plain GELU MLP.
 
 Functions on plain tensors with the reference's layouts
 (``repro/models/layers.py``). Weights are drawn from a ``torch.Generator``
@@ -30,6 +31,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (biased variance), cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -64,3 +76,29 @@ def ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     return (F.silu(g) * u) @ params["w_down"]
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """GeGLU variant (gemma / paligemma): the SwiGLU weights, GELU gate."""
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    return (_gelu(g) * u) @ params["w_down"]
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device, layers: int) -> dict:
+    """2-layer MLP weights (whisper): up + down, no gate, stacked."""
+    return {
+        "w_up": dense_init(gen, d_model, (layers, d_model, d_ff), dtype, device),
+        "w_down": dense_init(gen, d_ff, (layers, d_ff, d_model), dtype, device),
+    }
+
+
+def mlp_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Plain 2-layer GELU MLP (whisper): w_up / w_down, no gate."""
+    return _gelu(x @ params["w_up"]) @ params["w_down"]

@@ -9,9 +9,12 @@
   overlap_stages(num_buckets) -> OverlapStages (loss_fn as a stage chain
                                for the backward-overlapped step)
 
-The port has the decoder family (dense and MoE, ``repro/models/model.py``
-``_build_decoder``), the pure SSM (``_build_ssm``, mamba2) and the hybrid
-(``_build_hybrid``, zamba2); the audio and VLM families raise.
+The port has every family of ``repro/models/model.py``: the decoder
+(dense, MoE and the VLM, ``_build_decoder``; the VLM prepends stub image
+embeddings as a bidirectional prefix and scales its embeddings by
+``sqrt(d_model)``, as gemma does), the pure SSM (``_build_ssm``, mamba2),
+the hybrid (``_build_hybrid``, zamba2) and the encoder-decoder
+(``_build_enc_dec``, whisper, with stub audio-frame embeddings).
 ``init(device="meta")`` gives shape-only params, the
 counterpart of ``jax.eval_shape(model.init, ...)``; ``input_specs`` is the
 counterpart of the reference's ``ShapeDtypeStruct`` batches.
@@ -28,14 +31,19 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import layer_norm, rms_norm
 from repro_torch.models.transformer import (
+    apply_dec_stack,
+    apply_enc_stack,
     apply_hybrid,
     apply_mamba_stack,
     apply_stack,
+    decode_dec_stack,
     decode_hybrid,
     decode_mamba_stack,
     decode_stack,
+    init_dec_layer,
+    init_enc_layer,
     init_hybrid,
     init_hybrid_cache,
     init_mamba_cache,
@@ -46,6 +54,7 @@ from repro_torch.models.transformer import (
 from repro_torch.tree import tree_map
 
 XENT_CHUNK = 512
+MAX_WHISPER_POSITIONS = 32768
 
 
 @dataclass
@@ -97,22 +106,23 @@ def _generator(device, seed: int) -> torch.Generator | None:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _normal(gen, shape, std: float, dtype, device, *, cast_first: bool = False
+            ) -> torch.Tensor:
+    """N(0, std²) drawn in f32; scaled before the cast to ``dtype``, or
+    after it with ``cast_first`` (the reference's embedding tables). On
+    the ``meta`` device nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return w.to(dtype) * std if cast_first else (w * std).to(dtype)
+
+
 def _embed_init(gen, cfg: ModelConfig, dtype, device) -> dict:
     v, d = cfg.padded_vocab, cfg.d_model
-    if torch.device(device).type == "meta":
-        emb = torch.empty((v, d), dtype=dtype, device=device)
-    else:
-        emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
-                          device=device).to(dtype) * 0.02
-    p = {"embedding": emb,
+    p = {"embedding": _normal(gen, (v, d), 0.02, dtype, device, cast_first=True),
          "final_norm": torch.zeros((d,), dtype=dtype, device=device)}
     if not cfg.tie_embeddings:
-        if torch.device(device).type == "meta":
-            p["lm_head"] = torch.empty((d, v), dtype=dtype, device=device)
-        else:
-            p["lm_head"] = (torch.randn((d, v), generator=gen,
-                                        dtype=torch.float32, device=device)
-                            * d ** -0.5).to(dtype)
+        p["lm_head"] = _normal(gen, (d, v), d ** -0.5, dtype, device)
     return p
 
 
@@ -128,11 +138,28 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
-def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not ``emb[tokens]``: on the CPU the indexing backward
     # accumulates repeated tokens with parallel atomic adds (run-to-run
     # different sums); embedding's backward sums each row in token order
     return torch.nn.functional.embedding(tokens.long(), p["embedding"])
+
+
+def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = _lookup(p, tokens)
+    if cfg.arch_type == "vlm":
+        # gemma's embedding scale, rounded to the activation dtype first
+        # as the reference's ``jnp.asarray(d ** 0.5, x.dtype)`` is
+        scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+        x = x * scale
+    return x
+
+
+def _with_image(x: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The VLM's stub image embeddings prepended to the text embeddings."""
+    if not cfg.num_image_tokens:
+        return x
+    return torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
 
 
 def _xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -161,10 +188,9 @@ def _sequence_xent(p: dict, h: torch.Tensor, labels: torch.Tensor,
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    build = {"dense": _build_decoder, "moe": _build_decoder,
-               "ssm": _build_ssm, "hybrid": _build_hybrid}.get(cfg.arch_type)
-    if build is None:
-        raise NotImplementedError(f"not yet ported: {cfg.arch_type} family")
+    build = {"dense": _build_decoder, "vlm": _build_decoder,
+             "moe": _build_decoder, "ssm": _build_ssm, "hybrid": _build_hybrid,
+             "audio": _build_enc_dec}[cfg.arch_type]
     return build(cfg, cfg.torch_dtype)
 
 
@@ -175,22 +201,27 @@ def _cache_device(device):
 
 
 def _build_decoder(cfg: ModelConfig, dtype) -> Model:
+    n_img = cfg.num_image_tokens
+
     def init(device="cuda", seed: int = 0) -> dict:
         gen = _generator(device, seed)
         p = _embed_init(gen, cfg, dtype, device)
         p["layers"] = init_stack(gen, cfg, dtype, device)
         return p
 
-    def backbone(p, x):
-        x, aux = apply_stack(p["layers"], x, cfg)
+    def backbone(p, batch):
+        x = _with_image(_embed(p, batch["tokens"], cfg), batch, cfg)
+        x, aux = apply_stack(p["layers"], x, cfg, prefix_len=n_img)
         return rms_norm(x, p["final_norm"], cfg.norm_eps), aux
 
     def forward(p, batch):
-        h, _ = backbone(p, _embed(p, batch["tokens"], cfg))
+        h, _ = backbone(p, batch)
         return _logits(p, h, cfg)
 
     def loss_fn(p, batch):
-        h, aux = backbone(p, _embed(p, batch["tokens"], cfg))
+        h, aux = backbone(p, batch)
+        if n_img:
+            h = h[:, n_img:]
         xent = _sequence_xent(p, h, batch["labels"], cfg)
         return xent + aux, {"xent": xent, "aux": aux}
 
@@ -205,7 +236,7 @@ def _build_decoder(cfg: ModelConfig, dtype) -> Model:
         return _logits(p, x, cfg), cache
 
     return Model(cfg, init, loss_fn, forward, init_cache, serve_step,
-                 _decoder_specs,
+                 lambda shape: _decoder_specs(cfg, shape, dtype),
                  overlap_stages=_decoder_overlap_stages(cfg, loss_fn))
 
 
@@ -267,24 +298,110 @@ def _build_recurrent(cfg: ModelConfig, dtype, *, init_body, backbone,
         return _logits(p, x, cfg), cache
 
     return Model(cfg, init, loss_fn, forward, cache_fn, serve_step,
-                 _decoder_specs)
+                 lambda shape: _decoder_specs(cfg, shape, dtype))
 
 
-def _decoder_specs(shape: InputShape) -> dict:
-    """The batch of ``shape`` as ``meta`` tensors (shape and dtype only)."""
+def _meta(dims, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(dims, dtype=dtype, device="meta")
+
+
+def _decoder_specs(cfg: ModelConfig, shape: InputShape, dtype) -> dict:
+    """The batch of ``shape`` as ``meta`` tensors (shape and dtype only);
+    the VLM's sequence is its image prefix and then the text."""
     B, S = shape.global_batch, shape.seq_len
-    tok = lambda *dims: torch.empty(dims, dtype=torch.int32, device="meta")
     if shape.kind == "decode":
-        return {"tokens": tok(B, 1)}
-    batch = {"tokens": tok(B, S)}
+        return {"tokens": _meta((B, 1))}
+    n_img = cfg.num_image_tokens
+    text = S - n_img
+    batch = {"tokens": _meta((B, text))}
+    if n_img:
+        batch["image_embeds"] = _meta((B, n_img, cfg.d_model), dtype)
     if shape.kind == "train":
-        batch["labels"] = tok(B, S)
+        batch["labels"] = _meta((B, text))
     return batch
 
 
+# --------------------------------------------------------------------------
+# encoder-decoder (whisper): conv/mel frontend stubbed as frame embeddings
+# --------------------------------------------------------------------------
+
+def _build_enc_dec(cfg: ModelConfig, dtype) -> Model:
+    """Whisper: learned absolute positions (``enc_pos`` / ``dec_pos``),
+    LayerNorm blocks, no overlap stages (as the reference). The serve
+    cache is ``{"self": <the stacked KV cache>, "enc": (B, enc_seq_len,
+    d)}``; ``init_cache`` makes ``enc`` zeros and nothing fills it, so
+    serving cross-attends to a zero encoder output, as the reference's
+    does."""
+    d = cfg.d_model
+
+    def init(device="cuda", seed: int = 0) -> dict:
+        gen = _generator(device, seed)
+        p = _embed_init(gen, cfg, dtype, device)
+        p["final_norm_b"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["final_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["enc_pos"] = {"pos_embedding": _normal(
+            gen, (cfg.enc_seq_len, d), 0.02, dtype, device, cast_first=True)}
+        p["dec_pos"] = {"pos_embedding": _normal(
+            gen, (MAX_WHISPER_POSITIONS, d), 0.02, dtype, device, cast_first=True)}
+        p["encoder"] = init_enc_layer(gen, cfg, dtype, device, cfg.enc_layers)
+        p["decoder"] = init_dec_layer(gen, cfg, dtype, device, cfg.num_layers)
+        p["enc_final_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["enc_final_norm_b"] = torch.zeros((d,), dtype=dtype, device=device)
+        return p
+
+    def encode(p, frames):
+        x = frames.to(dtype) + p["enc_pos"]["pos_embedding"][:frames.shape[1]]
+        x = apply_enc_stack(p["encoder"], x, cfg)
+        return layer_norm(x, p["enc_final_norm"], p["enc_final_norm_b"])
+
+    def decode_full(p, enc, tokens):
+        x = _lookup(p, tokens) + p["dec_pos"]["pos_embedding"][:tokens.shape[1]]
+        x = apply_dec_stack(p["decoder"], x, enc, cfg)
+        return layer_norm(x, p["final_norm"], p["final_norm_b"])
+
+    def forward(p, batch):
+        enc = encode(p, batch["audio_frames"])
+        return _logits(p, decode_full(p, enc, batch["tokens"]), cfg)
+
+    def loss_fn(p, batch):
+        h = decode_full(p, encode(p, batch["audio_frames"]), batch["tokens"])
+        loss = _sequence_xent(p, h, batch["labels"], cfg)
+        return loss, {"xent": loss}
+
+    def init_cache(batch: int, max_seq: int, device="cuda") -> dict:
+        device = _cache_device(device)
+        return {"self": init_stack_cache(batch, max_seq, cfg, dtype, device),
+                "enc": torch.zeros((batch, cfg.enc_seq_len, d), dtype=dtype,
+                                   device=device)}
+
+    @torch.no_grad()
+    def serve_step(p, cache, tokens):
+        # the position row by a device index: no host sync
+        at = cache["self"]["index"][:1].long()
+        x = _lookup(p, tokens) + p["dec_pos"]["pos_embedding"].index_select(0, at)
+        x, new_self = decode_dec_stack(p["decoder"], x, cache["enc"],
+                                       cache["self"], cfg)
+        x = layer_norm(x, p["final_norm"], p["final_norm_b"])
+        return _logits(p, x, cfg), {"self": new_self, "enc": cache["enc"]}
+
+    def input_specs(shape: InputShape) -> dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _meta((B, 1))}
+        batch = {"tokens": _meta((B, S)),
+                 "audio_frames": _meta((B, cfg.enc_seq_len, d), dtype)}
+        if shape.kind == "train":
+            batch["labels"] = _meta((B, S))
+        return batch
+
+    return Model(cfg, init, loss_fn, forward, init_cache, serve_step, input_specs)
+
+
 def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
-    """Stage factory for the decoder family (dense / moe; the MoE's aux
-    loss rides the carry): [embed] + k layer slices +
+    """Stage factory for the decoder family (dense / moe / vlm; the MoE's
+    aux loss rides the carry, the VLM's image embeddings enter with the
+    token embeddings and its prefix length reaches every layer slice):
+    [embed] + k layer slices +
     [head], where k = num_buckets - 2 clamped to [1, num_layers] (ceil
     split: the first ``num_layers % k`` slices take one layer more). Each
     stage replays exactly the ops ``loss_fn`` runs over its span, the
@@ -292,6 +409,7 @@ def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
     monolithic loss and, stage by stage, its gradient bits. With tied
     embeddings the embedding is stage 0's param and its VALUE rides the
     carry to the head's logits product."""
+    n_img = cfg.num_image_tokens
 
     def factory(num_buckets: int) -> OverlapStages:
         if num_buckets <= 1:
@@ -329,7 +447,7 @@ def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
             return p
 
         def embed_fn(p0, batch):
-            x = _embed(p0, batch["tokens"], cfg)
+            x = _with_image(_embed(p0, batch["tokens"], cfg), batch, cfg)
             carry = {"x": x,
                      "aux": torch.zeros((), dtype=torch.float32, device=x.device)}
             if cfg.tie_embeddings:
@@ -337,7 +455,7 @@ def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
             return carry
 
         def layer_fn(ps, carry, batch):
-            h, a = apply_stack(ps, carry["x"], cfg)
+            h, a = apply_stack(ps, carry["x"], cfg, prefix_len=n_img)
             out = dict(carry)
             out["x"] = h
             out["aux"] = carry["aux"] + a
@@ -345,6 +463,8 @@ def _decoder_overlap_stages(cfg: ModelConfig, loss_fn) -> Callable:
 
         def head_fn(ph, carry, batch):
             h = rms_norm(carry["x"], ph["final_norm"], cfg.norm_eps)
+            if n_img:
+                h = h[:, n_img:]
             pl = ({"embedding": carry["emb"]} if cfg.tie_embeddings
                   else {"lm_head": ph["lm_head"]})
             xent = _sequence_xent(pl, h, batch["labels"], cfg)

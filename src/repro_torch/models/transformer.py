@@ -1,7 +1,8 @@
-"""Block composition: pre-norm transformer blocks (dense FFN or MoE), the
-layer stack and its one-token decode, and the zamba2-style hybrid backbone
-(Mamba2 layers + one shared attention block with per-invocation LoRA
-adapters).
+"""Block composition: pre-norm transformer blocks (dense FFN, GeGLU for the
+VLM, or MoE), the layer stack and its one-token decode, the
+encoder-decoder layers (whisper: LayerNorm, self- and cross-attention, a
+plain GELU MLP), and the zamba2-style hybrid backbone (Mamba2 layers + one
+shared attention block with per-invocation LoRA adapters).
 
 The layer params stay stacked — every leaf has a leading ``(L, …)`` dim —
 so the param tree, and with it the FlatBuffer layout, is the reference's
@@ -24,25 +25,33 @@ from repro_torch.models.attention import (
     multi_head_attention,
 )
 from repro_torch.models import ssm
-from repro_torch.models.layers import dense_init, ffn, init_ffn, rms_norm
+from repro_torch.models.layers import (dense_init, ffn, gelu_ffn, init_ffn, init_mlp,
+                                      layer_norm, mlp_ffn, rms_norm)
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.tree import tree_map
 
 
-def attn_spec(cfg: ModelConfig, *, causal: bool = True,
-              prefix_len: int = 0) -> AttnSpec:
+def attn_spec(cfg: ModelConfig, *, causal: bool = True, prefix_len: int = 0,
+              cross: bool = False) -> AttnSpec:
+    """The config's attention; ``cross`` (the decoder's attention over the
+    encoder output) has no qk-norm, no RoPE, no mask and no window."""
     return AttnSpec(
         num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim,
-        qk_norm=cfg.qk_norm,
+        qk_norm=cfg.qk_norm and not cross,
         qkv_bias=cfg.qkv_bias,
-        sliding_window=cfg.sliding_window if causal else 0,
-        use_rope=cfg.use_rope,
+        sliding_window=cfg.sliding_window if causal and not cross else 0,
+        use_rope=cfg.use_rope and not cross,
         rope_theta=cfg.rope_theta,
-        causal=causal,
+        causal=causal and not cross,
         prefix_len=prefix_len,
     )
+
+
+def _dense_ffn(cfg: ModelConfig):
+    """The dense block's FFN: GeGLU for the VLM (gemma), else SwiGLU."""
+    return gelu_ffn if cfg.arch_type == "vlm" else ffn
 
 
 def init_block(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
@@ -80,7 +89,7 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.arch_type == "moe":
         y, aux = _moe(params, h, cfg)
     else:
-        y = ffn(params["mlp"], h)
+        y = _dense_ffn(cfg)(params["mlp"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
@@ -96,7 +105,7 @@ def decode_block(params: dict, x: torch.Tensor, cache: dict,
         E, K = cfg.num_experts, cfg.top_k
         y, _ = _moe(params, h, cfg, max(K, (x.shape[0] * K + E - 1) // E + 1))
     else:
-        y = ffn(params["mlp"], h)
+        y = _dense_ffn(cfg)(params["mlp"], h)
     return x + y, cache
 
 
@@ -134,6 +143,98 @@ def init_stack_cache(batch: int, max_seq: int, cfg: ModelConfig, dtype,
     return {name: torch.zeros((cfg.num_layers,) + tuple(a.shape), dtype=a.dtype,
                               device=device)
             for name, a in one.items()}
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper): encoder self-attn + decoder self/cross-attn
+# --------------------------------------------------------------------------
+
+def _norm_pair(cfg: ModelConfig, dtype, device, layers: int, name: str) -> dict:
+    """A LayerNorm's stacked scale (ones) and bias (zeros)."""
+    shape = (layers, cfg.d_model)
+    return {name: torch.ones(shape, dtype=dtype, device=device),
+            f"{name}_b": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_enc_layer(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
+    return {
+        **_norm_pair(cfg, dtype, device, layers, "attn_norm"),
+        "attn": init_attention(gen, cfg.d_model, attn_spec(cfg, causal=False),
+                               dtype, device, layers),
+        **_norm_pair(cfg, dtype, device, layers, "ffn_norm"),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device, layers),
+    }
+
+
+def apply_enc_layer(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
+    x = x + multi_head_attention(p["attn"], h, attn_spec(cfg, causal=False))
+    h = layer_norm(x, p["ffn_norm"], p["ffn_norm_b"])
+    return x + mlp_ffn(p["mlp"], h)
+
+
+def init_dec_layer(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
+    d = cfg.d_model
+    return {
+        **_norm_pair(cfg, dtype, device, layers, "attn_norm"),
+        "attn": init_attention(gen, d, attn_spec(cfg), dtype, device, layers),
+        **_norm_pair(cfg, dtype, device, layers, "cross_norm"),
+        "cross": init_attention(gen, d, attn_spec(cfg, cross=True), dtype, device,
+                                layers),
+        **_norm_pair(cfg, dtype, device, layers, "ffn_norm"),
+        "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device, layers),
+    }
+
+
+def _cross_and_mlp(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    h = layer_norm(x, p["cross_norm"], p["cross_norm_b"])
+    x = x + multi_head_attention(p["cross"], h, attn_spec(cfg, cross=True),
+                                 x_kv=enc)
+    h = layer_norm(x, p["ffn_norm"], p["ffn_norm_b"])
+    return x + mlp_ffn(p["mlp"], h)
+
+
+def apply_dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
+    x = x + multi_head_attention(p["attn"], h, attn_spec(cfg))
+    return _cross_and_mlp(p, x, enc, cfg)
+
+
+def decode_dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor, cache: dict,
+                     cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One token: self-attention over the KV cache (written in place), then
+    cross-attention recomputing K / V over the whole encoder output, as
+    the reference does."""
+    h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
+    a, cache = decode_attention(p["attn"], h, cache, attn_spec(cfg))
+    return _cross_and_mlp(p, x + a, enc, cfg), cache
+
+
+def apply_enc_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    for i in range(stacked["attn_norm"].shape[0]):
+        x = apply_enc_layer(tree_map(lambda a: a[i], stacked), x, cfg)
+    return x
+
+
+def apply_dec_stack(stacked: dict, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    for i in range(stacked["attn_norm"].shape[0]):
+        x = apply_dec_layer(tree_map(lambda a: a[i], stacked), x, enc, cfg)
+    return x
+
+
+def decode_dec_stack(stacked: dict, x: torch.Tensor, enc: torch.Tensor,
+                     caches: dict, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One token through every decoder layer; each layer's k / v written
+    in place into its slice of the stacked cache."""
+    index = []
+    for i in range(stacked["attn_norm"].shape[0]):
+        x, c = decode_dec_layer(tree_map(lambda a: a[i], stacked), x, enc,
+                                tree_map(lambda a: a[i], caches), cfg)
+        index.append(c["index"])
+    return x, {"k": caches["k"], "v": caches["v"], "index": torch.stack(index)}
 
 
 # --------------------------------------------------------------------------

@@ -711,13 +711,30 @@ def test_reduced_serve_card_matches_cpu(cuda, name):
     assert [w.launches for w in wrappers] == before
 
 
-FAMILIES = ["qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-130m", "zamba2-1.2b"]
+FAMILIES = ["qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-130m", "zamba2-1.2b",
+            "whisper-base", "paligemma-3b"]
+
+
+def _with_stubs(cfg, batch, seed):
+    """The stub frontends' inputs the audio and VLM families take beside
+    the tokens: N(0, 1) audio frames / image embeddings from a seeded CPU
+    generator (the same on every device)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = dict(batch)
+    B = batch["tokens"].shape[0]
+    if cfg.is_enc_dec:
+        out["audio_frames"] = torch.randn((B, cfg.enc_seq_len, cfg.d_model), generator=gen)
+    if cfg.num_image_tokens:
+        out["image_embeds"] = torch.randn((B, cfg.num_image_tokens, cfg.d_model),
+                                          generator=gen)
+    return out
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_reduced_family_train_and_serve_card_matches_cpu(cuda, name):
-    """The MoE, SSM and hybrid families reduced, f32, TF32 off, from the
-    same weights: three momentum-SGD steps on the card (one
+    """The MoE, SSM, hybrid, audio enc-dec and VLM families reduced, f32,
+    TF32 off, from the same weights (the last two with stub frame / image
+    embeddings beside the tokens): three momentum-SGD steps on the card (one
     ``sgd_momentum_flat`` launch each) and on the CPU, losses within rtol
     1e-4; twelve serve steps' logits and the cache within rtol 1e-4 /
     atol 1e-5, greedy tokens equal; a card serve step makes no host sync."""
@@ -745,7 +762,7 @@ def test_reduced_family_train_and_serve_card_matches_cpu(cuda, name):
         before = fs.sgd_momentum_flat.launches
         losses[dev] = []
         for i in range(3):
-            state, met = step(state, pipe.batch_at(0, i))
+            state, met = step(state, _with_stubs(model.cfg, pipe.batch_at(0, i), i))
             losses[dev].append(float(met["loss"]))
         if dev == "cuda":
             assert fs.sgd_momentum_flat.launches == before + 3
@@ -772,3 +789,58 @@ def test_reduced_family_train_and_serve_card_matches_cpu(cuda, name):
     for a, b in zip(tree_leaves(caches["cuda"]), tree_leaves(caches["cpu"])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert torch.equal(greedy["cuda"], greedy["cpu"])
+
+
+@pytest.mark.parametrize("image_size", [8, 7])
+def test_resnet_forward_and_grads_card_match_cpu(cuda, image_size):
+    """The example's ResNet (8 px: a stride-2 ``"SAME"`` conv pads (0, 1);
+    7 px: (1, 1)) from the same seed: logits rtol 1e-4 / atol 1e-5 and
+    grads rtol 1e-4 of each leaf's largest, card against CPU (TF32 off)."""
+    from repro_torch.configs.resnet50_cifar import ResNetConfig
+    from repro_torch.data.pipeline import DataConfig, ImagePipeline
+    from repro_torch.launch.hybrid_ps_mpi import make_grad_fn
+    from repro_torch.models.resnet import init_resnet, resnet_apply
+    from repro_torch.tree import tree_leaves
+
+    cfg = ResNetConfig(stage_sizes=(1, 1), width=8, image_size=image_size)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = init_resnet(torch.Generator().manual_seed(0), cfg, dev)
+        b = ImagePipeline(DataConfig(batch_size=8), image_size=image_size,
+                          device=dev).batch_at(0, 0)
+        with torch.no_grad():
+            logits = resnet_apply(p, b["images"], cfg).cpu()
+        loss, g = make_grad_fn(cfg)(p, b)
+        out[dev] = (logits, float(loss), [x.cpu() for x in tree_leaves(g)])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * abs(out["cpu"][1])
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_resnet_mpi_esgd_int8_card_matches_cpu(cuda):
+    """The example's ResNet through ``algorithms.run`` (mpi-ESGD over the
+    int8 PS wire, 2 epochs of 4 steps): the clock equal, losses rtol 1e-4,
+    accuracy within one test sample, and on the card the PS-tier kernels
+    launched once per push."""
+    from repro_torch.core.comm import CollectivePolicy
+    from repro_torch.launch import hybrid_ps_mpi as hyb
+
+    cfg = hyb.example_config("mpi_esgd", epochs=2, steps_per_epoch=4,
+                             policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                     wire_dtype="int8"))
+    wrappers = (qb.quantize_wire, qb.dequantize_wire, fe.elastic_client_flat,
+                fe.elastic_server_flat)
+    hist, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        before = [w.launches for w in wrappers]
+        hist[dev] = hyb.run_example(cfg, dev)
+        launched[dev] = [w.launches - b for w, b in zip(wrappers, before)]
+    c, g = hist["cpu"], hist["cuda"]
+    for f in ("times", "epochs", "epoch_time", "mean_staleness", "pushed_bytes"):
+        assert getattr(g, f) == getattr(c, f), f
+    torch.testing.assert_close(torch.tensor(g.losses), torch.tensor(c.losses),
+                               rtol=1e-4, atol=0)
+    assert max(abs(a - b) for a, b in zip(g.metrics, c.metrics)) <= 1 / 256 + 1e-9
+    pushes = launched["cuda"][0]
+    assert pushes > 0 and launched["cuda"] == [pushes] * 4 and launched["cpu"] == [0] * 4

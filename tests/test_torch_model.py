@@ -190,8 +190,15 @@ def test_init_shapes_and_dtypes_match_reference():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("whisper-base")
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), arch_type="vlm")
-    with pytest.raises(NotImplementedError):
-        tmodel.build_model(cfg)
+    """No family is left unported: ``get_config`` resolves all ten of the
+    reference's ids (and ``build_model`` builds each, reduced), while an
+    unknown name still raises."""
+    from repro.configs.base import ARCH_IDS as JARCH_IDS, get_config as jget_config
+
+    for arch in JARCH_IDS:
+        cfg = get_config(arch)
+        assert cfg == dataclasses.replace(cfg, **{
+            f.name: getattr(jget_config(arch), f.name) for f in dataclasses.fields(cfg)})
+        assert tmodel.build_model(reduced(cfg)).cfg.arch_type == cfg.arch_type
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("whisper-large")
