@@ -151,6 +151,24 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  bytes against the cost model, the center's eval loss on 64
                  held-out images below its start, a completion's split,
                  peak memory, device busy, the prototypes' host seconds
+ 12. net      slice 11, the socket PS tier (net/) over TCP on 127.0.0.1,
+              threads of this process, ephemeral ports:
+              a) [net:small] logreg8 through run_worker threads (2 workers)
+                 against a port rendezvous + KVServer, dist_sgd f32 / int8
+                 and dist_esgd f32 / bf16 (its exchanges ordered as the
+                 in-process engine's), card against CPU: losses and
+                 metrics within rtol 1e-4, exit records, degraded / late
+                 counts and live sets equal, bytes per push == the cost
+                 model, launches == steps (and exchanges)
+              b) [net] the paper-scale ResNet, 2 worker threads x 16
+                 images, the KVServer holding the center on the card:
+                 dist_esgd over int8 then f32 (4 steps, an exchange every
+                 step) and dist_sgd at f32 (3 steps) — launch counts, the
+                 kernels held on their own operands, each dist_sgd round
+                 == the plain sum of its pushes, bytes per push and reply
+                 == the cost model, the loss on the trained images below
+                 its start, an exchange's split, loopback TCP MB/s, step
+                 and exchange ms, peak memory, device busy
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -168,7 +186,8 @@ row's ``launches`` are its main path's (the slice-1 steps, the [ps] int8
 run, ...) plus, for the rows slice 10 launches, the [resnet] int8 run's
 (sgd_momentum_flat 8, quantize_wire / dequantize_wire / elastic_client_flat
 / elastic_server_flat 4 each) and 3 sgd_momentum_flat steps for each of
-whisper-base and paligemma-3b.
+whisper-base and paligemma-3b, and slice 11's [net] dist_esgd int8 run
+(sgd_momentum_flat, elastic_client_flat, elastic_server_flat 8 each).
 """
 from __future__ import annotations
 
@@ -179,6 +198,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -186,6 +206,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # the port itself: fails here (exit 1) outside a checkout of the repo
@@ -215,6 +236,11 @@ from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_overlap_grad_fn, make_train_state, make_train_step,
     overlap_schedule, stacked_grads)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.core import kvstore as kvstore_mod  # noqa: E402
+from repro_torch.net import (kvserver as net_kvserver, problem as net_problem,  # noqa: E402
+                             remote_kv as net_remote, rendezvous as net_rdzv,
+                             transport as net_transport, wire as net_wire,
+                             worker as net_worker)
 from repro_torch.models.resnet import _block_plan, init_resnet, resnet_loss  # noqa: E402
 from repro_torch.optim import sgd as sgd_mod  # noqa: E402
 from repro_torch.optim.sgd import flat_hp, sgd as sgd_optimizer  # noqa: E402
@@ -2111,6 +2137,7 @@ class _KernelHold:
     def __init__(self):
         self.err, self.calls = {}, []
         self._orig = {name: getattr(sgd_mod, name) for name in KERNELS}
+        self._lock = threading.Lock()   # [net]'s worker threads share it
 
     def _wrap(self, name, orig):
         k = KERNELS[name]
@@ -2132,8 +2159,9 @@ class _KernelHold:
                     torch.testing.assert_close(got, want, rtol=k["rtol"],
                                                atol=k["atol"])
                     err = max(err, float((got.float() - want.float()).abs().max()))
-            self.err[name] = max(self.err.get(name, 0.0), err)
-            self.calls.append(f"{name} on {tuple(p.shape)} {str(p.dtype)[6:]}")
+            with self._lock:
+                self.err[name] = max(self.err.get(name, 0.0), err)
+                self.calls.append(f"{name} on {tuple(p.shape)} {str(p.dtype)[6:]}")
             return out
 
         return call
@@ -3230,6 +3258,524 @@ def phase_resnet(dev) -> tuple[dict, dict, dict]:
     return launches, errs, report
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the socket PS tier (net/) over TCP on 127.0.0.1
+# ---------------------------------------------------------------------------
+
+#: [net:small]: logreg8, 2 workers + 1 server, 2 epochs of 2 steps, an
+#: exchange every step; (mode, wire) runs, each on the card and the CPU
+NET_SMALL = (("dist_sgd", None), ("dist_sgd", "int8"), ("dist_esgd", None),
+             ("dist_esgd", "bf16"))
+NET_SMALL_RUN = dict(num_workers=2, num_clients=2, num_servers=1, lr=0.1,
+                     momentum=0.9, epochs=2, steps_per_epoch=2, esgd_interval=1,
+                     jitter=0.0, seed=0)
+#: [net]: the paper-scale ResNet, 2 workers of 16 images; dist_esgd 4
+#: steps (an exchange every step), dist_sgd 3
+NET_BATCH = 16
+NET_RUNS = (("dist_esgd", "int8", 4), ("dist_esgd", None, 4), ("dist_sgd", None, 3))
+NET_RUN = dict(num_workers=2, num_clients=2, num_servers=1, lr=1e-3, momentum=0.9,
+               esgd_alpha=0.5, esgd_interval=1, epochs=1, jitter=0.0, seed=0)
+NET_JOIN_S = 600.0
+#: the paper-scale ResNet's FlatBuffer length (RESNET_PARAMS padded)
+RESNET_FLAT = 21_789_696
+#: the worker outputs' exit records, held equal card vs CPU
+NET_RECORD = ("gsteps", "metric_epochs", "exchanges", "degraded_seen", "partial",
+              "resumed_from", "rank", "attempt", "resume", "ps", "mpi", "kv")
+
+
+class _Turnstile:
+    """Puts the dist_esgd exchanges in the in-process engine's order (unit
+    0, unit 1, per step): exchange (it, u) waits for its turn, which moves
+    on when unit u reports ``progress`` for it — so a card run and a CPU
+    run see the same center."""
+
+    def __init__(self, units: int):
+        self.units, self.turn = units, 0
+        self.cond = threading.Condition()
+
+    def server(self, handle):
+        def wrapped(op, meta, payload):
+            if op == "elastic_exchange":
+                idx = int(meta["step"]) * self.units + int(meta["unit"])
+                with self.cond:
+                    if not self.cond.wait_for(lambda: self.turn == idx, NET_JOIN_S):
+                        raise TimeoutError(f"exchange turn {idx} never came")
+            return handle(op, meta, payload)
+        return wrapped
+
+    def rendezvous(self, handle):
+        def wrapped(op, meta, payload):
+            if op == "progress":
+                idx = int(meta["step"]) * self.units + int(meta["rank"])
+                with self.cond:
+                    if self.turn == idx:
+                        self.turn += 1
+                        self.cond.notify_all()
+            return handle(op, meta, payload)
+        return wrapped
+
+
+class _NetTier:
+    """A port rendezvous and one port KVServer on ``dev``, served over TCP
+    on ephemeral ports of 127.0.0.1; ``tap(op, meta, payload)`` sees every
+    request the server gets."""
+
+    def __init__(self, cfg, dev, *, ordered=False, tap=None):
+        self.tr = net_transport.transport_for("tcp")
+        self.rdzv = net_rdzv.Rendezvous(
+            num_workers=cfg.num_workers, num_servers=1, num_clients=cfg.num_workers,
+            algo=net_rdzv.algo_to_dict(cfg))
+        self.kv = net_kvserver.KVServer(cfg, device=dev)
+        gate = _Turnstile(cfg.num_workers) if ordered else None
+        handle = self.kv.handle
+        if tap is not None:
+            def handle(op, meta, payload, _h=self.kv.handle):
+                tap(op, meta, payload)
+                return _h(op, meta, payload)
+        self.served = [self.tr.serve(gate.rendezvous(self.rdzv.handle) if gate
+                                     else self.rdzv.handle),
+                       self.tr.serve(gate.server(handle) if gate else handle)]
+        self.addr = self.served[0].addr
+        conn = self.tr.connect(self.addr)
+        net_rdzv.join_rendezvous(conn, "server", 0, addr=self.served[1].addr)
+        conn.close()
+
+    def stats(self) -> dict:
+        return self.kv.handle("stats", {}, b"")[0]
+
+    def close(self) -> None:
+        for s in self.served:
+            s.close()
+
+
+def _net_threads(fn, ranks) -> dict:
+    """``fn(rank)`` in one thread per rank, each joined within NET_JOIN_S;
+    a thread that raised re-raises here."""
+    out, errs = {}, {}
+
+    def body(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs[r] = e
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True) for r in ranks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(NET_JOIN_S)
+    alive = [r for r, t in zip(ranks, threads) if t.is_alive()]
+    if alive:
+        raise AssertionError(f"[net] worker threads {alive} still running after "
+                             f"{NET_JOIN_S} s")
+    if errs:
+        raise next(iter(errs.values()))
+    return out
+
+
+def _net_losses(mode, outs, steps_per_epoch) -> list:
+    """The in-process runner's loss record: dist_sgd the per-step mean over
+    workers, dist_esgd the epoch mean over completions in turnstile order."""
+    ranks = sorted(outs)
+    n = len(outs[ranks[0]]["losses"])
+    if mode == "dist_sgd":
+        return [float(np.mean([outs[r]["losses"][i] for r in ranks])) for i in range(n)]
+    return [float(np.mean([outs[r]["losses"][i] for i in range(e, e + steps_per_epoch)
+                           for r in ranks])) for e in range(0, n, steps_per_epoch)]
+
+
+def _net_want(mode, steps, workers=2) -> dict:
+    """Launch counts of one socket run: the fused SGD kernel once per step
+    per worker; on dist_esgd Elastic2 on the worker and Elastic1 on the
+    server once per exchange; nothing else."""
+    want = {"sgd_momentum_flat": workers * steps}
+    if mode == "dist_esgd":
+        want.update(elastic_client_flat=workers * steps,
+                    elastic_server_flat=workers * steps)
+    return want
+
+
+def phase_net_small(dev) -> None:
+    """logreg8 through ``run_worker`` threads against a port rendezvous and
+    KVServer over TCP, on the card and on the CPU: losses and metrics
+    within rtol 1e-4, exit records, counters and live sets equal, bytes
+    per push == the cost model, launches as stated."""
+    for mode, wd in NET_SMALL:
+        cfg = alg.AlgoConfig(mode=mode, **NET_SMALL_RUN, policy=CollectivePolicy(
+            method="multi_ring", num_rings=2, wire_dtype=wd))
+        steps = cfg.epochs * cfg.steps_per_epoch
+        res = {}
+        for d in ("cpu", dev):
+            tier = _NetTier(cfg, d, ordered=mode == "dist_esgd")
+            reset_counts()
+            try:
+                outs = _net_threads(lambda r: net_worker.run_worker(
+                    rank=r, rendezvous_addr=tier.addr, transport="tcp", device=d),
+                    [0, 1])
+                torch.cuda.synchronize()
+                got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+                stats = tier.stats()
+            finally:
+                tier.close()
+            res[str(d)] = (outs, stats, got)
+        (c_outs, c_stats, c_got), (g_outs, g_stats, g_got) = res["cpu"], res[str(dev)]
+        label = f"[net:small] {mode} wire={wd or 'f32'}"
+        if c_got:
+            raise AssertionError(f"{label}: the CPU run launched {c_got}")
+        want = _net_want(mode, steps)
+        if g_got != want:
+            raise AssertionError(f"{label}: launches {g_got}, want {want}")
+        cl, gl = (_net_losses(mode, o, cfg.steps_per_epoch) for o in (c_outs, g_outs))
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl), rtol=1e-4, atol=0)
+        for r in (0, 1):
+            torch.testing.assert_close(torch.tensor(g_outs[r]["metrics"]),
+                                       torch.tensor(c_outs[r]["metrics"]),
+                                       rtol=1e-4, atol=0)
+            for k in NET_RECORD:
+                if g_outs[r].get(k) != c_outs[r].get(k):
+                    raise AssertionError(f"{label}: worker {r} {k} card "
+                                         f"{g_outs[r].get(k)} != cpu {c_outs[r].get(k)}")
+        for k in ("degraded_syncs", "late_pushes", "live", "membership_epoch",
+                  "push_count", "bytes"):
+            if g_stats[k] != c_stats[k]:
+                raise AssertionError(f"{label}: server {k} card {g_stats[k]} != cpu "
+                                     f"{c_stats[k]}")
+        n = flatbuf.spec_for(net_problem.build_problem("logreg8", device="cpu").init_fn(
+            torch.Generator().manual_seed(0))).size
+        per_push = cost_model.ps_wire_nbytes(n, wd)
+        for r, out in g_outs.items():
+            kv = out["kv"]
+            if kv["pushed_bytes"] != kv["push_count"] * per_push or kv["push_count"] != steps:
+                raise AssertionError(f"{label}: worker {r} pushed {kv['pushed_bytes']} "
+                                     f"B in {kv['push_count']} pushes, cost model "
+                                     f"{per_push} B per push")
+        log(f"{label}: losses {[round(x, 6) for x in gl]} metrics "
+            f"{[g_outs[r]['metrics'] for r in (0, 1)]} card within rtol 1e-4 of cpu; "
+            f"exit records, degraded {g_stats['degraded_syncs']} / late "
+            f"{g_stats['late_pushes']} / live {g_stats['live']} equal; {per_push} B "
+            f"per push == ps_wire_nbytes({n}, {wd}); launches {g_got}")
+
+
+class _NetRecorder:
+    """For one [net] run: the server's Elastic1 and the worker's Elastic2
+    operands of the last exchange (``core.kvstore.elastic_server_packed``
+    and ``net.worker.elastic_client_packed`` wrapped), each exchange's and
+    each step's wall time per worker, and (dist_sgd) the pushes the
+    server decoded per round."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.server = self.client = None
+        self.exchange_ms, self.step_ms, self.pushes = [], [], {}
+        self._orig = (kvstore_mod.elastic_server_packed, net_worker.elastic_client_packed,
+                      net_remote.RemoteKVStore.elastic_exchange)
+
+    def _server(self, pushed, center, alpha):
+        self.server = (pushed, center, alpha)
+        return self._orig[0](pushed, center, alpha)
+
+    def _client(self, params, center, alpha):
+        self.client = (params, center, alpha)
+        return self._orig[1](params, center, alpha)
+
+    def tap(self, op, meta, payload):
+        if op == "push":
+            self.pushes[(int(meta["step"]), int(meta["unit"]))] = \
+                net_wire.decode_buffer(meta, payload, self.dev)
+
+    def __enter__(self):
+        rec, exchange = self, self._orig[2]
+
+        def timed(rkv, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exchange(rkv, *a, **kw)
+            torch.cuda.synchronize()
+            rec.exchange_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        kvstore_mod.elastic_server_packed = self._server
+        net_worker.elastic_client_packed = self._client
+        net_remote.RemoteKVStore.elastic_exchange = timed
+        return self
+
+    def __exit__(self, *exc):
+        (kvstore_mod.elastic_server_packed, net_worker.elastic_client_packed,
+         net_remote.RemoteKVStore.elastic_exchange) = self._orig
+
+
+def _net_worker(tier, cfg, prob, dev, rank, rec) -> dict:
+    """``run_worker``'s set-up (join, wait for the servers, a
+    RemoteKVStore on ``dev``), then the port's own mode loop with the
+    [net] problem; each step's wall time goes to ``rec.step_ms``."""
+    tr = tier.tr
+    conn = net_transport.connect_with_retry(tr, tier.addr)
+    reply = net_rdzv.join_rendezvous(conn, "worker", rank)
+    wcfg = net_rdzv.algo_from_dict(reply["config"]["algo"])
+    addrs = net_rdzv.wait_servers(conn)
+    rkv = net_remote.RemoteKVStore({r: tr.connect(a) for r, a in addrs.items()},
+                                   wire_dtype=wcfg.effective_wire_dtype, device=dev)
+    run = net_worker._run_dist_sgd if wcfg.mode == "dist_sgd" else net_worker._run_dist_esgd
+    last = [time.perf_counter()]
+
+    def flush(partial):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec.step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+
+    def killed():
+        raise net_worker.WorkerKilled(rank)
+
+    try:
+        out = run(wcfg, prob, rkv, conn, rank, None, killed, flush=flush)
+        out["kv"] = rkv.stats()
+        return out
+    finally:
+        conn.request("leave", {"rank": rank})
+        conn.close()
+        rkv.close()
+
+
+def _net_split(spec, dev, wd, params, center, alpha) -> dict:
+    """One exchange's pieces at the [net] buffer, each timed alone (host
+    clock around work that ends in a sync; median of 3): the worker's pack
+    + encode (the device-to-host copy included), the TCP round trip of
+    that payload through an echo server, the server's decode + host-to-
+    device copy, the server kernel, the encode of the old center, and the
+    worker's decode + Elastic2."""
+    def host_ms(fn, reps=3):
+        fn()
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    a = torch.tensor(float(alpha), device=dev)
+    c = spec.pack(center)
+    meta, payload = net_wire.encode_buffer(spec.pack(params), wd)
+    tr = net_transport.transport_for("tcp")
+    echo = tr.serve(lambda op, m, p: ({}, p))
+    conn = tr.connect(echo.addr)
+    try:
+        out = {
+            "pack_encode_ms": host_ms(lambda: net_wire.encode_buffer(spec.pack(params), wd)),
+            "socket_round_trip_ms": host_ms(lambda: conn.request("echo", meta, payload)),
+            "server_decode_ms": host_ms(lambda: net_wire.decode_buffer(meta, payload, dev)),
+        }
+        w = net_wire.decode_buffer(meta, payload, dev)
+        out["server_kernel_ms"] = cuda_ms(lambda: fe.elastic_server_flat(w, c, a), reps=5)
+        out["encode_center_ms"] = host_ms(lambda: net_wire.encode_buffer(c, wd))
+        cmeta, cpayload = net_wire.encode_buffer(c, wd)
+        out["worker_decode_elastic2_ms"] = host_ms(lambda: net_worker.elastic_client_packed(
+            params, spec.unpack(net_wire.decode_buffer(cmeta, cpayload, dev)), alpha))
+    finally:
+        conn.close()
+        echo.close()
+    out["payload_bytes"] = len(payload)
+    out["exchange_sum_ms"] = sum(v for k, v in out.items() if k.endswith("_ms"))
+    # the payload crosses the loopback socket twice per round trip
+    out["socket_MB_per_s"] = 2 * len(payload) / out["socket_round_trip_ms"] / 1e3
+    return out
+
+
+def _net_busy(tier, cfg, prob, dev, params, batch) -> tuple:
+    """One more completion against the run's live server under the
+    profiler — fwd + bwd, the socket exchange and Elastic2 (dist_esgd) or
+    the push of a round no other worker joins (dist_sgd: its pull would
+    wait for them), the fused update: (busy share, busy ms, wall ms)."""
+    tr = tier.tr
+    conn = tr.connect(tier.served[1].addr)
+    rkv = net_remote.RemoteKVStore({0: conn}, wire_dtype=cfg.effective_wire_dtype,
+                                   device=dev)
+    key = "centers" if cfg.mode == "dist_esgd" else "grads"
+    rkv.register(key, params)
+    opt = alg._make_opt(cfg, params)
+    state = opt.init(params)
+
+    def completion(*_):
+        _, g = prob.grad_fn(params, batch)
+        if cfg.mode == "dist_esgd":
+            old, _ = rkv.elastic_exchange(key, params, step=99, unit=0)
+            p = net_worker.elastic_client_packed(params, old, cfg.esgd_alpha)
+        else:
+            rkv.push(key, g, step=99, unit=0)
+            p = params
+        opt.update(g, state, p)
+
+    try:
+        return _device_busy(completion, None, None)
+    finally:
+        rkv.close()
+
+
+def phase_net(dev, card) -> tuple[dict, dict, dict]:
+    """The paper-scale ResNet (21,788,200 f32 params in a 21,789,696-value
+    FlatBuffer) through the socket PS tier: 2 worker threads (one client
+    each) and one KVServer holding the center on the card, over TCP on
+    127.0.0.1 — dist_esgd over int8 then f32 (4 steps, an exchange every
+    step), then dist_sgd at f32 (3 steps). Launch counts, every SGD launch
+    held on its own operands, the last exchange's Elastic1 / Elastic2 ==
+    their plain versions on their own operands, each dist_sgd round's sum
+    == the plain ascending-unit sum of its pushes, bytes per push and per
+    reply == the cost model, the loss on the first step's images below its
+    start (64 held-out images reported); the exchange split, socket MB/s,
+    step and exchange ms, peak memory, busy share."""
+    cfg_r = RESNET_PAPER
+    t0 = time.perf_counter()
+    pipes = [ImagePipeline(DataConfig(seed=0, batch_size=NET_BATCH, steps_per_epoch=4,
+                                      shard=w), image_size=cfg_r.image_size,
+                           num_classes=cfg_r.num_classes, device=dev) for w in range(2)]
+    test = ImagePipeline(DataConfig(seed=0, batch_size=RESNET_EVAL_BATCH,
+                                    steps_per_epoch=1, shard=999),
+                         image_size=cfg_r.image_size, num_classes=cfg_r.num_classes,
+                         device=dev).batch_at(99, 0)
+    # the loss the run must lower: the 32 images of both workers' first
+    # step (1000 classes: 64 held-out images move by noise after 128
+    # training images, so their loss is reported, not gated)
+    probe = {k: torch.cat([p.batch_at(0, 0)[k] for p in pipes]) for k in ("images",
+                                                                       "labels")}
+    log(f"[net] paper-scale ResNet {cfg_r}: 2 worker threads x {NET_BATCH} images, one "
+        f"KVServer on the card, TCP on 127.0.0.1; pipelines drawn in "
+        f"{time.perf_counter() - t0:.2f} s host")
+
+    @torch.no_grad()
+    def evaluate(params, batch=probe) -> float:
+        return float(resnet_loss(params, batch, cfg_r)[0])
+
+    prob = net_problem.Problem(
+        "resnet-paper", lambda gen: init_resnet(gen, cfg_r, dev),
+        hyb.make_grad_fn(cfg_r), evaluate, lambda w: pipes[w])
+    params0 = prob.init_fn(torch.Generator().manual_seed(0))
+    spec = flatbuf.spec_for(params0)
+    if spec.payload != RESNET_PARAMS or spec.size != RESNET_FLAT:
+        raise AssertionError(f"[net] FlatBuffer {spec.payload} / {spec.size}, want "
+                             f"{RESNET_PARAMS} / {RESNET_FLAT}")
+    start, start_held = evaluate(params0), evaluate(params0, test)
+    launches, errs, report = {}, {}, {}
+    for mode, wd, steps in NET_RUNS:
+        cfg = alg.AlgoConfig(mode=mode, **NET_RUN, steps_per_epoch=steps,
+                             policy=CollectivePolicy(method="multi_ring", num_rings=2,
+                                                     wire_dtype=wd))
+        label = f"[net] {mode} wire={wd or 'f32'}"
+        rec = _NetRecorder(dev)
+        tier = _NetTier(cfg, dev, tap=rec.tap if mode == "dist_sgd" else None)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with rec, _KernelHold() as hold:
+                t0 = time.perf_counter()
+                outs = _net_threads(lambda r: _net_worker(tier, cfg, prob, dev, r, rec),
+                                    [0, 1])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            stats = tier.stats()
+            # the center the server ends with (dist_sgd: the params every
+            # worker ends with, equal by the barrier)
+            final_params = (spec.unpack(tier.kv.kv.value("centers")) if mode == "dist_esgd"
+                            else None)
+            final = (evaluate(final_params) if final_params is not None
+                     else outs[0]["metrics"][-1])
+            held_out = (evaluate(final_params, test) if final_params is not None
+                        else None)
+            log(f"{label}: losses {[[round(x, 5) for x in o['losses']] for o in outs.values()]}"
+                f"; loss on the first step's 32 images {start:.5f} -> {final:.5f}"
+                + (f"; on 64 held-out images {start_held:.5f} -> {held_out:.5f}"
+                   if held_out is not None else "") + f"; launches {got}")
+            want = _net_want(mode, steps)
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, want {want}")
+            if mode == "dist_esgd" and wd == "int8":
+                launches = dict(want)
+            per = cost_model.ps_wire_nbytes(spec.size, wd)
+            pushes = 0
+            for r, out in outs.items():
+                kv = out["kv"]
+                pushes += kv["push_count"]
+                if (kv["push_count"] != steps or kv["pushed_bytes"] != steps * per
+                        or kv["pulled_bytes"] != steps * per):
+                    raise AssertionError(f"{label}: worker {r} {kv}, cost model {per} B "
+                                         f"per push and per reply")
+                losses = out["losses"]
+                if not all(math.isfinite(x) for x in losses + out["metrics"]):
+                    raise AssertionError(f"{label}: non-finite {losses} {out['metrics']}")
+            if mode == "dist_sgd" and outs[0]["metrics"] != outs[1]["metrics"]:
+                raise AssertionError(f"{label}: the workers' params differ: "
+                                     f"{outs[0]['metrics']} {outs[1]['metrics']}")
+            if not final < start:
+                raise AssertionError(f"{label}: the eval loss {final} is not below its "
+                                     f"start {start}")
+            b = stats["bytes"]
+            moved_in = b["exchange_in"] + b["push_in"]
+            moved_out = b["exchange_out"] + b["pull_out"]
+            if moved_in != pushes * per or moved_out != pushes * per:
+                raise AssertionError(f"{label}: server bytes {b}, want {pushes} x {per}")
+            held = {"sgd_momentum_flat": hold.err["sgd_momentum_flat"]}
+            if mode == "dist_esgd":
+                w, c, a = rec.server
+                held["elastic_server_flat"] = _hold_ps(
+                    "elastic_server_flat", (w, c, torch.tensor(float(a), device=dev)))
+                params, center, a = rec.client
+                held["elastic_client_flat"] = _hold_ps(
+                    "elastic_client_flat", (spec.pack(params), spec.pack(center),
+                                            torch.tensor(float(a), device=dev)))
+            else:
+                for s in range(steps):
+                    meta, payload = tier.kv.handle("pull", {"key": "grads", "step": s}, b"")
+                    total = net_wire.decode_buffer(meta, payload, dev)
+                    plain = rec.pushes[(s, 0)] + rec.pushes[(s, 1)]
+                    if not torch.equal(total, plain):
+                        raise AssertionError(f"{label}: round {s}'s sum != the plain "
+                                             f"ascending-unit sum of its pushes")
+                held["round_sums"] = 0.0
+            for name, e in held.items():
+                if name in ALL_KERNELS:
+                    errs[name] = max(errs.get(name, 0.0), e)
+            split = (_net_split(spec, dev, wd, rec.client[0], rec.client[1],
+                                cfg.esgd_alpha) if mode == "dist_esgd" else None)
+            busy = _net_busy(tier, cfg, prob, dev, params0, pipes[0].batch_at(0, 0))
+        finally:
+            tier.close()
+        ex = rec.exchange_ms
+        report[label] = {
+            "losses": {r: o["losses"] for r, o in outs.items()},
+            "eval": [start, final], "held_out_eval": [start_held, held_out],
+            "launches": got,
+            "bytes_per_push": per, "pushes": pushes, "server_bytes": stats["bytes"],
+            "run_ms": wall_ms, "step_ms": rec.step_ms, "exchange_ms": ex,
+            "peak_mem_bytes": peak, "split": split,
+            "device_busy_share": busy[0], "device_busy_ms": busy[1], "profiled_ms": busy[2],
+            "holds": held, "card": card}
+        log(f"{label}: {pushes} pushes x {per} B each way == ps_wire_nbytes({spec.size}, {wd}) "
+            f"(server in {moved_in} / out {moved_out} B); holds == plain {held}")
+        log(f"{label}: run {wall_ms:.0f} ms; step ms (every SGD launch's hold "
+            f"included) {_ms_stats(rec.step_ms)}"
+            + (f"; exchange ms {_ms_stats(ex)}" if ex else "")
+            + f"; peak {peak / 2**30:.2f} GiB; busy {busy[1]} of {busy[2]:.1f} ms "
+            f"profiled (share {busy[0]}) | {card}")
+        if split is None:
+            del rec, outs, hold
+            torch.cuda.empty_cache()
+            continue
+        log(f"{label}: split (ms): pack+encode {split['pack_encode_ms']:.2f}, socket round "
+            f"trip {split['socket_round_trip_ms']:.2f}, server decode+H2D "
+            f"{split['server_decode_ms']:.2f}, server kernel {split['server_kernel_ms']:.3f}, "
+            f"encode old center {split['encode_center_ms']:.2f}, worker decode+Elastic2 "
+            f"{split['worker_decode_elastic2_ms']:.2f} (sum {split['exchange_sum_ms']:.1f}); "
+            f"loopback TCP {split['socket_MB_per_s']:.0f} MB/s | {card}")
+        del rec, outs, hold
+        torch.cuda.empty_cache()
+    del pipes
+    return launches, errs, report
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -3300,6 +3846,17 @@ def main() -> None:
     for name, c in resnet_launches.items():     # the int8 run's launches add
         launches[name] += c
     for name, e in resnet_errs.items():         # worst hold: earlier or the run's
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    t0 = time.perf_counter()
+    phase_net_small(dev)
+    log(f"[net:small] took {time.perf_counter() - t0:.1f} s | {card}")
+    t0 = time.perf_counter()
+    net_launches, net_errs, net = phase_net(dev, card)
+    log("[net] " + json.dumps(net, default=str))
+    log(f"[net] took {time.perf_counter() - t0:.1f} s | {card}")
+    for name, c in net_launches.items():        # the dist_esgd int8 run's add
+        launches[name] += c
+    for name, e in net_errs.items():            # worst hold: earlier or the run's
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     for name, row in kernels.items():
         row["launches"] = launches[name]

@@ -3,8 +3,8 @@
 ``params_from_numpy`` takes a parameter tree of numpy arrays — the
 reference's nested keys and stacked ``(L, …)`` leaves, e.g. from
 ``jax.tree.map(np.asarray, params)`` — and returns the port's params;
-``params_to_numpy`` is its inverse. bf16 arrays (numpy's ``ml_dtypes``
-bfloat16) cross bit for bit.
+``params_to_numpy`` is its inverse. bf16 arrays (numpy's bfloat16, which
+the reference's ``ml_dtypes`` registers) cross bit for bit.
 """
 from __future__ import annotations
 
@@ -27,9 +27,15 @@ def _from_numpy(a, device) -> torch.Tensor:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # the reference's bf16 numpy dtype
-
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        # numpy's bfloat16 is the one ml_dtypes registers, which the
+        # reference loads: the port itself never imports it
+        try:
+            bf16 = np.dtype("bfloat16")
+        except TypeError:
+            raise RuntimeError("numpy has no bfloat16 dtype: import the "
+                               "reference (its ml_dtypes registers one) "
+                               "before bridging a bf16 tree") from None
+        return t.view(torch.uint16).numpy().view(bf16)
     return t.numpy().copy()
 
 

@@ -3,18 +3,29 @@
 path (``k:params/k:layers/k:attn/k:wq``), bf16 widened losslessly to f32
 on disk, a JSON ``__meta__`` entry, written atomically (tmp +
 ``os.replace``). A checkpoint either package writes restores in the other.
+
+``save_packed`` / ``restore_packed`` write named packed buffers (what a KV
+server snapshots, net/kvserver.py) with a JSON meta dict and no pytree
+structure; ``latest_checkpoint`` finds the newest complete
+``ckpt_<step>.npz`` in a directory, skipping ``*.tmp*`` leftovers and torn
+files.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import tempfile
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.tree import path_str, tree_flatten_with_path, tree_unflatten
+
+#: server snapshot filename stem: ckpt_<step>.npz
+CKPT_PREFIX = "ckpt_"
+_CKPT_RE = re.compile(r"^ckpt_(\d+)\.npz$")
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -72,4 +83,43 @@ def restore_checkpoint(path: str, like: Any) -> tuple[Any, dict]:
 
 
 def checkpoint_path(dirname: str, step: int) -> str:
-    return os.path.join(dirname, f"ckpt_{step}.npz")
+    return os.path.join(dirname, f"{CKPT_PREFIX}{step}.npz")
+
+
+def save_packed(path: str, arrays: dict, *, step: int = 0,
+                metadata: dict | None = None) -> None:
+    """Atomically write named packed buffers (tensors on any device, or
+    numpy arrays) + JSON metadata. Names are free-form strings (the server
+    uses ``kv:<i>``, ``state:<unit>:<i>``, ``round:<i>``)."""
+    meta = {"step": step, "packed": True, **(metadata or {})}
+    _atomic_savez(path, {k: _to_numpy(v) if isinstance(v, torch.Tensor)
+                         else np.asarray(v) for k, v in arrays.items()}, meta)
+
+
+def restore_packed(path: str) -> tuple[dict[str, np.ndarray], dict]:
+    """Inverse of ``save_packed`` (numpy arrays). Raises on a torn or
+    corrupt file — ``latest_checkpoint`` turns that into a skip."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        arrays = {k: data[k] for k in data.files if k != "__meta__"}
+    return arrays, meta
+
+
+def latest_checkpoint(dirname: str) -> Optional[str]:
+    """Newest complete ``ckpt_<step>.npz`` under ``dirname``, or None:
+    ``*.tmp*`` leftovers never match the name pattern, and a file that
+    fails to load is skipped for the next-newest."""
+    if not os.path.isdir(dirname):
+        return None
+    found = []
+    for name in os.listdir(dirname):
+        m = _CKPT_RE.match(name)
+        if m:
+            found.append((int(m.group(1)), os.path.join(dirname, name)))
+    for _, path in sorted(found, reverse=True):
+        try:
+            restore_packed(path)
+        except Exception:
+            continue
+        return path
+    return None

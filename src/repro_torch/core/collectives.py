@@ -371,3 +371,56 @@ def sched_reassemble(gathered: torch.Tensor, schedule) -> torch.Tensor:
             src = d * m + off
             out[..., start + lo:start + hi] = gathered[..., src:src + hi - lo]
     return out
+
+
+# --------------------------------------------------------------------------
+# Tensor (fused-pytree) collectives as free functions
+# --------------------------------------------------------------------------
+#
+# The canonical spelling is ``Communicator.tensor_allreduce`` /
+# ``Communicator.pushpull`` (core/comm.py): the group owns its whole
+# ``CollectivePolicy``. These wrappers take a Communicator only, with the
+# reference's refusals (``repro/core/collectives.py:418-460``).
+
+def _as_group(group, method, num_rings, wire_dtype, *, where: str):
+    from repro_torch.core.comm import Communicator
+
+    if not isinstance(group, Communicator):
+        raise ValueError(
+            f"{where}: the axis_name= string form was removed — build the "
+            "group with Communicator.world(axes, sizes) and pass it instead, "
+            f"got {group!r}")
+    if method is not None or num_rings is not None or wire_dtype is not None:
+        raise ValueError(
+            f"{where}: with a Communicator the collective policy lives on "
+            "the group — set method/num_rings/wire_dtype there "
+            "(Communicator.with_policy), not as arguments")
+    return group
+
+
+def tensor_allreduce(tree, axis_name, method: Optional[str] = None, *,
+                     num_rings: Optional[int] = None,
+                     wire_dtype: Optional[str] = None, mean: bool = False,
+                     spec=None):
+    """Allreduce a stacked pytree as ONE fused buffer over the group
+    ``axis_name`` (a ``core.comm.Communicator``; its leading dims are the
+    group's frame)."""
+    group = _as_group(axis_name, method, num_rings, wire_dtype,
+                      where="tensor_allreduce")
+    return group.tensor_allreduce(tree, mean=mean, spec=spec)
+
+
+def tensor_pushpull(tree, axis_name, *, fused: bool = True,
+                    method: Optional[str] = None,
+                    num_rings: Optional[int] = None,
+                    wire_dtype: Optional[str] = None, spec=None):
+    """The KVStore.pushpull pattern inside the group: ``fused=True`` is one
+    tensor allreduce (mean); ``fused=False`` is a tree push + tree pull,
+    so ``method`` must be left unset (or "tree") there."""
+    if not fused and method not in (None, "tree"):
+        raise ValueError(
+            f"method={method!r} is only meaningful for fused=True; the "
+            "unfused path is defined as tree push + tree pull")
+    group = _as_group(axis_name, method, num_rings, wire_dtype,
+                      where="tensor_pushpull")
+    return group.pushpull(tree, fused=fused, spec=spec)

@@ -187,6 +187,23 @@ class Communicator:
     frame: tuple[str, ...] = ()
     meter: Optional[WireMeter] = field(default=None, compare=False)
 
+    # -- policy views (read-only) -------------------------------------------
+    @property
+    def method(self) -> str:
+        return self.policy.method
+
+    @property
+    def num_rings(self) -> int:
+        return self.policy.num_rings
+
+    @property
+    def bucket_bytes(self) -> Optional[int]:
+        return self.policy.bucket_bytes
+
+    @property
+    def wire_dtype(self) -> Optional[str]:
+        return self.policy.wire_dtype
+
     # -- construction -------------------------------------------------------
     @classmethod
     def world(cls, axes=(), sizes=None, *,
@@ -266,6 +283,12 @@ class Communicator:
     @property
     def is_trivial(self) -> bool:
         return not self.axes
+
+    @property
+    def backend(self) -> str:
+        """The reference's names: "trivial" (size-1 short circuit) or
+        "named_axis" — here the stacked emulated axes of ``frame``."""
+        return "trivial" if self.is_trivial else "named_axis"
 
     @property
     def static_size(self) -> int:

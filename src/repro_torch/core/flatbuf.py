@@ -109,6 +109,9 @@ class FlatBuffer:
         off, n = self.offsets[index], self.sizes[index]
         return buf[off:off + n].view(self.shapes[index])
 
+    def zeros(self, device=None) -> torch.Tensor:
+        return torch.zeros((self.size,), dtype=self.dtype, device=device)
+
 
 def make_flatbuf(tree: Any, dtype: torch.dtype = torch.float32, *,
                  align: int = LANE) -> FlatBuffer:

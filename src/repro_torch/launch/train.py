@@ -425,8 +425,6 @@ def train_loop(model: Model, optimizer: Optimizer, sync: SyncConfig,
 _NOT_PORTED = {
     ("policy", "auto"): "--policy auto needs the cost-model autotuner "
                         "(launch.autotune)",
-    ("transport", "tcp"): "--transport tcp needs the socket transport tier "
-                          "(net/: rendezvous, workers, the socket PS)",
 }
 
 
@@ -508,13 +506,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--transport", default="loopback",
                     choices=("loopback", "tcp"),
                     help="'loopback' runs the standalone in-process worker; "
-                         "'tcp' (a socket transport worker) is not yet ported")
+                         "'tcp' runs a socket transport worker of the PS tier "
+                         "(net/worker.py) against --rendezvous")
     ap.add_argument("--rendezvous", default=os.environ.get("REPRO_RDZV_ADDR"),
-                    help="rendezvous host:port for --transport tcp (recorded)")
+                    help="rendezvous host:port for --transport tcp (default: "
+                         "$REPRO_RDZV_ADDR)")
     ap.add_argument("--mode", default="",
-                    help="transport algorithm mode (recorded for the spec)")
+                    help="transport algorithm mode (dist_sgd / dist_esgd); "
+                         "the job config from the rendezvous is "
+                         "authoritative, this is recorded for the spec")
     ap.add_argument("--problem", default="logreg8",
-                    help="transport training problem (recorded)")
+                    help="transport training problem (net/problem.py; the "
+                         "rendezvous' job config names it)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "kernel versions)")
@@ -553,6 +556,25 @@ def settings_from_args(args: argparse.Namespace):
     return cfg, settings
 
 
+def _transport_worker(ap: argparse.ArgumentParser, args) -> list:
+    """``--transport tcp``: one socket worker of the PS tier, its rank
+    from ``REPRO_RANK`` (else ``--client``); -> its per-step losses."""
+    from repro_torch.net.worker import run_worker, write_metrics
+
+    if not args.rendezvous:
+        ap.error("--transport tcp needs --rendezvous (or REPRO_RDZV_ADDR in "
+                 "the environment)")
+    rank = int(os.environ.get("REPRO_RANK", args.client))
+    attempt = int(os.environ.get("REPRO_ATTEMPT", "0"))
+    out = run_worker(rank=rank, rendezvous_addr=args.rendezvous,
+                     transport="tcp", attempt=attempt, device=args.device)
+    write_metrics(out, rank, args.rendezvous, "tcp")
+    losses = out.get("losses", [])
+    print(f"[train] transport worker {rank} done: {len(losses)} steps, "
+          f"final loss {losses[-1] if losses else None}", flush=True)
+    return losses
+
+
 def main(argv: Optional[list] = None) -> list:
     """The worker: one process is one client (C = 1 inside it); the job
     spec's ``--client`` picks its data shard, the rest is recorded."""
@@ -564,6 +586,8 @@ def main(argv: Optional[list] = None) -> list:
     for (dest, value), missing in _NOT_PORTED.items():
         if getattr(args, dest) == value:
             ap.error(f"not yet ported: {missing}")
+    if args.transport == "tcp":
+        return _transport_worker(ap, args)
     device = resolve_device(args.device)
     cfg, settings = settings_from_args(args)
     model = build_model(cfg)

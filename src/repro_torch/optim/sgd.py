@@ -160,6 +160,17 @@ def state_stream_dtype(hyper, state_dtypes=None) -> torch.dtype:
     return sd if sd is not None else torch.float32
 
 
+def momentum_shard_init(spec: flatbuf.FlatBuffer, p: int = 1,
+                        num_rings: int = 1,
+                        bucket_bytes: int | None = None,
+                        dtype: torch.dtype = torch.float32, *,
+                        device=None) -> torch.Tensor:
+    """Zero momentum for one device's shard of the flat buffer (p = 1 for
+    the local path)."""
+    return torch.zeros((flatbuf.shard_size(spec, p, num_rings, bucket_bytes),),
+                       dtype=dtype, device=device)
+
+
 def optstate_shard_init(hyper, spec: flatbuf.FlatBuffer, p: int = 1,
                         num_rings: int = 1,
                         bucket_bytes: int | None = None,

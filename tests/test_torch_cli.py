@@ -4,7 +4,8 @@
 to the same optimizer, sync config and first batch (the reference's
 ``train_loop`` stubbed, so no JAX compute runs); the header fields; and a
 few real reduced runs of both CLIs from the same weights, losses held at
-rtol 1e-4."""
+rtol 1e-4; and ``--transport tcp`` workers against an in-thread port
+rendezvous and KV server, their losses ``==`` the in-process run."""
 import dataclasses
 import importlib
 import sys
@@ -23,6 +24,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core import comm as tcomm  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from _torch_net import Tier, run_threads, step_means  # noqa: E402
 
 jtrain = importlib.import_module("repro.launch.train")
 torch.set_num_threads(2)
@@ -286,3 +288,29 @@ def test_launcher_command_runs_in_the_port(capsys):
                 "overlap_buckets", "faults", "barrier_timeout"):
         assert key in header
     assert "[train] done" in out
+
+
+def test_cli_transport_tcp_trains_like_inprocess(monkeypatch, capsys):
+    """Two ``--transport tcp --device cpu`` workers (``--client`` gives the
+    rank) against an in-thread port rendezvous and KV server: 3 dist_sgd
+    steps each, the per-step mean loss ``==`` the in-process
+    ``algorithms.run`` of the job config the rendezvous hands out."""
+    from repro_torch.core import algorithms as TA
+    from repro_torch.net.problem import build_problem
+    from repro_torch.net.rendezvous import algo_to_dict
+
+    monkeypatch.delenv("REPRO_RANK", raising=False)
+    cfg = TA.AlgoConfig(mode="dist_sgd", num_workers=2, num_clients=2,
+                        num_servers=1, epochs=1, steps_per_epoch=3, seed=0)
+    with Tier(algo_to_dict(cfg), workers=2) as tier:
+        losses = run_threads(lambda r: ttrain.main(
+            ["--transport", "tcp", "--rendezvous", tier.addr, "--client", str(r),
+             "--mode", "dist_sgd", "--device", "cpu"]), [0, 1])
+        assert tier.stats()["push_count"] == {"grads": 6}
+    out = capsys.readouterr().out
+    for r in (0, 1):
+        assert f"[train] transport worker {r} done: 3 steps" in out
+    prob = build_problem("logreg8", device="cpu")
+    hist = TA.run(cfg, prob.init_fn, prob.grad_fn, prob.eval_fn,
+                  prob.make_pipeline, device="cpu")
+    assert step_means({r: {"losses": l} for r, l in losses.items()}) == hist.losses

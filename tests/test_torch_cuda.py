@@ -844,3 +844,54 @@ def test_resnet_mpi_esgd_int8_card_matches_cpu(cuda):
     assert max(abs(a - b) for a, b in zip(g.metrics, c.metrics)) <= 1 / 256 + 1e-9
     pushes = launched["cuda"][0]
     assert pushes > 0 and launched["cuda"] == [pushes] * 4 and launched["cpu"] == [0] * 4
+
+
+# -- slice 11: the socket PS tier on the card ---------------------------------
+
+def test_kvserver_exchange_launches_server_kernel_once(cuda):
+    """A ``KVServer(device="cuda")`` elastic exchange: the pushed buffer is
+    decoded onto the card, Elastic1 is one ``elastic_server_flat`` launch,
+    the new center ``==`` the plain version on the same operands, and the
+    reply is the old center's bytes."""
+    from repro_torch.core.algorithms import AlgoConfig
+    from repro_torch.net import wire
+    from repro_torch.net.kvserver import KVServer
+
+    cfg = AlgoConfig(mode="dist_esgd", num_workers=2, num_clients=2, esgd_alpha=0.25)
+    srv = KVServer(cfg, device="cuda")
+    gen = torch.Generator().manual_seed(11)
+    c0, w = torch.randn(4096, generator=gen), torch.randn(4096, generator=gen)
+    meta, payload = wire.encode_buffer(c0)
+    srv.handle("init", dict(meta, key="c"), payload)
+    assert srv.kv.value("c").device.type == "cuda"
+    before = [fe.elastic_server_flat.launches, fe.elastic_client_flat.launches]
+    meta, payload = wire.encode_buffer(w)
+    rm, rp = srv.handle("elastic_exchange", dict(meta, key="c", unit=0), payload)
+    torch.cuda.synchronize()
+    assert [fe.elastic_server_flat.launches, fe.elastic_client_flat.launches] == \
+        [before[0] + 1, before[1]]
+    assert rp == wire.encode_buffer(c0)[1]
+    want = fe.elastic_server_flat_plain(w.cuda(), c0.cuda(),
+                                        torch.tensor(0.25, device="cuda"))
+    assert torch.equal(srv.kv.value("c"), want)
+
+
+def test_net_entry_points_raise_without_a_card():
+    """``KVServer``, ``RemoteKVStore``, ``build_problem`` and ``run_worker``
+    on ``device="cuda"`` raise on a machine without a card (no CPU
+    fallback), before any socket is touched."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core.algorithms import AlgoConfig
+    from repro_torch.net.kvserver import KVServer
+    from repro_torch.net.problem import build_problem
+    from repro_torch.net.remote_kv import RemoteKVStore
+    from repro_torch.net.worker import run_worker
+
+    calls = [lambda: KVServer(AlgoConfig(mode="dist_sgd")),
+             lambda: RemoteKVStore({0: object()}),
+             lambda: build_problem("logreg8"),
+             lambda: run_worker(rank=0, rendezvous_addr="127.0.0.1:9")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

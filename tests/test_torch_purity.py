@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, at run time or in their source,
+neither JAX, ml_dtypes nor the reference package, at run time or in their
+source (a socket PS job on the loopback transport included),
 and the chip smoke refuses to report without a card."""
 import ast
 import os
@@ -33,6 +34,7 @@ from repro_torch.kernels.fused_optim import fused_optim
 from repro_torch.kernels.fused_sgd import fused_sgd
 from repro_torch.kernels.quant_bucket import quant_bucket
 from repro_torch.launch import serve, shard_driver
+from repro_torch.net import kvserver, problem, remote_kv, rendezvous, transport, wire, worker
 from repro_torch.optim import sgd
 model = build_model(reduced(get_config("qwen2-0.5b")))
 srv = serve.BatchedServer(model, model.init(device="cpu"), batch=2, max_seq=8, device="cpu")
@@ -63,8 +65,21 @@ hist = algorithms.run(cfg, lambda gen: model.init(device="cpu"),
                       lambda w: TokenPipeline(DataConfig(**data, shard=w)),
                       device="cpu")
 assert hist.pushed_bytes > 0 and len(hist.losses) == 1
+ncfg = algorithms.AlgoConfig(mode="dist_sgd", num_workers=1, num_clients=1,
+                             num_servers=1, epochs=1, steps_per_epoch=2,
+                             policy=comm.CollectivePolicy(wire_dtype="int8"))
+tr = transport.transport_for("loopback")
+rdzv = rendezvous.Rendezvous(num_workers=1, num_servers=1, num_clients=1,
+                             algo=rendezvous.algo_to_dict(ncfg), transport="loopback")
+rsrv = tr.serve(rdzv.handle)
+ksrv = tr.serve(kvserver.KVServer(ncfg, device="cpu").handle)
+rendezvous.join_rendezvous(tr.connect(rsrv.addr), "server", 0, addr=ksrv.addr)
+out = worker.run_worker(rank=0, rendezvous_addr=rsrv.addr, transport="loopback",
+                        device="cpu")
+assert len(out["losses"]) == 2 and out["kv"]["pushed_bytes"] > 0
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "repro.")))
+             if m in ("jax", "jaxlib", "repro", "ml_dtypes")
+             or m.startswith(("jax.", "repro.", "ml_dtypes.")))
 print("BAD", bad)
 """
 
@@ -92,7 +107,8 @@ def _imports(path: Path) -> set:
 def test_source_imports_no_jax_or_reference(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: imports {name}"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -174,14 +174,20 @@ def test_cli_trains_on_cpu(argv, capsys):
 @pytest.mark.parametrize("argv", [["--policy", "auto"],
                                   ["--transport", "tcp"],
                                   ["--transport", "tcp", "--mode", "dist_esgd"]])
-def test_cli_unported_flags_raise(argv, capsys):
-    """The reference's flags whose paths are not ported yet exit with a
-    usage error that names what is missing."""
-    with pytest.raises(SystemExit):
+def test_cli_unported_flags_raise(argv, capsys, monkeypatch):
+    """``--policy auto``, whose path is not ported yet, exits with a usage
+    error that names what is missing. ``--transport tcp`` runs the socket
+    worker (tests/test_torch_cli.py trains with it); without a rendezvous
+    it exits with the reference's usage error."""
+    monkeypatch.delenv("REPRO_RDZV_ADDR", raising=False)
+    with pytest.raises(SystemExit) as exit_:
         ttrain.main(["--device", "cpu", "--steps", "1"] + argv)
+    assert exit_.value.code == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err
-    assert ("autotuner" if "--policy" in argv else "socket transport") in err
+    if "--policy" in argv:
+        assert "not yet ported" in err and "autotuner" in err
+    else:
+        assert "--transport tcp needs --rendezvous" in err
 
 
 @pytest.mark.parametrize("argv", [["--overlap"], ["--overlap", "--wire-dtype", "int8"]],
