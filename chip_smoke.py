@@ -169,6 +169,29 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  == the cost model, the loss on the trained images below
                  its start, an exchange's split, loopback TCP MB/s, step
                  and exchange ms, peak memory, device busy
+ 13. launch   slice 12, the launch tier, each sub-phase's wall time printed:
+              a) [launch:small] launch/run_local.run_job on logreg8, 2 worker
+                 processes + 1 server process spawned from the launcher's
+                 scripts under the supervisor, TCP on 127.0.0.1: the card's
+                 compute mode and a fresh process's start-up time; dist_sgd
+                 (3 steps) as card processes (their pids seen holding the
+                 card) == the same job as loopback threads on the card, and
+                 as CPU processes within rtol 1e-4; a worker killed and
+                 respawned, and the server killed and restored, each ==
+                 the clean job (exit history [137, 0], 0 degraded, restored
+                 step >= 1); dist_esgd over the int8 wire (2 epochs of 2
+                 steps): exit codes 0, 4 exchanges a worker, every push and
+                 reply cost_model.ps_wire_nbytes long, finite losses
+              b) [launch] the launcher's main with --policy auto emits a
+                 pure-MPI qwen2-0.5b job (8 workers, 1 client: ranked at
+                 p = 8); one rank of client_0.sh's command, with --full-size
+                 --steps 3, runs through launch.train.main here: the table
+                 and the chosen policy printed and named by the run's
+                 header, losses finite and falling, sgd_momentum_flat
+                 launches == 3 and held on one more step's operands, step
+                 ms, peak memory; the card's bf16 GEMM rate (8192^3) and
+                 stream rate (phase 2's sgd_momentum_flat) beside
+                 launch/analysis's data-sheet constants
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -186,14 +209,18 @@ row's ``launches`` are its main path's (the slice-1 steps, the [ps] int8
 run, ...) plus, for the rows slice 10 launches, the [resnet] int8 run's
 (sgd_momentum_flat 8, quantize_wire / dequantize_wire / elastic_client_flat
 / elastic_server_flat 4 each) and 3 sgd_momentum_flat steps for each of
-whisper-base and paligemma-3b, and slice 11's [net] dist_esgd int8 run
-(sgd_momentum_flat, elastic_client_flat, elastic_server_flat 8 each).
+whisper-base and paligemma-3b, slice 11's [net] dist_esgd int8 run
+(sgd_momentum_flat, elastic_client_flat, elastic_server_flat 8 each), and
+slice 12's full-width [launch] run (sgd_momentum_flat 3). The launches of
+[launch:small]'s child processes happen in other processes and are not
+counted here.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -231,6 +258,7 @@ from repro_torch.core import elastic as elastic_mod  # noqa: E402
 from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
 from repro_torch.core.comm import Communicator, from_sync  # noqa: E402
 from repro_torch.launch import hybrid_ps_mpi as hyb, shard_driver as sd, train as train_mod  # noqa: E402
+from repro_torch.launch import analysis, autotune, launcher, run_local  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_overlap_grad_fn, make_train_state, make_train_step,
@@ -3776,6 +3804,366 @@ def phase_net(dev, card) -> tuple[dict, dict, dict]:
     return launches, errs, report
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the launch tier — run_local's worker and server processes, and
+# the launcher's autotuned full-width client command
+# ---------------------------------------------------------------------------
+
+#: [launch:small]: logreg8, 2 worker processes + 1 server process
+LAUNCH_RUN = dict(mode="dist_sgd", num_workers=2, num_clients=2, num_servers=1,
+                  lr=0.05, epochs=1, steps_per_epoch=3, seed=0, compute_time=0.0,
+                  jitter=0.0)
+#: the dist_esgd job: 2 epochs of 2 steps, an exchange every step, int8 wire
+LAUNCH_ESGD = dict(LAUNCH_RUN, mode="dist_esgd", lr=0.1, momentum=0.9, epochs=2,
+                   steps_per_epoch=2, esgd_interval=1)
+#: barrier timeout of the faulted jobs: a deadlock guard the holds never
+#: wait on (a respawn rejoins within seconds)
+LAUNCH_GUARD_S = 120.0
+LAUNCH_JOB_S = 300.0
+#: [launch]: a pure-MPI job of 8 workers in one client, the policy ranked
+#: at p = 8 devices per client; one rank of its command at full width
+LAUNCH_ARGV = ["--arch", "qwen2-0.5b", "--workers", "8", "--servers", "0",
+               "--clients", "1", "--policy", "auto"]
+LAUNCH_STEPS = 3
+GEMM_N = 8192
+#: the port's entry points a job's child processes run
+CHILD_ENTRIES = ("repro_torch.launch.train", "repro_torch.net.kvserver")
+
+
+class _ChildWatch:
+    """While a job runs: every 0.1 s, each process whose command line runs
+    a port entry point — its unit (REPRO_ROLE / REPRO_RANK from its
+    environment) and whether it holds a ``/dev/nvidia*`` file open (a
+    CUDA context); every 0.5 s, nvidia-smi's compute apps (pid, MiB) and
+    the card's used memory (MiB)."""
+
+    def __init__(self):
+        self.units, self.card, self.smi, self.used_mib = {}, set(), {}, []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._loop, args=(f, s), daemon=True)
+                         for f, s in ((self._scan, 0.1), (self._query, 0.5))]
+
+    def _loop(self, fn, every):
+        while not self._stop.is_set():
+            fn()
+            self._stop.wait(every)
+
+    def _scan(self):
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit() or int(pid) == os.getpid():
+                continue
+            try:
+                cmd = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+                if not any(e in cmd for e in CHILD_ENTRIES):
+                    continue
+                env = dict(kv.split(b"=", 1) for kv in
+                           Path(f"/proc/{pid}/environ").read_bytes().split(b"\0") if b"=" in kv)
+                fds = [os.readlink(f"/proc/{pid}/fd/{fd}")
+                       for fd in os.listdir(f"/proc/{pid}/fd")]
+            except (OSError, ValueError):
+                continue              # the process ended between two reads
+            role = env.get(b"REPRO_ROLE", b"?").decode()
+            self.units[int(pid)] = (f"{'client' if role == 'worker' else role}_"
+                                    f"{env.get(b'REPRO_RANK', b'?').decode()}")
+            if any(f.startswith("/dev/nvidia") for f in fds):
+                self.card.add(int(pid))
+
+    def _query(self):
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True).stdout
+        for line in out.strip().splitlines():
+            pid, _, mib = line.partition(",")
+            if pid.strip().isdigit():
+                self.smi[int(pid)] = mib.strip()
+        used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                               "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True).stdout.split()
+        if used and used[0].isdigit():
+            self.used_mib.append(int(used[0]))
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(5.0)
+
+    def on_card(self, units) -> dict:
+        """{unit: [pids seen holding the card]}; raises unless every unit
+        of ``units`` had a process with a CUDA context open."""
+        got = {u: sorted(p for p, v in self.units.items() if v == u and p in self.card)
+               for u in units}
+        missing = [u for u, pids in got.items() if not pids]
+        if missing:
+            raise AssertionError(f"[launch:small] no process of {missing} held the card "
+                                 f"(seen: {self.units}, with /dev/nvidia*: {sorted(self.card)})")
+        return got
+
+
+def _startup_s(env) -> float:
+    """Wall seconds for a fresh interpreter to import the port's worker and
+    put a tensor on the card: the start-up every child process pays."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "import torch, repro_torch.launch.train, repro_torch.net.worker; "
+                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                   env=env, check=True, timeout=300)
+    return time.perf_counter() - t0
+
+
+def _job(label, algo, outdir, **kw):
+    """One ``run_local.run_job``, its wall seconds logged."""
+    t0 = time.perf_counter()
+    res = run_local.run_job(algo, outdir=str(outdir) if outdir else None,
+                            timeout=LAUNCH_JOB_S, **kw)
+    wall = time.perf_counter() - t0
+    history = f" (history {res.exit_history})" if res.respawns else ""
+    log(f"{label}: {wall:.1f} s wall, exit codes {res.exit_codes}{history}, "
+        f"losses {res.losses} metrics {res.metrics}")
+    return res, wall
+
+
+def _same_curve(label, got, want) -> None:
+    if got.losses != want.losses or got.metrics != want.metrics:
+        raise AssertionError(f"{label}: losses {got.losses} metrics {got.metrics} != "
+                             f"{want.losses} / {want.metrics}")
+
+
+def phase_launch_small(dev, card) -> dict:
+    """``run_local.run_job`` on logreg8 with 2 worker processes and 1 server
+    process, spawned from the launcher's scripts under the supervisor, TCP
+    on 127.0.0.1 — card processes == loopback threads on the card; CPU
+    processes within rtol 1e-4; a worker killed and respawned and the
+    server killed and restored, both == the clean job; dist_esgd over the
+    int8 wire by exit codes, exchanges, bytes and finite losses."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    log(f"[launch:small] compute mode {mode!r}; python on PATH "
+        f"{shutil.which('python')!r}, the scripts' python -> {sys.executable} | {card}")
+    if "Exclusive" in mode:
+        raise AssertionError(f"[launch:small] compute mode {mode}: one CUDA context per "
+                             "card, so the job's worker and server processes cannot share it")
+    root = ROOT / "build" / "launch_small"
+    shutil.rmtree(root, ignore_errors=True)
+    env = run_local._child_env(str(root))
+    start = [_startup_s(env) for _ in range(2)]
+    log(f"[launch:small] process start-up (interpreter, port import, CUDA context): "
+        f"{[round(s, 2) for s in start]} s | {card}")
+    report = {"compute_mode": mode, "startup_s": start, "wall_s": {}}
+    sgd = alg.AlgoConfig(**LAUNCH_RUN)
+    units = ("client_0", "client_1", "server_0")
+
+    reset_counts()
+    with _ChildWatch() as idle:
+        time.sleep(1.0)
+    with _ChildWatch() as watch:
+        clean, report["wall_s"]["card"] = _job("[launch:small] dist_sgd card processes",
+                                               sgd, root / "card", device="cuda")
+    got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+    if got:
+        raise AssertionError(f"[launch:small] the children's launches reached this "
+                             f"process: {got}")
+    on_card = watch.on_card(units)
+    # nvidia-smi names processes by the host's pids: it lists this
+    # process's own pid only where it shares the host's pid namespace
+    own = os.getpid() in watch.smi or os.getpid() in idle.smi
+    in_smi = {u: [(p, watch.smi[p]) for p in pids if p in watch.smi]
+              for u, pids in on_card.items()}
+    log(f"[launch:small] child pids holding the card (/proc fds): {on_card}; "
+        f"nvidia-smi's compute apps (pid, MiB) during the job {watch.smi}, this "
+        f"process ({os.getpid()}) {'listed' if own else 'not listed: another pid namespace'}"
+        f"; the children in it {in_smi}; card memory used {idle.used_mib[-1:]} MiB idle, "
+        f"{max(watch.used_mib, default=None)} MiB at most during the job | {card}")
+    if own and not all(in_smi.values()):
+        raise AssertionError(f"[launch:small] nvidia-smi lists {sorted(watch.smi)} "
+                             f"but not every child {on_card}")
+    report.update(child_pids=on_card, smi=watch.smi, own_pid_in_smi=own,
+                  used_mib_idle=idle.used_mib, used_mib_job_max=max(watch.used_mib,
+                                                                     default=None))
+    if clean.exit_codes != {"server_0": 0, "client_0": 0, "client_1": 0} \
+            or len(clean.losses) != 3 or clean.degraded_syncs:
+        raise AssertionError(f"[launch:small] clean job: {clean.exit_codes}, "
+                             f"{clean.losses}, degraded {clean.degraded_syncs}")
+
+    reset_counts()
+    loop, report["wall_s"]["loopback"] = _job("[launch:small] dist_sgd loopback threads "
+                                              "on the card", sgd, None,
+                                              transport="loopback", device="cuda")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+    if got != {"sgd_momentum_flat": 6}:
+        raise AssertionError(f"[launch:small] loopback launches {got}, want 6 sgd")
+    _same_curve("[launch:small] card processes vs loopback threads", clean, loop)
+
+    host, report["wall_s"]["cpu"] = _job("[launch:small] dist_sgd CPU processes", sgd,
+                                         root / "cpu", device="cpu")
+    torch.testing.assert_close(torch.tensor(host.losses), torch.tensor(clean.losses),
+                               rtol=1e-4, atol=0)
+    torch.testing.assert_close(torch.tensor(host.metrics), torch.tensor(clean.metrics),
+                               rtol=1e-4, atol=0)
+
+    kill, report["wall_s"]["respawn"] = _job(
+        "[launch:small] worker 1 killed at step 2 and respawned",
+        alg.AlgoConfig(**LAUNCH_RUN, faults="kill@2:unit=1;restart@2:unit=1",
+                       checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
+        root / "respawn", device="cuda")
+    _same_curve("[launch:small] respawn", kill, clean)
+    if kill.exit_history.get("client_1") != [137, 0] or kill.degraded_syncs:
+        raise AssertionError(f"[launch:small] respawn: exit history "
+                             f"{kill.exit_history}, degraded {kill.degraded_syncs}")
+
+    srv, report["wall_s"]["restore"] = _job(
+        "[launch:small] server killed after step 1 and restored",
+        alg.AlgoConfig(**LAUNCH_RUN, server_faults="kill@1:unit=0;restart@1:unit=0",
+                       checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
+        root / "restore", device="cuda")
+    _same_curve("[launch:small] restore", srv, clean)
+    restored = srv.server_stats[0].get("restored_step")
+    if restored is None or restored < 1 or srv.degraded_syncs:
+        raise AssertionError(f"[launch:small] restore: restored step {restored}, "
+                             f"degraded {srv.degraded_syncs}")
+
+    esgd = alg.AlgoConfig(**LAUNCH_ESGD, policy=CollectivePolicy(
+        method="multi_ring", num_rings=2, wire_dtype="int8"))
+    ex, report["wall_s"]["esgd_int8"] = _job("[launch:small] dist_esgd int8 card processes",
+                                             esgd, root / "esgd", device="cuda")
+    n = flatbuf.spec_for(net_problem.build_problem("logreg8", device="cpu").init_fn(
+        torch.Generator().manual_seed(0))).size
+    per_push = cost_model.ps_wire_nbytes(n, "int8")
+    if set(ex.exit_codes.values()) != {0}:
+        raise AssertionError(f"[launch:small] dist_esgd exit codes {ex.exit_codes}")
+    for r in (0, 1):
+        out, kv = ex.per_worker[r], ex.per_worker[r]["kv"]
+        if (out["exchanges"] != 4 or kv["push_count"] != 4
+                or kv["pushed_bytes"] != 4 * per_push or kv["pulled_bytes"] != 4 * per_push):
+            raise AssertionError(f"[launch:small] dist_esgd worker {r}: exchanges "
+                                 f"{out['exchanges']}, kv {kv}, want 4 x {per_push} B")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"[launch:small] dist_esgd worker {r} losses {out['losses']}")
+    log(f"[launch:small] holds: card processes == loopback threads on the card "
+        f"(losses {clean.losses}, metrics {clean.metrics}); CPU processes within "
+        f"rtol 1e-4; respawn exit history {kill.exit_history['client_1']} and restore "
+        f"(restored step {restored}) == the clean job, 0 degraded; dist_esgd int8 4 "
+        f"exchanges a worker, {per_push} B per push and per reply == "
+        f"ps_wire_nbytes({n}, int8), exit codes {ex.exit_codes} | {card}")
+    return report
+
+
+def phase_launch(dev, card, sgd_row) -> tuple[int, float, dict]:
+    """The launcher's ``main`` with ``--policy auto`` emits a pure-MPI job
+    of qwen2-0.5b; one rank of its ``client_0.sh`` command runs here, at
+    full width, 3 steps through ``launch.train.main`` (the launches
+    counted), the SGD kernel held on one more step's operands; and the
+    card's bf16 GEMM and stream rates beside ``analysis``'s data sheet
+    ones. -> (sgd launches, hold max_abs_err, report)."""
+    import contextlib
+    import io
+    import shlex
+
+    outdir = ROOT / "build" / "launch_scripts"
+    shutil.rmtree(outdir, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launcher.main(LAUNCH_ARGV + ["--outdir", str(outdir)])
+    for line in buf.getvalue().splitlines():
+        log(f"[launch] launcher: {line}")
+    job = json.loads((outdir / "job_spec.json").read_text())
+    cfg = get_config("qwen2-0.5b")
+    shape = INPUT_SHAPES["train_4k"]
+    want = autotune.autotune_for_model(cfg, p=8,
+                                       tokens_per_step=shape.seq_len * shape.global_batch)
+    chosen = want.chosen.policy
+    if job["sync"]["policy"] != chosen.to_dict() or "# --policy auto" not in buf.getvalue():
+        raise AssertionError(f"[launch] the job's policy {job['sync']['policy']} is not "
+                             f"the autotuned {chosen.to_dict()}")
+    script = launcher.parse_script(str(outdir / "client_0.sh"))
+    toks = shlex.split(script["cmd"])
+    if toks[:6] != ["mpirun", "-np", "8", "python", "-m", "repro_torch.launch.train"]:
+        raise AssertionError(f"[launch] client_0.sh runs {script['cmd']!r}")
+    argv = toks[6:] + ["--full-size", "--steps", str(LAUNCH_STEPS)]
+    log(f"[launch] chosen policy {chosen.to_dict()} ({want.chosen.bytes_per_step:,.0f} "
+        f"wire B / step modeled at p = 8); one rank of client_0.sh: train.main({argv})")
+
+    marks, captured = [], {}
+    orig = train_mod.train_loop
+
+    def traced_loop(model, optimizer, sync, mesh, batches, **kw):
+        def mark(entry):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        marks.append(time.perf_counter())
+        state, hist = orig(model, optimizer, sync, mesh, batches, callback=mark, **kw)
+        captured.update(model=model, optimizer=optimizer, sync=sync, state=state)
+        return state, hist
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    train_mod.train_loop = traced_loop
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            hist = train_mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_mod.train_loop = orig
+    got = counts(ALL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    for line in buf.getvalue().splitlines():
+        log(f"[launch] train: {line}")
+    _check_launches("[launch]", got, {"sgd_momentum_flat": LAUNCH_STEPS}, LAUNCH_STEPS)
+    header = next(l for l in buf.getvalue().splitlines() if l.startswith("[train] client"))
+    named = (f"wire_dtype={chosen.wire_dtype or 'f32'} ", f"overlap={chosen.overlap} ",
+             f"overlap_buckets={chosen.overlap_buckets} ")
+    sync = captured["sync"]
+    if not all(n in header for n in named) or sync.policy != chosen:
+        raise AssertionError(f"[launch] the run's policy {sync.policy} / header {header!r} "
+                             f"is not the chosen {chosen}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != LAUNCH_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"[launch] losses {losses}: want {LAUNCH_STEPS}, finite, falling")
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=64, batch_size=8,
+                                    steps_per_epoch=LAUNCH_STEPS), device=dev)
+    step = make_train_step(captured["model"], captured["optimizer"], sync, device=dev)
+    with _KernelHold() as hold:           # one more step, not counted
+        step(captured["state"], pipe.batch_at(0, 0))
+    torch.cuda.synchronize()
+    err = hold.err["sgd_momentum_flat"]
+    del captured, step
+    torch.cuda.empty_cache()
+
+    a = torch.randn(GEMM_N, GEMM_N, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(GEMM_N, GEMM_N, device=dev, dtype=torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: torch.matmul(a, b), reps=20, warmup=3)
+    gemm = 2 * GEMM_N ** 3 / (gemm_ms * 1e-3)
+    del a, b
+    stream = sgd_row["bytes"] / (sgd_row["ms"] * 1e-3)
+    report = {"policy": chosen.to_dict(), "argv": argv, "losses": losses,
+              "step_ms": step_ms, "peak_mem_bytes": peak, "hold_max_abs_err": err,
+              "gemm_ms": gemm_ms, "gemm_flops_per_s": gemm,
+              "stream_bytes_per_s": stream, "peak_flops": analysis.PEAK_FLOPS,
+              "hbm_bw": analysis.HBM_BW}
+    log(f"[launch] full-width qwen2-0.5b under the autotuned policy: losses "
+        f"{[round(x, 4) for x in losses]} falling; init + step 1 {step_ms[0]:.1f} ms, steps "
+        f"{[round(x, 1) for x in step_ms[1:]]} ms; peak {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in got.items() if v} }; kernel hold ({'; '.join(hold.calls)}) "
+        f"== plain: max_abs_err {err} | {card}")
+    log(f"[launch] rates: bf16 GEMM {GEMM_N}^3 {gemm_ms:.3f} ms = {gemm / 1e12:.1f} TFLOP/s "
+        f"against analysis.PEAK_FLOPS {analysis.PEAK_FLOPS / 1e12:.0f} "
+        f"({gemm / analysis.PEAK_FLOPS:.1%}); stream (phase 2 sgd_momentum_flat, "
+        f"{sgd_row['bytes']} B in {sgd_row['ms']:.4f} ms) {stream / 1e12:.3f} TB/s against "
+        f"analysis.HBM_BW {analysis.HBM_BW / 1e12:.2f} ({stream / analysis.HBM_BW:.1%}) "
+        f"| {card}")
+    return got["sgd_momentum_flat"], err, report
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -3858,6 +4246,19 @@ def main() -> None:
         launches[name] += c
     for name, e in net_errs.items():            # worst hold: earlier or the run's
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch_small = phase_launch_small(dev, card)
+    log("[launch:small] " + json.dumps(launch_small, default=str))
+    log(f"[launch:small] took {time.perf_counter() - t0:.1f} s | {card}")
+    t1 = time.perf_counter()
+    sgd_row = kernels["sgd_momentum_flat"]
+    launch_sgd, launch_err, launch = phase_launch(dev, card, dict(sgd_row, bytes=20 * n))
+    log("[launch] " + json.dumps(launch, default=str))
+    log(f"[launch] took {time.perf_counter() - t1:.1f} s; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    launches["sgd_momentum_flat"] += launch_sgd      # the full-width run's 3
+    sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], launch_err)
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -71,6 +71,11 @@ class CollectivePolicy:
     overlap: bool = False
     overlap_buckets: int = 4
 
+    @property
+    def wire(self) -> Optional[str]:
+        """Normalized wire dtype (None for the full-precision "f32")."""
+        return check_wire_dtype(self.wire_dtype, where="CollectivePolicy")
+
     def replace(self, **kw) -> "CollectivePolicy":
         return replace(self, **kw)
 

@@ -29,6 +29,7 @@ worker's flags and lowers them as it does (``settings_from_args``):
 
   python -m repro_torch.launch.train --full-size --steps 5
   python -m repro_torch.launch.train --device cpu --steps 3 --wire-dtype int8 --allreduce ring
+  python -m repro_torch.launch.train --device cpu --steps 3 --policy auto
 """
 from __future__ import annotations
 
@@ -420,14 +421,6 @@ def train_loop(model: Model, optimizer: Optimizer, sync: SyncConfig,
     return state, history
 
 
-#: the reference CLI's flag values whose paths are not ported yet: (flag,
-#: value) -> what is missing
-_NOT_PORTED = {
-    ("policy", "auto"): "--policy auto needs the cost-model autotuner "
-                        "(launch.autotune)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The reference worker CLI's flags, defaults and choices
     (``repro/launch/train.py``), plus the port's ``--device``."""
@@ -484,7 +477,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = default: 2, or 1 under --overlap)")
     ap.add_argument("--policy", default=None, choices=("auto",),
                     help="'auto' ranks the collective-policy space with the "
-                         "cost model (not yet ported)")
+                         "cost model (launch.autotune) at --tune-p devices "
+                         "and trains under the fastest valid policy")
     ap.add_argument("--tune-p", type=int, default=8,
                     help="devices per client --policy auto scores the "
                          "candidates at")
@@ -533,14 +527,29 @@ def settings_from_args(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if not args.full_size:
         cfg = reduced(cfg)
-    method = args.allreduce or (
-        "psum" if args.wire_dtype == "f32" and not args.overlap else "ring")
-    pol = comm_lib.CollectivePolicy(
-        method=method,
-        num_rings=1 if args.overlap else (args.num_rings or 2),
-        bucket_bytes=args.bucket_bytes or None,
-        wire_dtype=None if args.wire_dtype == "f32" else args.wire_dtype,
-        overlap=args.overlap, overlap_buckets=args.overlap_buckets)
+    if args.policy == "auto":
+        from repro_torch.configs.base import INPUT_SHAPES
+        from repro_torch.launch.autotune import autotune_for_model, format_table
+
+        shape = INPUT_SHAPES.get(args.shape)
+        tokens = (shape.seq_len * shape.global_batch if shape is not None
+                  else 1 << 20)
+        result = autotune_for_model(cfg, p=args.tune_p, tokens_per_step=tokens)
+        pol = result.chosen.policy
+        print(f"[train] --policy auto: ranked "
+              f"{len(result.ranked)} valid / {len(result.pruned)} pruned "
+              f"candidates at p={result.p}, "
+              f"payload={result.nbytes:.0f} B", flush=True)
+        print(format_table(result), flush=True)
+    else:
+        method = args.allreduce or (
+            "psum" if args.wire_dtype == "f32" and not args.overlap else "ring")
+        pol = comm_lib.CollectivePolicy(
+            method=method,
+            num_rings=1 if args.overlap else (args.num_rings or 2),
+            bucket_bytes=args.bucket_bytes or None,
+            wire_dtype=None if args.wire_dtype == "f32" else args.wire_dtype,
+            overlap=args.overlap, overlap_buckets=args.overlap_buckets)
     settings = TrainSettings(lr=args.lr, momentum=args.momentum,
                              optimizer_name=args.optimizer,
                              weight_decay=args.weight_decay,
@@ -583,9 +592,6 @@ def main(argv: Optional[list] = None) -> list:
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    for (dest, value), missing in _NOT_PORTED.items():
-        if getattr(args, dest) == value:
-            ap.error(f"not yet ported: {missing}")
     if args.transport == "tcp":
         return _transport_worker(ap, args)
     device = resolve_device(args.device)

@@ -2,13 +2,41 @@
 rendezvous and KV server(s) of either package served on port 0 (or
 loopback), worker threads joined with a timeout that fails the test, and
 a turnstile that puts the dist_esgd exchanges in the in-process engine's
-order (jitter 0: unit 0, unit 1, unit 0, ...)."""
+order (jitter 0: unit 0, unit 1, unit 0, ...); and ``one_thread``, the
+CPU setting under which the exact holds hold."""
+import contextlib
 import importlib
+import os
 import threading
 
 import numpy as np
 
 JOIN_S = 60.0
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one CPU thread here, and in the environment child
+    processes inherit. With more threads the BLAS may use fewer of them
+    when the machine is loaded (as under ``pytest -n 6``), so a small
+    product rounds differently from one call to the next: the logreg8
+    losses of a socket run and of the in-process run then differ in the
+    5th digit, and their ``==`` fails although both runs are right."""
+    import torch
+
+    threads = torch.get_num_threads()
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    torch.set_num_threads(1)
+    os.environ.update({k: "1" for k in saved})
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def net(package: str, name: str):
@@ -95,7 +123,8 @@ class Tier:
 
 def run_threads(fn, ranks) -> dict:
     """``fn(rank)`` in one thread per rank; every thread must finish
-    within JOIN_S and raise nothing. -> {rank: result}."""
+    within JOIN_S and raise nothing. -> {rank: result} in the order of
+    ``ranks``, whatever order the threads finished in."""
     out, errs = {}, {}
 
     def body(r):
@@ -114,7 +143,7 @@ def run_threads(fn, ranks) -> dict:
     assert not alive, f"worker threads {alive} still running after {JOIN_S} s"
     if errs:
         raise next(iter(errs.values()))
-    return out
+    return {r: out[r] for r in ranks}
 
 
 def run_job(algo: dict, *, workers: int = 2, package: str = "repro_torch",

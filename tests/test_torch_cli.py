@@ -24,7 +24,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core import comm as tcomm  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
-from _torch_net import Tier, run_threads, step_means  # noqa: E402
+from _torch_net import Tier, one_thread, run_threads, step_means  # noqa: E402
 
 jtrain = importlib.import_module("repro.launch.train")
 torch.set_num_threads(2)
@@ -302,7 +302,7 @@ def test_cli_transport_tcp_trains_like_inprocess(monkeypatch, capsys):
     monkeypatch.delenv("REPRO_RANK", raising=False)
     cfg = TA.AlgoConfig(mode="dist_sgd", num_workers=2, num_clients=2,
                         num_servers=1, epochs=1, steps_per_epoch=3, seed=0)
-    with Tier(algo_to_dict(cfg), workers=2) as tier:
+    with one_thread(), Tier(algo_to_dict(cfg), workers=2) as tier:
         losses = run_threads(lambda r: ttrain.main(
             ["--transport", "tcp", "--rendezvous", tier.addr, "--client", str(r),
              "--mode", "dist_sgd", "--device", "cpu"]), [0, 1])
@@ -311,6 +311,7 @@ def test_cli_transport_tcp_trains_like_inprocess(monkeypatch, capsys):
     for r in (0, 1):
         assert f"[train] transport worker {r} done: 3 steps" in out
     prob = build_problem("logreg8", device="cpu")
-    hist = TA.run(cfg, prob.init_fn, prob.grad_fn, prob.eval_fn,
-                  prob.make_pipeline, device="cpu")
+    with one_thread():
+        hist = TA.run(cfg, prob.init_fn, prob.grad_fn, prob.eval_fn,
+                      prob.make_pipeline, device="cpu")
     assert step_means({r: {"losses": l} for r, l in losses.items()}) == hist.losses

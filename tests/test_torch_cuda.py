@@ -895,3 +895,37 @@ def test_net_entry_points_raise_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_run_job_loopback_card_matches_cpu(cuda):
+    """``run_job`` with loopback worker threads and KV server on the card:
+    dist_sgd on logreg8, its per-step losses and metrics within rtol 1e-4
+    of the same job on the CPU; one momentum-SGD launch per worker step."""
+    import numpy as np
+
+    from repro_torch.core.algorithms import AlgoConfig
+    from repro_torch.launch.run_local import run_job
+
+    cfg = AlgoConfig(mode="dist_sgd", num_workers=2, num_clients=2, num_servers=1,
+                     lr=0.05, epochs=1, steps_per_epoch=3, seed=0)
+    before = fs.sgd_momentum_flat.launches
+    card = run_job(cfg, transport="loopback", device="cuda")
+    assert fs.sgd_momentum_flat.launches == before + 6
+    host = run_job(cfg, transport="loopback", device="cpu")
+    assert len(card.losses) == 3 and card.exit_codes == host.exit_codes
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
+    np.testing.assert_allclose(card.metrics, host.metrics, rtol=1e-4)
+
+
+def test_launch_entry_points_raise_without_a_card():
+    """``run_job`` on ``device="cuda"`` raises without a card, before any
+    process or thread starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core.algorithms import AlgoConfig
+    from repro_torch.launch.run_local import run_job
+
+    cfg = AlgoConfig(mode="dist_sgd", num_workers=1, num_clients=1, num_servers=1)
+    for transport in ("tcp", "loopback"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_job(cfg, transport=transport)

@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_net import Tier, epoch_means, run_job, step_means  # noqa: E402
+from _torch_net import Tier, epoch_means, one_thread, run_job, step_means  # noqa: E402
 from repro.core import algorithms as JA  # noqa: E402
 from repro.net import problem as jproblem, rendezvous as jrdzv  # noqa: E402
 from repro_torch.core import algorithms as TA, cost_model, flatbuf  # noqa: E402
@@ -37,6 +37,14 @@ from repro_torch.net.problem import build_problem  # noqa: E402
 from repro_torch.net.worker import _opt_spec, run_worker  # noqa: E402
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The exact holds below need one CPU thread (``one_thread``)."""
+    with one_thread():
+        yield
+
 
 BASE = dict(num_workers=2, num_clients=2, num_servers=1, lr=0.1,
             momentum=0.9, epochs=2, steps_per_epoch=2, esgd_interval=1,
@@ -91,7 +99,7 @@ def test_port_tier_f32_equals_inprocess(mode, transport):
     if mode == "dist_sgd":
         assert outs[0]["metrics"] == hist.metrics
     else:
-        assert [o["exchanges"] for o in outs.values()] == [4, 4]
+        assert [outs[r]["exchanges"] for r in sorted(outs)] == [4, 4]
     _bytes_per_push(outs, None)
 
 
@@ -106,8 +114,9 @@ def test_port_tier_wire_dtypes(mode, wd):
     jserver, _ = _run(cfg, transport="tcp", package="repro")
     for other in (loop, jserver):
         assert _losses(mode, other) == _losses(mode, tcp)
-        assert [o["metrics"] for o in other.values()] == \
-            [o["metrics"] for o in tcp.values()]
+        assert sorted(other) == sorted(tcp)
+        for r in tcp:
+            assert other[r]["metrics"] == tcp[r]["metrics"]
     _bytes_per_push(tcp, wd)
     _bytes_per_push(jserver, wd)
     hist = _inprocess(cfg)

@@ -33,7 +33,8 @@ from repro_torch.kernels.fused_elastic import fused_elastic
 from repro_torch.kernels.fused_optim import fused_optim
 from repro_torch.kernels.fused_sgd import fused_sgd
 from repro_torch.kernels.quant_bucket import quant_bucket
-from repro_torch.launch import serve, shard_driver
+from repro_torch.launch import (analysis, autotune, launcher, run_local, serve,
+                                shard_driver, supervisor)
 from repro_torch.net import kvserver, problem, remote_kv, rendezvous, transport, wire, worker
 from repro_torch.optim import sgd
 model = build_model(reduced(get_config("qwen2-0.5b")))
@@ -77,6 +78,16 @@ rendezvous.join_rendezvous(tr.connect(rsrv.addr), "server", 0, addr=ksrv.addr)
 out = worker.run_worker(rank=0, rendezvous_addr=rsrv.addr, transport="loopback",
                         device="cpu")
 assert len(out["losses"]) == 2 and out["kv"]["pushed_bytes"] > 0
+tuned = autotune.autotune_for_model(reduced(get_config("qwen2-0.5b")), p=8,
+                                    tokens_per_step=1 << 20)
+assert tuned.ranked and analysis.parse_collectives("").total_ops() == 0
+import tempfile
+spec = launcher.JobSpec(2, 1, 2, "qwen2-0.5b", "train_4k", transport="tcp",
+                        mode="dist_sgd", device="cpu", policy=tuned.chosen.policy)
+assert len(launcher.emit_scripts(spec, tempfile.mkdtemp())) == 5
+assert supervisor.RestartPolicy(max_restarts=1).delay(0) == 0.05
+job = run_local.run_job(ncfg, transport="loopback", device="cpu")
+assert len(job.losses) == 2 and job.exit_codes == {"client_0": 0}
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "ml_dtypes")
              or m.startswith(("jax.", "repro.", "ml_dtypes.")))
@@ -109,6 +120,50 @@ def test_source_imports_no_jax_or_reference(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
             f"{path}: imports {name}"
+
+
+#: the reference's TPU v5e rates (``repro/launch/analysis.py``,
+#: ``repro/core/cost_model.tpu_v5e``): none may reach the launch tier
+TPU_RATES = (197e12, 819e9, 50e9)
+LAUNCH_TIER = ("analysis", "autotune", "supervisor", "launcher", "run_local")
+
+
+@pytest.mark.parametrize("name", LAUNCH_TIER)
+def test_launch_tier_carries_no_tpu_rate(name):
+    path = PORT / "launch" / f"{name}.py"
+    text = path.read_text()
+    consts = {node.value for node in ast.walk(ast.parse(text))
+              if isinstance(node, ast.Constant) and isinstance(node.value, (int, float))}
+    assert not consts & set(TPU_RATES), f"{path}: {sorted(consts & set(TPU_RATES))}"
+    for literal in ("197e12", "819e9", "50e9", "tpu_v5e", "ICI_BW"):
+        assert literal not in text, f"{path}: {literal}"
+    assert not {"jax", "jaxlib", "repro"} & {n.split(".")[0] for n in _imports(path)}
+
+
+def test_run_local_children_import_no_jax_or_reference(tmp_path):
+    """The emitted worker and server processes of a tcp job import
+    neither JAX nor the reference: their scripts' environment carries the
+    port's ``src`` only, and a job on the CPU runs to its end."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (
+        "import sys\n"
+        "from repro_torch.core.algorithms import AlgoConfig\n"
+        "from repro_torch.launch import run_local\n"
+        "cfg = AlgoConfig(mode='dist_sgd', num_workers=1, num_clients=1, num_servers=1,\n"
+        "                 epochs=1, steps_per_epoch=2, seed=0)\n"
+        f"res = run_local.run_job(cfg, device='cpu', outdir={str(tmp_path)!r})\n"
+        "assert res.exit_codes == {'server_0': 0, 'client_0': 0}, res.exit_codes\n"
+        "env = run_local._child_env(res.outdir)\n"
+        "assert env.get('JAX_PLATFORMS') == __import__('os').environ.get('JAX_PLATFORMS')\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+    for log in ("client_0.log", "server_0.log"):
+        text = (tmp_path / log).read_text()
+        assert "Traceback" not in text and "jax" not in text, text[-2000:]
+    assert "transport worker 0 done: 2 steps" in (tmp_path / "client_0.log").read_text()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

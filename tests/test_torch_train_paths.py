@@ -171,23 +171,40 @@ def test_cli_trains_on_cpu(argv, capsys):
     assert "[train] client 0/1 arch=qwen2-0.5b" in out and "final loss" in out
 
 
-@pytest.mark.parametrize("argv", [["--policy", "auto"],
-                                  ["--transport", "tcp"],
+@pytest.mark.parametrize("argv", [["--transport", "tcp"],
                                   ["--transport", "tcp", "--mode", "dist_esgd"]])
 def test_cli_unported_flags_raise(argv, capsys, monkeypatch):
-    """``--policy auto``, whose path is not ported yet, exits with a usage
-    error that names what is missing. ``--transport tcp`` runs the socket
-    worker (tests/test_torch_cli.py trains with it); without a rendezvous
-    it exits with the reference's usage error."""
+    """``--transport tcp`` runs the socket worker (tests/test_torch_cli.py
+    trains with it); without a rendezvous it exits with the reference's
+    usage error."""
     monkeypatch.delenv("REPRO_RDZV_ADDR", raising=False)
     with pytest.raises(SystemExit) as exit_:
         ttrain.main(["--device", "cpu", "--steps", "1"] + argv)
     assert exit_.value.code == 2
-    err = capsys.readouterr().err
-    if "--policy" in argv:
-        assert "not yet ported" in err and "autotuner" in err
-    else:
-        assert "--transport tcp needs --rendezvous" in err
+    assert "--transport tcp needs --rendezvous" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [[], ["--tune-p", "1"]], ids=["p8", "p1"])
+def test_cli_policy_auto_trains(argv, capsys):
+    """``--policy auto`` is lowered, not refused: the CLI ranks the policy
+    space (launch.autotune, the port's rates), prints the ranking line and
+    the table, and trains under the chosen policy, whose wire and overlap
+    the header names."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch.autotune import autotune_for_model, format_table
+
+    hist = ttrain.main(["--device", "cpu", "--steps", "2", "--policy", "auto"] + argv)
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    cfg = reduced(get_config("qwen2-0.5b"))
+    shape = INPUT_SHAPES["train_4k"]
+    p = int(argv[1]) if argv else 8
+    want = autotune_for_model(cfg, p=p, tokens_per_step=shape.seq_len * shape.global_batch)
+    pol = want.chosen.policy
+    out = capsys.readouterr().out
+    assert f"[train] --policy auto: ranked {len(want.ranked)} valid" in out
+    assert f"candidates at p={p}" in out and format_table(want) in out
+    assert (f"wire_dtype={pol.wire_dtype or 'f32'} " in out
+            and f"overlap={pol.overlap} " in out)
 
 
 @pytest.mark.parametrize("argv", [["--overlap"], ["--overlap", "--wire-dtype", "int8"]],
