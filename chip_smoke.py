@@ -192,6 +192,33 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  ms, peak memory; the card's bf16 GEMM rate (8192^3) and
                  stream rate (phase 2's sgd_momentum_flat) beside
                  launch/analysis's data-sheet constants
+ 14. mesh     slice 13, the shard driver over a process mesh (launch/mesh.py:
+              one process per rank, torch.distributed; gloo ranks share the
+              card, card tensors staged through pinned host memory), each
+              sub-phase's wall time printed:
+              a) [mesh:small] the reduced model, 3 steps a case, each layout
+                 one spawn of gloo ranks on the card: p = 4 and (2, 2) mpi_sgd
+                 with sgd, adamw, adagrad at f32; p = 4 over the int8 and the
+                 bf16 wire and with overlap; (2, 2) mpi_esgd over int8, and
+                 (2, 2) mpi_esgd adamw through drive(mesh=) itself against
+                 drive(p=) — each held against the emulated driver on the
+                 card from the same weights and batches (state and metrics
+                 ==, bit for bit), the launch counts per rank (the optimizer kernel once a step,
+                 elastic_client_diff_flat / elastic_center_flat once an
+                 exchange), each rank's last launch of each kernel held
+                 against its plain version on its own operands, the wire
+                 bytes per rank == emulated == the cost model, every rank
+                 holding /dev/nvidia*; then one NCCL rank (p = 1) == the
+                 emulated p = 1 step
+              b) [mesh] full-width qwen2-0.5b, 4 gloo ranks on the card,
+                 momentum SGD over the int8 then the f32 wire, 3 steps each on
+                 [overlap]'s batches without overlap: losses falling and
+                 within rtol 1e-6 of that run's, sgd_momentum_flat once a step
+                 per rank on the (123,536,896,) f32 shard and its last launch
+                 held against plain, wire bytes == the cost model; per rank
+                 step ms and its split (grad fn, reduce-scatter and allgather
+                 with their staged D2H / H2D and send / receive, kernel),
+                 staged bytes, peak memory and the card's used MiB
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -211,9 +238,10 @@ run, ...) plus, for the rows slice 10 launches, the [resnet] int8 run's
 / elastic_server_flat 4 each) and 3 sgd_momentum_flat steps for each of
 whisper-base and paligemma-3b, slice 11's [net] dist_esgd int8 run
 (sgd_momentum_flat, elastic_client_flat, elastic_server_flat 8 each), and
-slice 12's full-width [launch] run (sgd_momentum_flat 3). The launches of
-[launch:small]'s child processes happen in other processes and are not
-counted here.
+slice 12's full-width [launch] run (sgd_momentum_flat 3) and slice 13's
+[mesh] runs, counted in each rank and returned (sgd_momentum_flat 4 ranks x
+3 steps x 2 runs). The launches of [launch:small]'s child processes happen
+in other processes and are not counted here.
 """
 from __future__ import annotations
 
@@ -2326,7 +2354,7 @@ def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
     return rec
 
 
-def phase_overlap(dev) -> tuple[dict, dict]:
+def phase_overlap(dev) -> tuple[dict, dict, dict]:
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg)
     p = 4
@@ -2425,7 +2453,7 @@ def phase_overlap(dev) -> tuple[dict, dict]:
         f"(share {br['device_busy_share']})")
     log("[overlap] " + json.dumps({"overlap": report}, default=str))
     launches = {"sgd_momentum_flat": OVERLAP_STEPS, "adamw_flat": OVERLAP_ADAMW_STEPS}
-    return launches, errs
+    return launches, errs, report
 
 
 # ---------------------------------------------------------------------------
@@ -4164,6 +4192,478 @@ def phase_launch(dev, card, sgd_row) -> tuple[int, float, dict]:
     return got["sgd_momentum_flat"], err, report
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the process mesh — the shard driver as one process per rank
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+#: [mesh:small]: the reduced model, each layout's cases in one spawn of
+#: gloo ranks on the card (the (2, 2) mpi_esgd cases exchange at steps 0
+#: and 2); a ``drive`` case goes through the entry point ``drive(mesh=)``
+#: from the seed-1 init instead of ``make_sharded_step`` on given params
+MESH_SMALL = {
+    (4,): [dict(mode="mpi_sgd", opt="sgd"), dict(mode="mpi_sgd", opt="adamw"),
+           dict(mode="mpi_sgd", opt="adagrad"),
+           dict(mode="mpi_sgd", opt="sgd", wire="int8"),
+           dict(mode="mpi_sgd", opt="sgd", wire="bf16"),
+           dict(mode="mpi_sgd", opt="sgd", overlap=True)],
+    (2, 2): [dict(mode="mpi_sgd", opt="sgd"), dict(mode="mpi_sgd", opt="adamw"),
+             dict(mode="mpi_sgd", opt="adagrad"),
+             dict(mode="mpi_esgd", opt="sgd", wire="int8", clients=2),
+             dict(mode="mpi_esgd", opt="adamw", clients=2, drive=True)],
+}
+MESH_HYPER = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=3e-3),
+              "adagrad": dict(lr=0.05)}
+#: [mesh]: full width, p = 4, [overlap]'s momentum SGD without overlap
+MESH_FULL = [dict(mode="mpi_sgd", opt="sgd", wire="int8", full=True),
+             dict(mode="mpi_sgd", opt="sgd", full=True)]
+#: the 1/4 shard of the full-width packed buffer at one ring
+MESH_SHARD = 123_536_896
+
+
+def _mesh_axes(shape) -> tuple:
+    return ("dev",) if len(shape) == 1 else (sd.POD_AXIS, sd.DATA_AXIS)
+
+
+def _mesh_case(case):
+    """A case's model, optimizer and SyncConfig; the full-width cases are
+    [overlap]'s runs without overlap."""
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg if case.get("full") else reduced(cfg))
+    hyper = dict(lr=ESGD_LR, momentum=0.9) if case.get("full") else MESH_HYPER[case["opt"]]
+    opt = sgd_mod.get_optimizer(case["opt"], **hyper)
+    if case.get("full"):
+        return model, opt, _overlap_sync(case.get("wire"), overlap=False)
+    overlap = bool(case.get("overlap"))
+    return model, opt, SyncConfig(
+        mode=case["mode"], num_clients=case.get("clients", 1), esgd_interval=2,
+        esgd_alpha=0.5, policy=CollectivePolicy(
+            method="ring", num_rings=1 if overlap else 2, wire_dtype=case.get("wire"),
+            overlap=overlap, overlap_buckets=OVERLAP_BUCKETS))
+
+
+def _mesh_label(shape, case) -> str:
+    extra = [f"{k}={v}" for k, v in case.items()
+             if k not in ("mode", "opt", "clients", "full", "drive")]
+    return f"p={shape if len(shape) > 1 else shape[0]} {case['mode']} {case['opt']} " + \
+        (" ".join(extra) or "f32") + (" via drive(mesh=)" if case.get("drive") else "")
+
+
+class _LastLaunch:
+    """Wraps the kernels the driver launches (the optimizer kernels as
+    ``optim.sgd`` calls them, the exchange's two as ``core.elastic`` does)
+    and keeps each one's last launch — its operands and outputs, which the
+    path does not write again — for a hold after the run."""
+
+    SITES = [(sgd_mod, n) for n in KERNELS] + [
+        (elastic_mod, "elastic_client_diff_flat"), (elastic_mod, "elastic_center_flat")]
+
+    def __init__(self):
+        self.last = {}
+        self._orig = {name: getattr(mod, name) for mod, name in self.SITES}
+
+    def __enter__(self):
+        for mod, name in self.SITES:
+            orig = self._orig[name]
+
+            def call(*args, _name=name, _orig=orig):
+                out = _orig(*args)
+                self.last[_name] = (args, out)
+                return out
+
+            setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.SITES:
+            setattr(mod, name, self._orig[name])
+
+    def hold(self) -> dict:
+        """Each kept launch against its plain version on its own operands:
+        phase 2's tolerances, ``elastic_center_flat`` ``==``; 1-D optimizer
+        streams in 2^26-element pieces."""
+        errs, shapes = {}, {}
+        for name, (args, out) in self.last.items():
+            if name in KERNELS:
+                k = KERNELS[name]
+                p, s_, g, hp = args
+                if name == "adamw_flat":
+                    rows = p.shape[0] if p.dim() == 2 else 1
+                    v = lambda t, *sh: t.reshape(rows, *sh)
+                    pieces = [(v(p, -1)[i], v(s_, 2, -1)[i], v(g, -1)[i],
+                               v(out[0], -1)[i], v(out[1], 2, -1)[i]) for i in range(rows)]
+                else:
+                    pieces = [tuple(t.reshape(-1)[i:i + _KernelHold.PIECE]
+                                    for t in (p, s_, g, *out))
+                              for i in range(0, p.numel(), _KernelHold.PIECE)]
+                err = 0.0
+                for pp, ss, gg, op, os_ in pieces:
+                    for got, want in zip((op, os_), k["plain"](pp, ss, gg, hp)):
+                        torch.testing.assert_close(got, want, rtol=k["rtol"], atol=k["atol"])
+                        err = max(err, float((got.float() - want.float()).abs().max()))
+            else:
+                k = ELASTIC_KERNELS[name]
+                *ops, alpha = args
+                rows = lambda t: t.reshape(-1, t.shape[-1])
+                want = _plain_rows(k["plain"], tuple(rows(t) for t in ops), alpha)
+                got = tuple(rows(t) for t in (out if isinstance(out, tuple) else (out,)))
+                if k.get("exact"):
+                    err = _hold_exact(name, got, want)
+                else:
+                    want = want if isinstance(want, tuple) else (want,)
+                    err = max(_hold(g, w, k["rtol"], k["atol"], g.dtype)
+                              for g, w in zip(got, want))
+            errs[name] = err
+            shapes[name] = tuple(args[0].shape)
+        return {"hold_max_abs_err": errs, "hold_shapes": shapes}
+
+
+class _MeshSplit:
+    """A rank's step split: the grad fn (``stacked_grads``), the
+    reduce-scatter and allgather legs (each with its ``Link`` share: the
+    staged D2H and H2D copies and the send / receive), and the optimizer
+    kernel (``optim.sgd._fused_shard_update``); host clock, the card
+    synchronised on both sides of each."""
+
+    def __init__(self, link):
+        self.link, self.ms = link, {}
+        self._sites = [(sd, "stacked_grads", "grad_fn"),
+                       (Communicator, "reduce_scatter", "reduce_scatter"),
+                       (Communicator, "allgather", "allgather"),
+                       (sgd_mod, "_fused_shard_update", "kernel")]
+        self._orig = {name: getattr(obj, name) for obj, name, _ in self._sites}
+
+    def __enter__(self):
+        for obj, name, key in self._sites:
+            orig = self._orig[name]
+
+            def timed(*args, _orig=orig, _key=key, **kw):
+                st = self.link.stats
+                before = (st.d2h_s, st.h2d_s, st.p2p_s, st.d2h_bytes, st.h2d_bytes)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms[_key] = self.ms.get(_key, 0.0) + (time.perf_counter() - t0) * 1e3
+                after = (st.d2h_s, st.h2d_s, st.p2p_s, st.d2h_bytes, st.h2d_bytes)
+                for tag, a, b in zip(("d2h_ms", "h2d_ms", "p2p_ms", "d2h_bytes",
+                                      "h2d_bytes"), before, after):
+                    scale = 1e3 if tag.endswith("_ms") else 1
+                    if b != a:
+                        k = f"{_key}.{tag}"
+                        self.ms[k] = self.ms.get(k, 0) + (b - a) * scale
+                return out
+
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, _ in self._sites:
+            setattr(obj, name, self._orig[name])
+
+    def take(self) -> dict:
+        out, self.ms = self.ms, {}
+        return out
+
+
+def _nvidia_fds() -> int:
+    """How many ``/dev/nvidia*`` files this process holds open."""
+    fds = []
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            fds.append(os.readlink(f"/proc/self/fd/{fd}"))
+        except OSError:
+            continue
+    return sum(f.startswith("/dev/nvidia") for f in fds)
+
+
+def _mesh_rank(mesh, cases, params, batches) -> list:
+    """One rank of phase 14 (a spawned process, the card shared): each
+    case's driver state block (``make_driver_state(mesh=)``, the params
+    and centers set to ``params`` when given, else the seed-0 init), then
+    ``MESH_STEPS`` steps of ``make_sharded_step`` on its block of each
+    batch — the launch counts set to 0 just before and read just after,
+    the last launch of each kernel held against its plain version after
+    the run, the wire bytes, the ``Link``'s staging, step ms and (at full
+    width) its split, peak memory and the card's used MiB. A ``drive``
+    case runs ``drive(mesh=)`` over the batches instead (its own seed-1
+    init; the history's entries are its metrics, no wire meter)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p, _ = sd._mesh_geometry(mesh)
+    out = []
+    for case in cases:
+        model, opt, sync = _mesh_case(case)
+        if case.get("drive"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mesh.link.stats.reset()
+            with _LastLaunch() as last:
+                reset_counts()
+                state, hist = sd.drive(model, opt, sync, batches, mesh=mesh, seed=1,
+                                       log_every=1)
+                launches = counts(ALL_KERNELS)
+            out.append(_mesh_rank_tail(mesh, case, state, last, {
+                "losses": [h["loss"] for h in hist], "metrics": hist, "wire": None,
+                "launches": launches}))
+            continue
+        state = sd.make_driver_state(model, opt, sync, mesh=mesh)
+        if params is not None:
+            for key in ("params", "center"):
+                if key in state:
+                    state[key] = tree_map(lambda t: t.to(mesh.device).unsqueeze(0).clone(),
+                                          params)
+        meter = WireMeter()
+        step = sd.make_sharded_step(model, opt, sync, mesh, meter=meter)
+        split = _MeshSplit(mesh.link)
+        rec = {"losses": [], "metrics": [], "wire": [], "step_ms": [], "split": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.link.stats.reset()
+        with _LastLaunch() as last, split:
+            reset_counts()
+            for b in batches:
+                meter.reset()
+                blk = sd.rank_block(sd.shard_batch(b, p), mesh)
+                t0 = time.perf_counter()
+                state, met = step(state, blk)
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["losses"].append(float(met["loss"]))
+                rec["metrics"].append({k: v.cpu() for k, v in met.items()})
+                rec["wire"].append(meter.bytes)
+                rec["split"].append(split.take())
+            rec["launches"] = counts(ALL_KERNELS)
+        out.append(_mesh_rank_tail(mesh, case, state, last, rec))
+        del state, step
+    return out
+
+
+def _mesh_rank_tail(mesh, case, state, last, rec) -> dict:
+    """What a rank reports after a case's run: peak memory, the ``Link``'s
+    staging, the card's used MiB with every rank's state alive, the held
+    last launches, its ``/dev/nvidia*`` fds and (reduced) its state."""
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    st = mesh.link.stats
+    rec["link"] = dict(messages=st.messages, d2h_bytes=st.d2h_bytes,
+                       h2d_bytes=st.h2d_bytes, d2h_s=st.d2h_s, h2d_s=st.h2d_s,
+                       p2p_s=st.p2p_s)
+    torch.distributed.barrier()             # every rank holds its state
+    free, total = torch.cuda.mem_get_info()
+    rec["card_used_mib"] = (total - free) / 2**20
+    torch.distributed.barrier()
+    rec.update(last.hold())
+    rec["nvidia_fds"] = _nvidia_fds()
+    if not case.get("full"):
+        rec["state"] = tree_map(lambda t: t.cpu(), state)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_emulated(case, p, params, batches, dev) -> dict:
+    """The same case through ``make_emulated_step`` on the card (a
+    ``drive`` case through ``drive(p=)``)."""
+    model, opt, sync = _mesh_case(case)
+    if case.get("drive"):
+        reset_counts()
+        state, hist = sd.drive(model, opt, sync, batches, p=p, seed=1, device=dev,
+                               log_every=1)
+        return {"losses": [h["loss"] for h in hist], "metrics": hist, "wire": None,
+                "launches": counts(ALL_KERNELS),
+                "state": tree_map(lambda t: t.cpu(), state)}
+    state = sd.make_driver_state(model, opt, sync, p, device=dev)
+    n = state["step"].shape[0]
+    for key in ("params", "center"):
+        if key in state:
+            state[key] = tree_map(lambda t: t.to(dev).unsqueeze(0).expand(
+                (n,) + tuple(t.shape)).clone(), params)
+    meter = WireMeter()
+    step = sd.make_emulated_step(model, opt, sync, p, meter=meter)
+    rec = {"losses": [], "metrics": [], "wire": []}
+    reset_counts()
+    for b in batches:
+        meter.reset()
+        state, met = step(state, sd.shard_batch(b, p))
+        rec["losses"].append(float(met["loss"]))
+        rec["metrics"].append({k: v.cpu() for k, v in met.items()})
+        rec["wire"].append(meter.bytes)
+    rec["launches"] = counts(ALL_KERNELS)
+    rec["state"] = tree_map(lambda t: t.cpu(), state)
+    return rec
+
+
+def _mesh_want_launches(case, steps=MESH_STEPS) -> dict:
+    """One optimizer launch a step per rank; the two exchange kernels
+    once per exchange per rank (steps 0 and 2 at interval 2)."""
+    want = {OPT_KERNEL[case["opt"]]: steps}
+    if case["mode"] == "mpi_esgd":
+        ex = len(range(0, steps, 2))
+        want.update(elastic_client_diff_flat=ex, elastic_center_flat=ex)
+    return want
+
+
+def _mesh_compare(label, ranks, emu) -> str:
+    """The rank blocks gathered against the emulated state, and every
+    rank's metrics against the emulated ones: both ``==``, bit for bit
+    on the card as on the CPU."""
+    got = sd.gather_blocks([r["state"] for r in ranks])
+    for key, tree in emu["state"].items():
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(tree), strict=True):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{label}: {key} layout {a.shape} {a.dtype} "
+                                     f"!= {b.shape} {b.dtype}")
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{label}: {key} != emulated, max |diff| "
+                    f"{float((a.float() - b.float()).abs().max()):.3e}")
+    same = lambda a, b: torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    for r, rec in enumerate(ranks):
+        for j, (mr, me) in enumerate(zip(rec["metrics"], emu["metrics"], strict=True)):
+            if mr.keys() != me.keys() or not all(same(mr[k], me[k]) for k in me):
+                raise AssertionError(f"{label} rank {r} step {j}: metrics {mr} != "
+                                     f"emulated {me}")
+    return "state and metrics == emulated"
+
+
+def phase_mesh_small(dev, card) -> dict:
+    """[mesh:small]: the reduced model's driver as gloo ranks on the card
+    against the emulated driver on the card; then one NCCL rank."""
+    cfg = reduced(get_config("qwen2-0.5b"))
+    params = tree_map(lambda t: t.cpu(), build_model(cfg).init(device="cpu", seed=1))
+    gen = torch.Generator().manual_seed(0)
+    batches = []
+    for _ in range(MESH_STEPS):
+        toks = torch.randint(0, 1024, (8, 32), generator=gen, dtype=torch.int32)
+        batches.append({"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+    spec = grad_spec(build_model(cfg))
+    report = {}
+    runs = [(shape, "gloo", cases, batches) for shape, cases in MESH_SMALL.items()]
+    runs.append(((1,), "nccl", [dict(mode="mpi_sgd", opt="sgd")],
+                 [{k: v[:2] for k, v in b.items()} for b in batches]))
+    for shape, backend, cases, bs in runs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_mesh(shape, backend, cases, params, bs)
+        wall = time.perf_counter() - t0
+        log(f"[mesh:small] {len(ranks)} {backend} rank(s) {shape} on the card: "
+            f"{len(cases)} cases in {wall:.1f} s (spawn, start-up, runs) | {card}")
+        p = shape if len(shape) > 1 else shape[0]
+        for i, case in enumerate(cases):
+            label = f"[mesh:small] {backend} {_mesh_label(shape, case)}"
+            per_rank = [r[i] for r in ranks]
+            emu = _mesh_emulated(case, p, params, bs, dev)
+            verdict = _mesh_compare(label, per_rank, emu)
+            want = _mesh_want_launches(case)
+            for r, rec in enumerate(per_rank):
+                _check_launches(f"{label} rank {r}", rec["launches"], want, MESH_STEPS)
+                if rec["wire"] != emu["wire"]:
+                    raise AssertionError(f"{label} rank {r}: wire {rec['wire']} != "
+                                         f"emulated {emu['wire']}")
+                if rec["nvidia_fds"] < 1:
+                    raise AssertionError(f"{label} rank {r}: no /dev/nvidia* open")
+                if set(rec["hold_max_abs_err"]) != set(want):
+                    raise AssertionError(f"{label} rank {r}: held {rec['hold_max_abs_err']}")
+            _, _, sync = _mesh_case(case)
+            if not sync.overlap and not case.get("drive"):
+                legs, exch = _wire_per_step(spec, sync, p)
+                model_bytes = [legs + (exch if j % 2 == 0 else 0) for j in range(MESH_STEPS)]
+                if emu["wire"] != model_bytes:
+                    raise AssertionError(f"{label}: wire {emu['wire']} != cost model "
+                                         f"{model_bytes}")
+            staged = [rec["link"]["d2h_bytes"] for rec in per_rank]
+            log(f"{label}: {verdict}; losses {[round(x, 5) for x in per_rank[0]['losses']]}; "
+                f"launches per rank {[{k: v for k, v in rec['launches'].items() if v} for rec in per_rank]} "
+                f"(emulated, all devices in one launch: "
+                f"{ {k: v for k, v in emu['launches'].items() if v} }); last launches "
+                f"== plain per rank, max_abs_err {[rec['hold_max_abs_err'] for rec in per_rank]}; "
+                + (f"wire bytes/step per rank {per_rank[0]['wire']} == emulated"
+                   if per_rank[0]["wire"] is not None else "wire not metered (drive takes no meter)")
+                + f"; staged D2H "
+                f"bytes per rank {staged}; /dev/nvidia* fds per rank "
+                f"{[rec['nvidia_fds'] for rec in per_rank]} | {card}")
+            report[label] = {"verdict": verdict, "losses": per_rank[0]["losses"],
+                             "launches": [rec["launches"] for rec in per_rank],
+                             "hold": [rec["hold_max_abs_err"] for rec in per_rank],
+                             "wire": per_rank[0]["wire"], "staged": staged, "wall_s": wall}
+            del emu
+            torch.cuda.empty_cache()
+    return report
+
+
+def run_mesh(shape, backend, cases, params, batches) -> list:
+    from repro_torch.launch.mesh import spawn_ranks
+
+    return spawn_ranks(_mesh_rank, shape, _mesh_axes(shape), backend=backend,
+                       device="cuda", args=(cases, params, batches))
+
+
+def phase_mesh(dev, card, overlap_report) -> tuple[int, float, dict]:
+    """[mesh]: full-width qwen2-0.5b, 4 gloo ranks on the one card,
+    [overlap]'s p = 4 momentum-SGD run without overlap (its batches, its
+    seed-0 init), int8 then f32, 3 steps each; the losses held against
+    that run's within rtol 1e-6."""
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512, batch_size=8))
+    batches = [pipe.batch_at(0, i) for i in range(MESH_STEPS)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_mesh((4,), "gloo", MESH_FULL, None, batches)
+    wall = time.perf_counter() - t0
+    spec = grad_spec(build_model(get_config("qwen2-0.5b")))
+    report, launches, err = {"wall_s": wall}, 0, 0.0
+    log(f"[mesh] 4 gloo ranks, full-width qwen2-0.5b ({spec.size} packed values), "
+        f"2 runs x {MESH_STEPS} steps in {wall:.1f} s (spawn, start-up, init, runs) | {card}")
+    for i, case in enumerate(MESH_FULL):
+        tag = case.get("wire") or "f32"
+        label = f"p=4 mpi_sgd sgd {tag}"
+        per_rank = [r[i] for r in ranks]
+        want_losses = overlap_report[f"driver p=4 {tag} overlap"]["monolithic"]["losses"][:MESH_STEPS]
+        _, _, sync = _mesh_case(case)
+        legs, _ = _wire_per_step(spec, sync, 4)
+        for r, rec in enumerate(per_rank):
+            _check_launches(f"{label} rank {r}", rec["launches"],
+                            {"sgd_momentum_flat": MESH_STEPS}, MESH_STEPS)
+            if rec["hold_shapes"] != {"sgd_momentum_flat": (MESH_SHARD,)}:
+                raise AssertionError(f"{label} rank {r}: kernel operands {rec['hold_shapes']}")
+            if rec["wire"] != [legs] * MESH_STEPS:
+                raise AssertionError(f"{label} rank {r}: wire {rec['wire']} != {legs}")
+            if rec["nvidia_fds"] < 1:
+                raise AssertionError(f"{label} rank {r}: no /dev/nvidia* open")
+            if not rec["losses"][-1] < rec["losses"][0]:
+                raise AssertionError(f"{label}: loss did not fall {rec['losses']}")
+            rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], want_losses)]
+            if max(rel) > 1e-6:
+                raise AssertionError(f"{label} rank {r}: losses {rec['losses']} vs "
+                                     f"[overlap]'s {want_losses}: rel {rel}")
+            launches += rec["launches"]["sgd_momentum_flat"]
+            err = max(err, rec["hold_max_abs_err"]["sgd_momentum_flat"])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(per_rank[0]["losses"], want_losses))
+        log(f"[mesh] {label}: losses {per_rank[0]['losses']} (every rank the same; "
+            f"[overlap]'s emulated run {want_losses}, max rel {rel:.3e} <= 1e-6); "
+            f"sgd_momentum_flat {[rec['launches']['sgd_momentum_flat'] for rec in per_rank]} "
+            f"launches per rank on the ({MESH_SHARD},) f32 shard, the last held == plain within "
+            f"phase 2's tolerances (max_abs_err {[rec['hold_max_abs_err']['sgd_momentum_flat'] for rec in per_rank]}); "
+            f"wire bytes/step per rank {per_rank[0]['wire'][0]} == cost model | {card}")
+        for r, rec in enumerate(per_rank):
+            sp = rec["split"]
+            mean = lambda k: sum(s.get(k, 0.0) for s in sp[1:]) / max(1, len(sp) - 1)
+            log(f"[mesh] {label} rank {r}: step_ms {[round(x, 1) for x in rec['step_ms']]}; "
+                f"steps 1-{MESH_STEPS - 1} mean split: grad fn {mean('grad_fn'):.1f} ms, "
+                f"reduce-scatter {mean('reduce_scatter'):.1f} ms (D2H "
+                f"{mean('reduce_scatter.d2h_ms'):.1f}, send/recv {mean('reduce_scatter.p2p_ms'):.1f}, "
+                f"H2D {mean('reduce_scatter.h2d_ms'):.1f}), kernel {mean('kernel'):.3f} ms, "
+                f"allgather {mean('allgather'):.1f} ms (D2H {mean('allgather.d2h_ms'):.1f}, "
+                f"send/recv {mean('allgather.p2p_ms'):.1f}, H2D {mean('allgather.h2d_ms'):.1f}); "
+                f"staged D2H {rec['link']['d2h_bytes']} B / H2D {rec['link']['h2d_bytes']} B "
+                f"in {MESH_STEPS} steps; peak {rec['peak_mem_bytes'] / 2**30:.2f} GiB; "
+                f"card used {rec['card_used_mib']:.0f} MiB; /dev/nvidia* fds "
+                f"{rec['nvidia_fds']} | {card}")
+        report[label] = {k: [rec[k] for rec in per_rank] for k in (
+            "losses", "step_ms", "split", "link", "peak_mem_bytes", "card_used_mib",
+            "launches", "hold_max_abs_err", "wire", "nvidia_fds")}
+        report[label]["want_losses"] = want_losses
+    return launches, err, report
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -4194,7 +4694,8 @@ def main() -> None:
     for name, e in fault_errs.items():  # worst hold: phase 2 or the [faults] run
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     overlap_errs = phase_overlap_small(dev)
-    for name, e in phase_overlap(dev)[1].items():
+    _, overlap_full_errs, overlap_report = phase_overlap(dev)
+    for name, e in overlap_full_errs.items():
         overlap_errs[name] = max(overlap_errs.get(name, 0.0), e)
     for name, e in overlap_errs.items():  # worst hold: phase 2 or the overlapped runs
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
@@ -4259,6 +4760,18 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s | {card}")
     launches["sgd_momentum_flat"] += launch_sgd      # the full-width run's 3
     sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], launch_err)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_small = phase_mesh_small(dev, card)
+    log("[mesh:small] " + json.dumps(mesh_small, default=str))
+    log(f"[mesh:small] took {time.perf_counter() - t0:.1f} s | {card}")
+    t1 = time.perf_counter()
+    mesh_sgd, mesh_err, mesh = phase_mesh(dev, card, overlap_report)
+    log("[mesh] " + json.dumps(mesh, default=str))
+    log(f"[mesh] took {time.perf_counter() - t1:.1f} s; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    launches["sgd_momentum_flat"] += mesh_sgd        # 4 ranks x 3 steps x 2 runs
+    sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], mesh_err)
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -39,13 +39,34 @@ a wire the results are f32 whatever the input dtype.
 A ``WireMeter`` passed as ``meter=`` counts the bytes each device puts on
 the wire per hop (the ring family; ``psum`` and the binomial tree are not
 byte-accounted), for holding the legs to ``core.cost_model``.
+
+**Process backend.** The same functions run in a world of one process per
+device (``launch/mesh.py``): ``dim`` is then a ``RankAxis``, and each rank
+holds only its own block, whose world dims have size 1. Only the steps
+that carry device identity change form — the forward permute becomes one
+``torch.distributed`` P2P exchange inside the axis' process group (send
+to coordinate i+1, receive from i-1; the int8 wire's codes and scales as
+two messages), a per-device chunk index becomes this rank's coordinate,
+and ``psum`` gathers every member's block and reduces the gathered stack
+exactly as the emulated backend reduces its own. The hop schedule, the
+f32 accumulators, the codec calls and the ``WireMeter`` counts are the
+emulated backend's code, so the results are bit for bit the same.
+
+Under gloo, whose send and receive take host memory, a card tensor is
+staged: copied to pinned host memory, sent or received there, and copied
+back to the card. That is the transport of a gloo world on one card, not
+a fallback; ``Link.stats`` counts the staged bytes and times the copies
+and the exchange beside the ``WireMeter``. Under NCCL (one card a rank)
+card tensors go directly.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.quant_bucket.quant_bucket import wire_decode, wire_encode
@@ -85,47 +106,229 @@ def _payload_bytes(t: torch.Tensor) -> int:
     return t.shape[-1] * t.element_size()
 
 
-def _permute(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The forward ring ppermute: device i receives device i-1's ``x``."""
-    return torch.roll(x, 1, dim)
+@dataclass
+class LinkStats:
+    """What a rank's ``Link`` moved and how long it took, summed over
+    exchanges: the bytes staged device -> host and host -> device (0 when
+    nothing is staged) and the seconds of those copies and of the
+    send / receive itself."""
+
+    messages: int = 0
+    d2h_bytes: int = 0
+    h2d_bytes: int = 0
+    d2h_s: float = 0.0
+    h2d_s: float = 0.0
+    p2p_s: float = 0.0
+
+    def reset(self) -> None:
+        self.__init__()
 
 
-def _hop(x: torch.Tensor, dim: int, wire: Optional[str],
+@dataclass
+class Link:
+    """How one rank's messages cross a process world: ``torch.distributed``
+    P2P and all-gather over ``backend`` ("gloo" or "nccl"). Under gloo a
+    tensor on the card is staged through pinned host memory (the module
+    docstring); ``stats`` counts what moved."""
+
+    backend: str
+    device: torch.device
+    stats: LinkStats = field(default_factory=LinkStats)
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        self.stats.d2h_s += time.perf_counter() - t0
+        self.stats.d2h_bytes += host.numel() * host.element_size()
+        return host
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = host.to(self.device)
+        torch.cuda.synchronize(self.device)
+        self.stats.h2d_s += time.perf_counter() - t0
+        self.stats.h2d_bytes += host.numel() * host.element_size()
+        return out
+
+    def exchange(self, sends: Sequence[tuple[torch.Tensor, int]],
+                 recvs: Sequence[tuple[torch.Tensor, int]]
+                 ) -> list[torch.Tensor]:
+        """One batch of P2P messages: ``sends`` are (tensor, global peer),
+        ``recvs`` (a tensor shaped and typed as the message, global peer);
+        the i-th message to or from one peer pairs with the i-th of the
+        other side (tag i). Returns the received tensors, on the device."""
+        if not sends and not recvs:
+            return []
+        out_bufs = [t.contiguous() for t, _ in sends]
+        if self.staged:
+            out_bufs = [self._to_host(t) for t in out_bufs]
+            in_bufs = [torch.empty(like.shape, dtype=like.dtype,
+                                   pin_memory=True) for like, _ in recvs]
+        else:
+            in_bufs = [torch.empty(like.shape, dtype=like.dtype,
+                                   device=like.device) for like, _ in recvs]
+        ops, tag_of = [], {}
+        for i, (_, peer) in enumerate(sends):
+            tag_of[peer] = tag_of.get(peer, -1) + 1
+            ops.append(dist.P2POp(dist.isend, out_bufs[i], peer,
+                                  tag=tag_of[peer]))
+        tag_of = {}
+        for i, (_, peer) in enumerate(recvs):
+            tag_of[peer] = tag_of.get(peer, -1) + 1
+            ops.append(dist.P2POp(dist.irecv, in_bufs[i], peer,
+                                  tag=tag_of[peer]))
+        t0 = time.perf_counter()
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        self.stats.p2p_s += time.perf_counter() - t0
+        self.stats.messages += len(ops)
+        if self.staged:
+            in_bufs = [self._to_device(t) for t in in_bufs]
+        return in_bufs
+
+    def all_gather(self, x: torch.Tensor, group) -> list[torch.Tensor]:
+        """Every member's ``x`` of ``group``, in group-rank order."""
+        t = x.contiguous()
+        if self.staged:
+            t = self._to_host(t)
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, t, group=group)
+        self.stats.p2p_s += time.perf_counter() - t0
+        self.stats.messages += len(parts)
+        if self.staged:
+            parts = [self._to_device(p) for p in parts]
+        return parts
+
+
+@dataclass(frozen=True)
+class _Stacked:
+    """An emulated axis: the stacked dim ``dim`` holds all ``size``
+    members."""
+
+    dim: int
+    size: int
+
+    def permute(self, *xs: torch.Tensor) -> tuple:
+        """The forward ring ppermute: member i receives member i-1's."""
+        return tuple(torch.roll(x, 1, self.dim) for x in xs)
+
+    def ppermute(self, x: torch.Tensor, pairs, *, keep: bool = False
+                 ) -> torch.Tensor:
+        """Member ``dst`` receives member ``src``'s ``x`` for each (src,
+        dst) pair; the others hold zeros (``keep``: their own ``x``)."""
+        out = x.clone() if keep else torch.zeros_like(x)
+        for src, dst in pairs:
+            out.select(self.dim, dst).copy_(x.select(self.dim, src))
+        return out
+
+    def take(self, b: torch.Tensor, k: int) -> torch.Tensor:
+        """Member i takes chunk ``(i - k) % p`` of its ``(…, p, chunk)``
+        view ``b``: -> ``(…, chunk)``."""
+        p = self.size
+        return torch.stack([b.select(self.dim, i).select(-2, (i - k) % p)
+                            for i in range(p)], self.dim)
+
+    def put(self, out: torch.Tensor, k: int, val: torch.Tensor) -> None:
+        """Member i writes its ``val`` into chunk ``(i - k) % p`` of its
+        ``(…, p, chunk)`` view ``out`` (in place)."""
+        for i in range(self.size):
+            out.select(self.dim, i).select(-2, (i - k) % self.size).copy_(
+                val.select(self.dim, i))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` with the axis' dim holding every member: ``x`` itself."""
+        return x
+
+
+@dataclass(frozen=True)
+class RankAxis:
+    """One axis of a process world as this rank sees it: the axis' leading
+    dim in the rank's block (of size 1), the axis size, this rank's
+    coordinate, the axis' process group (group rank == coordinate) and
+    the ``Link`` its messages cross."""
+
+    dim: int
+    size: int
+    coord: int
+    group: Any
+    link: Link = field(compare=False)
+
+    def _peer(self, coord: int) -> int:
+        return dist.get_global_rank(self.group, coord % self.size)
+
+    def permute(self, *xs: torch.Tensor) -> tuple:
+        """The forward ring ppermute: send to coordinate i+1, receive
+        from i-1, every tensor of ``xs`` a message of its own."""
+        nxt, prv = self._peer(self.coord + 1), self._peer(self.coord - 1)
+        return tuple(self.link.exchange([(x, nxt) for x in xs],
+                                        [(x, prv) for x in xs]))
+
+    def ppermute(self, x: torch.Tensor, pairs, *, keep: bool = False
+                 ) -> torch.Tensor:
+        sends = [(x, self._peer(d)) for s, d in pairs if s == self.coord]
+        srcs = [s for s, d in pairs if d == self.coord]
+        got = self.link.exchange(sends, [(x, self._peer(s)) for s in srcs])
+        if got:
+            return got[0]
+        return x if keep else torch.zeros_like(x)
+
+    def take(self, b: torch.Tensor, k: int) -> torch.Tensor:
+        return b.select(-2, (self.coord - k) % self.size)
+
+    def put(self, out: torch.Tensor, k: int, val: torch.Tensor) -> None:
+        out.select(-2, (self.coord - k) % self.size).copy_(val)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` with the axis' dim holding every member, in coordinate
+        order: the stacked value the emulated backend holds."""
+        return torch.cat(self.link.all_gather(x, self.group), self.dim)
+
+
+def _axis(x: torch.Tensor, dim) -> "_Stacked | RankAxis":
+    """The axis ``dim`` names for ``x``: an int is the emulated stacked
+    dim, a ``RankAxis`` stands as it is."""
+    return _Stacked(dim, x.shape[dim]) if isinstance(dim, int) else dim
+
+
+def gather_members(x: torch.Tensor, axes: Sequence[RankAxis], group,
+                   link: Link) -> torch.Tensor:
+    """``x`` with the dims of ``axes`` (a process group's axes, outermost
+    first; ``group`` their flattened group) holding every member: one
+    all-gather, re-stacked as the emulated frame stacks them."""
+    parts = link.all_gather(x, group)
+    for ax in reversed(axes):
+        parts = [torch.cat(parts[i:i + ax.size], ax.dim)
+                 for i in range(0, len(parts), ax.size)]
+    return parts[0]
+
+
+def _hop(x: torch.Tensor, ax, wire: Optional[str],
          meter: Optional[WireMeter]) -> torch.Tensor:
     """One forward ring hop of ``x`` under the wire protocol: the
     receiver's high-precision (f32) view of what crossed the wire."""
     if wire is None:
         _count(meter, x)
-        return _permute(x, dim)
+        return ax.permute(x)[0]
     if wire == "bf16":
         sent = x.to(torch.bfloat16)
         _count(meter, sent)
-        return _permute(sent, dim).float()
+        return ax.permute(sent)[0].float()
     codes, scales = wire_encode(x)
     _count(meter, codes, scales)
-    return wire_decode(_permute(codes, dim), _permute(scales, dim),
-                       x.shape[-1])
+    return wire_decode(*ax.permute(codes, scales), x.shape[-1])
 
 
 def _count(meter: Optional[WireMeter], *parts: torch.Tensor) -> None:
     if meter is not None:
         meter.add(sum(_payload_bytes(t) for t in parts))
-
-
-def _take(b: torch.Tensor, dim: int, k: int) -> torch.Tensor:
-    """Device i (along ``dim``) takes chunk ``(i - k) % p`` of its
-    ``(…, p, chunk)`` view ``b``: -> ``(…, chunk)``."""
-    p = b.shape[dim]
-    return torch.stack([b.select(dim, i).select(-2, (i - k) % p)
-                        for i in range(p)], dim)
-
-
-def _put(out: torch.Tensor, dim: int, k: int, val: torch.Tensor) -> None:
-    """Device i writes its ``val`` into chunk ``(i - k) % p`` of its
-    ``(…, p, chunk)`` view ``out`` (in place)."""
-    p = out.shape[dim]
-    for i in range(p):
-        out.select(dim, i).select(-2, (i - k) % p).copy_(val.select(dim, i))
 
 
 def _pad_to(x: torch.Tensor, total: int) -> torch.Tensor:
@@ -144,7 +347,8 @@ def ring_reduce_scatter(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     per-ring chunks raveled — the selection ``shard_select`` makes and
     ``ring_allgather(num_rings=R)`` inverts."""
     wire = check_wire_dtype(wire_dtype, where="ring_reduce_scatter")
-    p = x.shape[dim]
+    ax = _axis(x, dim)
+    p = ax.size
     n = x.shape[-1]
     nr = max(1, num_rings)
     chunk = -(-n // (p * nr))
@@ -158,9 +362,9 @@ def ring_reduce_scatter(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     for s in range(p - 1):
         for r in range(nr):
             ring = bufs.select(-3, r)
-            send = _take(ring, dim, s + 1) if s == 0 else acc[r]
-            recv = _hop(send, dim, wire, meter)
-            local = _take(ring, dim, s + 2)
+            send = ax.take(ring, s + 1) if s == 0 else acc[r]
+            recv = _hop(send, ax, wire, meter)
+            local = ax.take(ring, s + 2)
             if wire is not None:
                 local = local.float()   # hp accumulator
             acc[r] = local + recv
@@ -179,7 +383,8 @@ def ring_allgather(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     verbatim; the owner round-trips its own shard through the codec too,
     so every device reconstructs identical buffers. The result is f32."""
     wire = check_wire_dtype(wire_dtype, where="ring_allgather")
-    p = x.shape[dim]
+    ax = _axis(x, dim)
+    p = ax.size
     nr = max(1, num_rings)
     if p == 1:
         return x if wire is None else x.float()
@@ -198,20 +403,20 @@ def ring_allgather(x: torch.Tensor, dim: int, *, num_rings: int = 1,
             wired = wire_encode(shard)   # (codes, scales)
             own = wire_decode(*wired, chunk)
         out = own.new_zeros(lead + (p, chunk))
-        _put(out, dim, 0, own)
+        ax.put(out, 0, own)
         outs.append(out)
         cur.append(wired)
     for s in range(p - 1):
         for r in range(nr):
             if wire == "int8":
                 _count(meter, *cur[r])
-                nxt = tuple(_permute(t, dim) for t in cur[r])
+                nxt = ax.permute(*cur[r])
                 val = wire_decode(*nxt, chunk)
             else:
                 _count(meter, cur[r])
-                nxt = _permute(cur[r], dim)
+                nxt = ax.permute(cur[r])[0]
                 val = nxt if wire is None else nxt.float()
-            _put(outs[r], dim, s + 1, val)
+            ax.put(outs[r], s + 1, val)
             cur[r] = nxt
     if nr == 1:
         return outs[0].reshape(lead + (-1,))
@@ -223,14 +428,14 @@ def shard_select(flat: torch.Tensor, dim: int, *,
     """Each device's shard of a *replicated* ``(…, n)`` buffer — exactly
     the slice ``ring_reduce_scatter`` with the same geometry leaves
     there. ``n`` must divide by ``p * num_rings``."""
-    p = flat.shape[dim]
+    ax = _axis(flat, dim)
+    p = ax.size
     nr = max(1, num_rings)
     if p == 1:
         return flat
     lead = tuple(flat.shape[:-1])
     chunk = flat.shape[-1] // (p * nr)
-    b = flat.reshape(lead + (nr, p, chunk))
-    sel = torch.stack([b.select(dim, i).select(-2, i) for i in range(p)], dim)
+    sel = ax.take(flat.reshape(lead + (nr, p, chunk)), 0)
     return sel.reshape(lead + (nr * chunk,))
 
 
@@ -239,7 +444,8 @@ def ring_allreduce(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     """Bucket-algorithm allreduce (sum) of the stacked ``(…, n)`` ``x``:
     ring reduce-scatter then ring allgather, in place in the R ring
     layouts, every device ending with the whole sum."""
-    p = x.shape[dim]
+    ax = _axis(x, dim)
+    p = ax.size
     if p == 1:
         return x
     n = x.shape[-1]
@@ -251,19 +457,19 @@ def ring_allreduce(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     for s in range(p - 1):
         for r in range(nr):
             ring = bufs.select(-3, r)
-            send = _take(ring, dim, s) if s == 0 else acc[r]
-            recv = _hop(send, dim, None, meter)
-            acc[r] = _take(ring, dim, s + 1) + recv
+            send = ax.take(ring, s) if s == 0 else acc[r]
+            recv = _hop(send, ax, None, meter)
+            acc[r] = ax.take(ring, s + 1) + recv
     outs = []
     for r in range(nr):
         out = bufs.select(-3, r).clone()
-        _put(out, dim, -1, acc[r])       # row (idx + 1) % p
+        ax.put(out, -1, acc[r])          # row (idx + 1) % p
         outs.append(out)
     cur = list(acc)
     for s in range(p - 1):
         for r in range(nr):
-            nxt = _hop(cur[r], dim, None, meter)
-            _put(outs[r], dim, s, nxt)   # row (idx - s) % p
+            nxt = _hop(cur[r], ax, None, meter)
+            ax.put(outs[r], s, nxt)      # row (idx - s) % p
             cur[r] = nxt
     return torch.stack(outs, -3).reshape(lead + (-1,))[..., :n]
 
@@ -271,23 +477,20 @@ def ring_allreduce(x: torch.Tensor, dim: int, *, num_rings: int = 1,
 def tree_allreduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Binomial reduce to rank 0 + binomial broadcast (the `reg`
     baseline and the PS push/pull pattern); p a power of two."""
-    p = x.shape[dim]
+    ax = _axis(x, dim)
+    p = ax.size
     if p == 1:
         return x
     if p & (p - 1):
         raise ValueError(f"tree_allreduce requires a power-of-two axis, got {p}")
     d = 1
-    while d < p:
-        recv = torch.zeros_like(x)
-        for j in range(0, p, 2 * d):          # j receives from j + d
-            recv.select(dim, j).copy_(x.select(dim, j + d))
-        x = x + recv
+    while d < p:                              # j receives from j + d
+        x = x + ax.ppermute(x, [(j + d, j) for j in range(0, p, 2 * d)])
         d *= 2
     d //= 2
-    while d >= 1:
-        x = x.clone()
-        for j in range(d, p, 2 * d):          # j receives from j - d
-            x.select(dim, j).copy_(x.select(dim, j - d))
+    while d >= 1:                             # j receives from j - d
+        x = ax.ppermute(x, [(j - d, j) for j in range(d, p, 2 * d)],
+                        keep=True)
         d //= 2
     return x
 
@@ -297,7 +500,7 @@ def scatter_gather_allreduce(x: torch.Tensor, dim: int, *, num_rings: int = 1,
                              meter: Optional[WireMeter] = None) -> torch.Tensor:
     """Allreduce as its two explicit halves (reduce-scatter + allgather),
     each carrying the ``wire_dtype`` protocol; in ``x``'s dtype."""
-    p = x.shape[dim]
+    p = _axis(x, dim).size
     if p == 1:
         return x
     n = x.shape[-1]
@@ -314,7 +517,8 @@ def allreduce(x: torch.Tensor, dim: int, method: str = "ring", *,
               ) -> torch.Tensor:
     """Sum of the stacked ``(…, n)`` ``x`` over ``dim`` by ``method``."""
     if method == "psum":
-        return x.sum(dim, keepdim=True).expand(x.shape).clone()
+        ax = _axis(x, dim)
+        return ax.gather(x).sum(ax.dim, keepdim=True).expand(x.shape).clone()
     if method == "ring":
         return ring_allreduce(x, dim, num_rings=1, meter=meter)
     if method == "multi_ring":
@@ -424,3 +628,52 @@ def tensor_pushpull(tree, axis_name, *, fused: bool = True,
     group = _as_group(axis_name, method, num_rings, wire_dtype,
                       where="tensor_pushpull")
     return group.pushpull(tree, fused=fused, spec=spec)
+
+
+def _selftest_rank(mesh, x) -> dict:
+    """One rank of ``_selftest``: every allreduce method over its row."""
+    ax = mesh.rank_axis("ring", 0)
+    mine = x[mesh.index:mesh.index + 1].to(mesh.device)
+    return {m: allreduce(mine, ax, m) for m in
+            ("ring", "multi_ring", "tree", "psum", "scatter_gather")}
+
+
+def _selftest(p: int = 8, device="cuda") -> None:  # pragma: no cover
+    """Every allreduce method against the plain sum, emulated on
+    ``device``, then over a process mesh of p gloo ranks on ``device``,
+    where each rank's result must equal the emulated one exactly."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    device = torch.device(device)
+    x = torch.randn(p, 1000, generator=torch.Generator().manual_seed(0))
+    # first, so that a missing card raises spawn_ranks' own message
+    ranks = spawn_ranks(_selftest_rank, (p,), ("ring",), backend="gloo",
+                        device=device, args=(x,))
+    want = x.sum(0)
+    methods = ("ring", "multi_ring", "tree", "psum", "scatter_gather")
+    emulated = {}
+    for method in methods:
+        emulated[method] = got = allreduce(x.to(device), 0, method).cpu()
+        np.testing.assert_allclose(got, want.expand(got.shape), rtol=2e-5,
+                                   atol=2e-5)
+    print(f"collectives selftest OK p={p} (emulation on {device})")
+    for method in methods:
+        got = torch.cat([r[method] for r in ranks])
+        if not torch.equal(got, emulated[method]):
+            raise AssertionError(f"{method}: the process mesh != emulation")
+    print(f"collectives selftest OK p={p} (process mesh on {p} ranks, "
+          f"backend gloo, {device})")
+
+
+if __name__ == "__main__":  # pragma: no cover
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="every allreduce method, emulated and over p gloo ranks")
+    ap.add_argument("p", type=int, nargs="?", default=8)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args()
+    _selftest(args.p, args.device)

@@ -10,14 +10,24 @@ is the trivial size-1 group, MPI_COMM_SELF) and its **collective policy**
 intra-pod gradient group, ``split("pod")`` the cross-pod PS tier. Every
 carve inherits the policy.
 
-**Backend: single-process emulation.** The reference runs one program per
-device under ``shard_map`` or nested ``jax.vmap``; here one program runs
-the whole emulated world on stacked tensors (``core/collectives.py``).
-``frame`` is the world's axes: every per-device value this group touches
-is a tensor whose leading ``len(frame)`` dims are the world's device
-axes, in that order (pod-major), so a sub-group's collective runs along
-its own axes' dims and batches over the rest. The world of a trivial
-group has no frame, and its values are plain per-device tensors.
+**Two backends.** The reference runs one program per device under
+``shard_map`` on a mesh or nested ``jax.vmap`` on one device; the port
+has the same two (``core/collectives.py``):
+
+  emulated  one program runs the whole world on stacked tensors.
+            ``frame`` is the world's axes: every per-device value this
+            group touches is a tensor whose leading ``len(frame)`` dims
+            are the world's device axes, in that order (pod-major), so a
+            sub-group's collective runs along its own axes' dims and
+            batches over the rest.
+  process   one process per device (``mesh=``, a ``launch.mesh.Mesh``):
+            each rank holds its own block, the same leading dims at size
+            1, and the collectives exchange ``torch.distributed``
+            messages inside each axis' process group — the same hops in
+            the same order, so the two backends agree bit for bit.
+
+The world of a trivial group has no frame, and its values are plain
+per-device tensors.
 
 Multi-axis groups compose collectives hierarchically: a reduce-scatter
 over ``("pod", "data")`` reduce-scatters over ``pod`` first, then over
@@ -32,15 +42,14 @@ a stacked member dim, as the in-process PS tier (``core/kvstore``,
 
 The schedule-bucketed legs of backward overlap (``reduce_scatter_bucket``,
 ``allgather_sched``, ``shard_select_sched``) run one single-ring leg per
-``flatbuf.BucketSchedule`` bucket. A real multi-GPU backend
-(``torch.distributed``) is queued in ROADMAP.
+``flatbuf.BucketSchedule`` bucket.
 """
 from __future__ import annotations
 
 import math
 import warnings
 from dataclasses import dataclass, field, replace
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -179,8 +188,9 @@ def resolve_policy(policy: Optional[CollectivePolicy], flat: dict, *,
 
 @dataclass(frozen=True)
 class Communicator:
-    """One MPI-style group + its collective policy, over an emulated
-    world whose axes are ``frame`` (see the module docstring).
+    """One MPI-style group + its collective policy, over a world whose
+    axes are ``frame``: emulated in this process, or one process per
+    device when ``mesh`` is set (see the module docstring).
 
     ``axes`` are the named axes the group spans (order = hierarchy order
     for nested collectives: ``axes[0]`` is the outermost level) and
@@ -191,6 +201,7 @@ class Communicator:
     policy: CollectivePolicy = CollectivePolicy()
     frame: tuple[str, ...] = ()
     meter: Optional[WireMeter] = field(default=None, compare=False)
+    mesh: Any = field(default=None, compare=False)
 
     # -- policy views (read-only) -------------------------------------------
     @property
@@ -213,21 +224,33 @@ class Communicator:
     @classmethod
     def world(cls, axes=(), sizes=None, *,
               policy: Optional[CollectivePolicy] = None,
-              meter: Optional[WireMeter] = None, **flat) -> "Communicator":
-        """The top-level group over emulated axes of static ``sizes``;
-        the policy rides ``policy=`` (flat knobs shim through
-        ``resolve_policy``)."""
+              meter: Optional[WireMeter] = None, mesh=None,
+              **flat) -> "Communicator":
+        """The top-level group over axes of static ``sizes``: emulated,
+        or with ``mesh`` (a ``launch.mesh.Mesh``) one process per device,
+        the sizes then read from the mesh when omitted. The policy rides
+        ``policy=`` (flat knobs shim through ``resolve_policy``)."""
         axes = tuple(axes)
+        if mesh is not None:
+            unknown = [a for a in axes if a not in mesh.shape]
+            if unknown:
+                raise ValueError(f"axes {unknown} are not in the mesh's "
+                                 f"{dict(mesh.shape)}")
+            want = tuple(mesh.shape[a] for a in axes)
+            if sizes is not None and tuple(sizes) != want:
+                raise ValueError(f"sizes {tuple(sizes)} != the mesh's {want} "
+                                 f"for axes {axes}")
+            sizes = want
         if axes and sizes is None:
             raise ValueError(
-                f"Communicator.world({axes}) needs static sizes: the port "
-                "emulates the world in one process")
+                f"Communicator.world({axes}) needs static sizes: the "
+                "emulated world has no mesh to read them from")
         sizes = tuple(int(s) for s in (sizes or ()))
         if len(sizes) != len(axes):
             raise ValueError(f"{len(axes)} axes but {len(sizes)} sizes")
         pol = resolve_policy(policy, flat, where="Communicator.world")
         return cls(axes=axes, sizes=sizes, policy=pol, frame=axes,
-                   meter=meter)
+                   meter=meter, mesh=mesh)
 
     def split(self, *axes: str) -> "Communicator":
         """The sub-communicator spanning ``axes`` (``MPI_Comm_split``:
@@ -291,9 +314,12 @@ class Communicator:
 
     @property
     def backend(self) -> str:
-        """The reference's names: "trivial" (size-1 short circuit) or
-        "named_axis" — here the stacked emulated axes of ``frame``."""
-        return "trivial" if self.is_trivial else "named_axis"
+        """"trivial" (the size-1 short circuit), "named_axis" (the
+        reference's name: here the stacked emulated axes of ``frame``) or
+        "process" (one process per device over ``mesh``)."""
+        if self.is_trivial:
+            return "trivial"
+        return "named_axis" if self.mesh is None else "process"
 
     @property
     def static_size(self) -> int:
@@ -328,8 +354,22 @@ class Communicator:
         _, total = flatbuf.shard_geometry(n, p, nr)
         return total // p, total
 
-    def _dim(self, axis: str) -> int:
-        return self.frame.index(axis)
+    def _dim(self, axis: str):
+        """The collectives' handle on ``axis``: its stacked dim (emulated)
+        or this rank's ``collectives.RankAxis`` (process)."""
+        d = self.frame.index(axis)
+        return d if self.mesh is None else self.mesh.rank_axis(axis, d)
+
+    def _members(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+        """``x`` with the group's axes' dims holding every member (under
+        the process backend, one all-gather over the flattened group) and
+        those dims: what ``psum`` / ``pmean`` reduce."""
+        dims = tuple(self.frame.index(a) for a in self.axes)
+        if self.mesh is None:
+            return x, dims
+        axes = [self._dim(a) for a in self.axes]
+        return (C.gather_members(x, axes, self.mesh.get_group(self.axes),
+                                 self.mesh.link), dims)
 
     def _flat(self, x: torch.Tensor) -> torch.Tensor:
         """A stacked per-device value as ``(*world, payload)``."""
@@ -350,8 +390,8 @@ class Communicator:
             pass
         elif self.policy.method == "psum":
             self._require_plain_wire("a native psum")
-            dims = tuple(self._dim(a) for a in self.axes)
-            out = x.sum(dims, keepdim=True).expand(x.shape).clone()
+            full, dims = self._members(x)
+            out = full.sum(dims, keepdim=True).expand(x.shape).clone()
         elif self.policy.method == "tree" or (
                 len(self.axes) == 1 and self.wire is None):
             if self.policy.method == "tree":
@@ -381,8 +421,8 @@ class Communicator:
         cheap scalar traffic, not part of any byte-accounted leg."""
         if self.is_trivial:
             return x
-        dims = tuple(self._dim(a) for a in self.axes)
-        return x.mean(dims, keepdim=True).expand(x.shape)
+        full, dims = self._members(x)
+        return full.mean(dims, keepdim=True).expand(x.shape)
 
     def reduce_scatter(self, buf: torch.Tensor, *,
                        num_rings: Optional[int] = None) -> torch.Tensor:
@@ -506,11 +546,11 @@ class Communicator:
         """The group collective over a *stacked* member value: one leading
         dim per axis of the group, of the axis' static size — how the
         in-process PS tier holds a group's values. The group's own axes
-        become the frame; the pytree is packed once."""
+        become the (emulated) frame; the pytree is packed once."""
         if self.is_trivial:
             return stacked
-        return replace(self, frame=self.axes).tensor_allreduce(stacked,
-                                                               mean=mean)
+        return replace(self, frame=self.axes, mesh=None).tensor_allreduce(
+            stacked, mean=mean)
 
 
 #: module-level trivial group (MPI_COMM_SELF with the default policy)
@@ -518,10 +558,11 @@ LOCAL = Communicator()
 
 
 def from_sync(sync, axes=(), sizes=None, *,
-              meter: Optional[WireMeter] = None) -> Communicator:
+              meter: Optional[WireMeter] = None, mesh=None) -> Communicator:
     """Build a communicator from a ``SyncConfig`` recipe: its resolved
     ``CollectivePolicy`` becomes the group's policy verbatim."""
-    return Communicator.world(axes, sizes, policy=sync.policy, meter=meter)
+    return Communicator.world(axes, sizes, policy=sync.policy, meter=meter,
+                              mesh=mesh)
 
 
 def sync_comms(sync, world: Communicator

@@ -71,11 +71,13 @@ class SyncConfig:
         object.__setattr__(self, "overlap", pol.overlap)
         object.__setattr__(self, "overlap_buckets", pol.overlap_buckets)
 
-    def validate(self, mesh: None = None) -> None:
-        """Check the config before any step runs (``mesh=None``: the
-        single-process drivers; no mesh exists in the port yet)."""
-        if mesh is not None:
-            raise NotImplementedError("not yet ported: device meshes")
+    def validate(self, mesh=None) -> None:
+        """Check the config against a mesh before any step runs, so a
+        client-count / mesh mismatch fails here with an actionable
+        message. ``mesh=None`` (the emulated drivers, one process for the
+        whole world) skips the axis checks; a ``launch.mesh.Mesh`` (the
+        process backend, one process per device) gets the reference's.
+        The messages are the reference's, word for word."""
         if self.mode not in ("mpi_sgd", "mpi_esgd"):
             raise ValueError(f"lowerable modes are mpi_sgd/mpi_esgd, got {self.mode}")
         self.policy.validate(where="SyncConfig")
@@ -100,6 +102,34 @@ class SyncConfig:
                     "overlap=True assumes replicated params (the staged "
                     "grad fn re-stages the full param tree per device); "
                     "fsdp=True shards them over 'data' — pick one")
+            if mesh is not None:
+                raise ValueError(
+                    "overlap=True is collective-explicit (the per-bucket "
+                    "ppermute legs are issued by the traced backward, "
+                    "vmap emulation or shard_map worker programs) — with "
+                    "an ambient mesh GSPMD owns the gradient collectives "
+                    "and would not interleave them; drop the mesh or "
+                    "overlap")
+        if mesh is None or self.num_clients <= 1:
+            return
+        C = self.num_clients
+        if "pod" not in mesh.shape:
+            raise ValueError(
+                f"SyncConfig(num_clients={C}) needs a 'pod' mesh axis to "
+                f"shard the client dim over, but the mesh only has axes "
+                f"{dict(mesh.shape)} — build it with a pod axis of size "
+                f"{C}, e.g. compat.make_mesh(({C}, D), ('pod', 'data')) "
+                "or launch.mesh.make_production_mesh(multi_pod=True); "
+                "without it the client dim cannot be laid out and the "
+                "failure would otherwise surface inside shard_map as a "
+                "shape error")
+        if mesh.shape["pod"] != C:
+            raise ValueError(
+                f"SyncConfig(num_clients={C}) != 'pod' axis size "
+                f"{mesh.shape['pod']} (mesh axes {dict(mesh.shape)}) — "
+                "one client per pod: set num_clients to the pod axis "
+                "size or rebuild the mesh with a pod axis of size "
+                f"{C}")
 
 
 def clientize(params: Any, num_clients: int) -> Any:

@@ -199,7 +199,11 @@ def make_sync_engine(optimizer: Optimizer, sync: SyncConfig, mesh=None, *,
     required when a flat leg engages; ``schedule`` (``launch.train.
     overlap_schedule``) when ``sync.overlap`` is set."""
     if mesh is not None:
-        raise NotImplementedError("not yet ported: device meshes")
+        raise NotImplementedError(
+            "not yet ported: make_sync_engine(mesh) is the GSPMD path "
+            "(per-leaf updates with the collectives left to the mesh), a "
+            "later slice; the shard driver's process mesh passes its "
+            "gradient group as comm= instead")
     if comm is None:
         comm = comm_lib.from_sync(sync)
     fused = flat_update_supported(optimizer, sync, mesh)

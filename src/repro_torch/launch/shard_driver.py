@@ -34,12 +34,23 @@ exist, and the optimizer state is laid out bucket-major
 
 Driver state is *stacked*: every leaf carries a leading device dim
 p_total (pod-major for 2-axis), the reference's layout. The reference
-maps a per-device program with one named vmap per axis; here ONE program
-runs the emulated world (``make_emulated_step``): the stacked state is
-viewed with the world's shape as its leading dims, forward and backward
-run per device in a loop (one device's activations live at a time), and
-the collectives and the elastic kernels run over the stacked buffers —
-one kernel launch for all devices, as one ``pallas_call`` under vmap.
+maps one per-device program with a named vmap per axis, or runs it under
+``shard_map`` on a real mesh; the port has the same two forms of the
+same program (``make_device_step``):
+
+  emulated  ``make_emulated_step``: ONE program runs the whole world. The
+            stacked state is viewed with the world's shape as its leading
+            dims, forward and backward run per device in a loop (one
+            device's activations live at a time), and the collectives and
+            the elastic kernels run over the stacked buffers — one kernel
+            launch for all devices, as one ``pallas_call`` under vmap.
+  process   ``make_sharded_step`` over a ``launch.mesh.Mesh``: one process
+            per device, each holding its leading-dim-1 block of the
+            stacked state (``make_driver_state(mesh=)``, ``rank_block``),
+            as ``shard_map`` hands each device its block. The ring hops
+            are ``torch.distributed`` messages (``core.comm``'s process
+            backend) and each rank launches the kernels on its own shard.
+            Both forms give the same bits.
 
 ``drive(faults=...)`` injects a deterministic schedule on the 1-axis
 layout: ``kill@s:unit=d`` evicts device d before step s (the survivors'
@@ -49,8 +60,13 @@ count), ``restart@s:unit=d`` admits d before step s, ``corrupt`` adds
 seeded noise to a device's float batch leaves. Each membership change
 logs its byte and time accounting (``core.cost_model``).
 
-Not ported yet: ``make_sharded_step`` (a real multi-GPU backend over
-``torch.distributed``, P2P send/recv for the int8 hops); it raises.
+Not ported yet: the GSPMD path (``launch/train.make_train_step`` with a
+mesh, ``sharding/rules``); faults on a process mesh are refused.
+
+  python -m repro_torch.launch.shard_driver 4 [--device cpu]
+
+runs the selftest: p gloo ranks on the card (or the CPU), both modes and
+every optimizer against the single-process train step.
 """
 from __future__ import annotations
 
@@ -99,11 +115,12 @@ def _factorize(p: Geometry, axis_name: str = AXIS
 
 
 def driver_world(sync: SyncConfig, p: Geometry, *, axis_name: str = AXIS,
-                 meter: Optional[WireMeter] = None) -> Communicator:
+                 meter: Optional[WireMeter] = None, mesh=None) -> Communicator:
     """The top-level communicator for a driver geometry, carrying the
-    SyncConfig's collective policy (and ``meter``, counting wire bytes)."""
+    SyncConfig's collective policy (and ``meter``, counting wire bytes);
+    with ``mesh``, over its processes."""
     shape, axes = _factorize(p, axis_name)
-    return comm_lib.from_sync(sync, axes, shape, meter=meter)
+    return comm_lib.from_sync(sync, axes, shape, meter=meter, mesh=mesh)
 
 
 def _require_supported(model: Model, optimizer: Optimizer, sync: SyncConfig,
@@ -148,19 +165,27 @@ def _stack(tree: Any, n: int) -> Any:
 
 
 def make_driver_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
-                      p: Geometry, seed: int = 0, *, device="cuda") -> dict:
+                      p: Geometry | None = None, seed: int = 0, *,
+                      device="cuda", mesh=None, axis_name: str = AXIS) -> dict:
     """Stacked (leading device dim p_total) initial state.
 
     mpi_sgd: params replicated, optimizer state sharded 1/p_total per
     device. mpi_esgd: one replica per client, optimizer state sharded over
     the client's gradient group (1-axis: full local state per device;
     2-axis: 1/D per device), replicated center. With overlap the state is
-    the bucket-major schedule shard at the gradient group's p."""
+    the bucket-major schedule shard at the gradient group's p.
+
+    With ``mesh`` (the geometry then comes from the mesh, the device is
+    the mesh's) only this rank's leading-dim-1 block is built: every
+    device's block is the same at init."""
+    if mesh is not None:
+        p, _ = _mesh_geometry(mesh, axis_name)
+        device = mesh.device
     device = resolve_device(device)
     world = driver_world(sync, p)
     spec = _require_supported(model, optimizer, sync, world)
     grad_comm, _ = sync_comms(sync, world)
-    n = world.static_size
+    n = 1 if mesh is not None else world.static_size
     if sync.overlap:
         _, schedule = overlap_schedule(model, sync, grad_comm.static_size)
         opt0 = optstate_sched_init(optimizer.hyper, schedule, device=device)
@@ -299,14 +324,58 @@ def make_emulated_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
     return emulated_step
 
 
+def _mesh_geometry(mesh, axis_name: str = AXIS
+                   ) -> tuple[Geometry, tuple[str, ...]]:
+    """Which driver layout a mesh carries: ('pod' and 'data') -> 2-axis,
+    else the single ``axis_name`` axis."""
+    if POD_AXIS in mesh.shape and DATA_AXIS in mesh.shape:
+        return ((mesh.shape[POD_AXIS], mesh.shape[DATA_AXIS]),
+                (POD_AXIS, DATA_AXIS))
+    if axis_name not in mesh.shape:
+        raise ValueError(
+            f"mesh axes {dict(mesh.shape)} fit neither driver layout: "
+            f"expected a '{axis_name}' axis (1-axis) or both "
+            f"'{POD_AXIS}' and '{DATA_AXIS}' axes (2-axis hierarchy)")
+    return mesh.shape[axis_name], (axis_name,)
+
+
+def rank_block(tree: Any, mesh) -> Any:
+    """This rank's leading-dim-1 block of a stacked (p_total-leading)
+    tree: a ``make_driver_state`` state or a ``shard_batch`` batch."""
+    i = mesh.index
+    return tree_map(lambda t: t[i:i + 1], tree)
+
+
+def gather_blocks(blocks: Sequence[Any]) -> Any:
+    """The stacked tree from every rank's block, in rank order (the
+    inverse of ``rank_block``)."""
+    return tree_map(lambda *ts: torch.cat(ts), *blocks)
+
+
 def make_sharded_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
-                      mesh, **kw) -> Callable:
-    """The real multi-device driver: not ported yet."""
-    raise NotImplementedError(
-        "not yet ported: make_sharded_step needs a real multi-GPU backend "
-        "(torch.distributed across cards, P2P send/recv for the int8 "
-        "hops), queued in ROADMAP; make_emulated_step runs the same "
-        "program on one card")
+                      mesh, *, axis_name: str = AXIS, microbatch: int = 1,
+                      meter: Optional[WireMeter] = None) -> Callable:
+    """The driver step of one rank of a process mesh: ``step(block,
+    batch_block) -> (block, metrics)`` over this rank's leading-dim-1
+    blocks of the driver state and of ``shard_batch`` (``rank_block``),
+    the ring collectives crossing ``mesh``'s processes. A mesh with 'pod'
+    and 'data' axes selects the 2-axis hierarchy layout. The metrics are
+    the same on every rank; ``meter`` counts the bytes this rank puts on
+    the wire."""
+    p, _ = _mesh_geometry(mesh, axis_name)
+    world = driver_world(sync, p, axis_name=axis_name, meter=meter,
+                         mesh=mesh)
+    _require_supported(model, optimizer, sync, world)
+    dev_step, dev_ex = make_device_step(model, optimizer, sync, world=world,
+                                        microbatch=microbatch)
+    block = (1,) * len(world.frame)
+    step = _compose(_on_world(dev_step, block),
+                    _on_world(dev_ex, block) if dev_ex else None, sync)
+
+    def sharded_step(state, batch):
+        return step(state, {k: v.to(mesh.device) for k, v in batch.items()})
+
+    return sharded_step
 
 
 def _check_driver_faults(inj: FaultInjector, p: Geometry) -> None:
@@ -447,8 +516,15 @@ def drive(model: Model, optimizer: Optimizer, sync: SyncConfig, batches, *,
           log_every: int = 10, callback: Optional[Callable] = None,
           faults=None, fault_seed: int = 0,
           net: Optional[cost_model.NetParams] = None) -> tuple[dict, list]:
-    """Training loop over the emulated shard driver: ``batches`` yield
-    host-layout (B, ...) batches, split into per-device shards here.
+    """Training loop over the shard driver: ``batches`` yield host-layout
+    (B, ...) batches, split into per-device shards here.
+
+    ``mesh=None`` emulates ``p`` devices in this process (an int, or a
+    (pods, data) pair for the 2-axis hierarchy); with a
+    ``launch.mesh.Mesh`` the geometry comes from the mesh axes, this
+    process runs its rank (every rank calls ``drive`` with the same
+    batches and takes its own shard) and the returned state is its
+    block.
 
     ``faults`` (a ``core.faults`` schedule or its string) injects
     deterministic failures on the 1-axis layout: ``kill@s:unit=d`` evicts
@@ -462,8 +538,6 @@ def drive(model: Model, optimizer: Optimizer, sync: SyncConfig, batches, *,
     generation-indexed: a rejoined unit dies again only at its NEXT kill
     event. ``corrupt`` adds seeded noise to the device's float batch
     leaves. Feed batches sized for every geometry the schedule reaches."""
-    if p is None and mesh is None:
-        raise ValueError("pass p= (the emulated device geometry)")
     inj = injector(faults, seed=fault_seed)
     if inj is not None:
         if sync.overlap:
@@ -475,17 +549,28 @@ def drive(model: Model, optimizer: Optimizer, sync: SyncConfig, batches, *,
                 "overlap, or overlap without faults")
         if mesh is not None:
             raise ValueError(
-                "drive(faults=...) runs under emulation only: elastic "
-                "reconfiguration on a REAL mesh needs a multi-process "
-                "transport — pass p= instead of mesh=")
-        _check_driver_faults(inj, p)
+                "drive(faults=...) runs under vmap emulation only: elastic "
+                "reconfiguration on a REAL mesh needs the multi-process "
+                "transport (see ROADMAP.md 'real multi-process transport') "
+                "— pass p= instead of mesh=")
     if mesh is not None:
-        raise NotImplementedError(
-            "not yet ported: drive(mesh=...) needs make_sharded_step; pass "
-            "p= to emulate the devices")
-    state = make_driver_state(model, optimizer, sync, p, seed, device=device)
-    step = make_emulated_step(model, optimizer, sync, p, axis_name=axis_name,
-                              microbatch=microbatch)
+        p, _ = _mesh_geometry(mesh, axis_name)
+    if p is None:
+        raise ValueError("pass p= (emulation) or mesh=")
+    if inj is not None:
+        _check_driver_faults(inj, p)
+    if mesh is None:
+        state = make_driver_state(model, optimizer, sync, p, seed,
+                                  device=device)
+        step = make_emulated_step(model, optimizer, sync, p,
+                                  axis_name=axis_name, microbatch=microbatch)
+    else:
+        state = make_driver_state(model, optimizer, sync, seed=seed,
+                                  mesh=mesh, axis_name=axis_name)
+        sharded = make_sharded_step(model, optimizer, sync, mesh,
+                                    axis_name=axis_name,
+                                    microbatch=microbatch)
+        step = lambda st, shard: sharded(st, rank_block(shard, mesh))
     live = Membership(math.prod(_factorize(p)[0])) if inj is not None else None
     attempts: dict[int, int] = {}    # unit -> spawn generation
     netp = net or cost_model.testbed()
@@ -540,3 +625,90 @@ def drive(model: Model, optimizer: Optimizer, sync: SyncConfig, batches, *,
             entry["step"] = i
             log(entry)
     return state, history
+
+
+def _selftest_rank(mesh, batch) -> dict:
+    """One rank of ``_selftest``: both modes and every optimizer family
+    (the 2-axis meshes: momentum SGD) through ``drive(mesh=)``, 3 steps;
+    returns the losses by case."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import adagrad, adamw, sgd
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    p, _ = _mesh_geometry(mesh)
+    pods = p[0] if isinstance(p, tuple) else p
+    opts = ((sgd(0.1, momentum=0.9), adamw(3e-3), adagrad(0.05))
+            if not isinstance(p, tuple) else (sgd(0.1, momentum=0.9),))
+    out = {}
+    for opt in opts:
+        for sync in (SyncConfig(mode="mpi_sgd", num_clients=1),
+                     SyncConfig(mode="mpi_esgd", num_clients=pods,
+                                esgd_interval=2)):
+            _, hist = drive(model, opt, sync, [batch] * 3, mesh=mesh,
+                            seed=1, log_every=1)
+            out[(opt.hyper["name"], sync.mode)] = [h["loss"] for h in hist]
+    return out
+
+
+def _selftest(p: int = 8, device="cuda") -> None:  # pragma: no cover
+    """The process mesh: p gloo ranks on ``device``, one process each, run
+    ``drive(mesh=)`` for both modes and every optimizer family; the losses
+    must match the single-process train step (``launch.train.
+    make_train_step``) on ``device`` within rtol 1e-4. Then the 2-axis
+    pod×data hierarchy (both factorizations of p) with momentum SGD."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import get_optimizer
+
+    torch.set_num_threads(1)
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    toks = torch.randint(0, 1024, (p, 32),
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    hyper = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=3e-3),
+             "adagrad": dict(lr=0.05)}
+    layouts = [((p,), (AXIS,))]
+    for pd in ((2, p // 2), (p // 2, 2)):
+        if ((pd, (POD_AXIS, DATA_AXIS))) not in layouts:
+            layouts.append((pd, (POD_AXIS, DATA_AXIS)))
+    for shape, axes in layouts:
+        got = spawn_ranks(_selftest_rank, shape, axes, backend="gloo",
+                          device=device, args=(batch,))
+        pods = shape[0]
+        for (oname, mode), losses in got[0].items():
+            if any(g[(oname, mode)] != losses for g in got[1:]):
+                raise AssertionError(f"ranks disagree on {oname} {mode}")
+            opt = get_optimizer(oname, **hyper[oname])
+            sync = SyncConfig(mode=mode, num_clients=1 if mode == "mpi_sgd"
+                              else pods, esgd_interval=2)
+            ref = make_train_state(model, opt, sync, 1, device=device)
+            ref_step = make_train_step(model, opt, sync, device=device)
+            ref_batch = (batch if sync.num_clients <= 1
+                         else shard_batch(batch, pods))
+            want = []
+            for _ in range(3):
+                ref, mr = ref_step(ref, ref_batch)
+                want.append(float(mr["loss"]))
+            np.testing.assert_allclose(losses, want, rtol=1e-4)
+            print(f"shard driver selftest OK mesh={shape} mode={mode} "
+                  f"opt={oname} (process mesh on {math.prod(shape)} ranks, "
+                  f"backend gloo, {device})")
+
+
+if __name__ == "__main__":  # pragma: no cover
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="the shard driver over p gloo ranks against the "
+                    "single-process train step")
+    ap.add_argument("p", type=int, nargs="?", default=8)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args()
+    _selftest(args.p, args.device)

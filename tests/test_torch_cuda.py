@@ -929,3 +929,36 @@ def test_launch_entry_points_raise_without_a_card():
     for transport in ("tcp", "loopback"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_job(cfg, transport=transport)
+
+
+def test_process_mesh_on_the_card_equals_emulated(cuda):
+    """Two gloo ranks on the card, each its own process and CUDA context
+    (card tensors staged through pinned host memory), against the
+    emulated p = 2 driver on the card from the same weights and batches:
+    mpi_sgd over the int8 wire and mpi_esgd at f32, 3 steps each. The
+    gathered rank blocks, the metrics and the wire bytes are ``==``."""
+    import _torch_mesh as TM
+    from repro_torch.launch import shard_driver as SD
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.tree import tree_leaves
+
+    params = TM.model().init(device="cpu", seed=1)
+    gen = torch.Generator().manual_seed(0)
+    batches = []
+    for _ in range(3):
+        toks = torch.randint(0, 1024, (4, 32), generator=gen, dtype=torch.int32)
+        batches.append({"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+    cases = [dict(mode="mpi_sgd", opt="sgd", wire="int8"),
+             dict(mode="mpi_esgd", opt="sgd", clients=2)]
+    ranks = spawn_ranks(TM.driver_rank, (2,), ("dev",), backend="gloo",
+                        device="cuda", args=(cases, params, batches))
+    for i, case in enumerate(cases):
+        emu = TM.emulated_case(case, 2, params, batches, device="cuda")
+        got = SD.gather_blocks([r[i]["state"] for r in ranks])
+        for key, tree in emu["state"].items():
+            for a, b in zip(tree_leaves(got[key]), tree_leaves(tree)):
+                assert torch.equal(a, b.cpu()), (case, key)
+        for r in ranks:
+            assert r[i]["wire"] == emu["wire"]
+            assert [float(m["loss"]) for m in r[i]["metrics"]] == \
+                [float(m["loss"]) for m in emu["metrics"]]

@@ -7,6 +7,8 @@ Tolerances: per-step losses rtol 1e-4; final params and center rtol 1e-3
 """
 import importlib
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -180,10 +182,13 @@ def test_unported_paths_raise_naming_their_slice(tmodel):
     # drive(faults=) runs now: with no batches the schedule never fires
     assert TSD.drive(tmodel, opt, sync, [], p=2, device="cpu",
                      faults="kill@1:unit=0")[1] == []
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        TSD.make_sharded_step(tmodel, opt, sync, mesh=object())
-    with pytest.raises(NotImplementedError, match="make_sharded_step"):
-        TSD.drive(tmodel, opt, sync, [], mesh=object(), device="cpu")
+    # the process mesh is ported (tests/test_torch_sharded_driver.py); a
+    # mesh without the driver's axes, and faults on a mesh, are refused
+    with pytest.raises(ValueError, match="fit neither driver layout"):
+        TSD.make_sharded_step(tmodel, opt, sync, mesh=SimpleNamespace(shape={"x": 2}))
+    with pytest.raises(ValueError, match="vmap emulation only"):
+        TSD.drive(tmodel, opt, sync, [], mesh=SimpleNamespace(shape={"dev": 2}),
+                  device="cpu", faults="kill@1:unit=0")
     world = TSD.driver_world(sync, (2, 2))
     assert world.resized(1, "pod").sizes == (1, 2)
     # one schedule bucket's leg over the 2-axis world: pod, then data

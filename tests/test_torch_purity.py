@@ -113,7 +113,8 @@ def _imports(path: Path) -> set:
     return names
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mesh.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_or_reference(path):
     for name in _imports(path):
@@ -138,6 +139,25 @@ def test_launch_tier_carries_no_tpu_rate(name):
     for literal in ("197e12", "819e9", "50e9", "tpu_v5e", "ICI_BW"):
         assert literal not in text, f"{path}: {literal}"
     assert not {"jax", "jaxlib", "repro"} & {n.split(".")[0] for n in _imports(path)}
+
+
+def test_process_mesh_ranks_import_no_jax_or_reference():
+    """Two gloo ranks of the process mesh (``spawn_ranks``) take a
+    ``drive(mesh=)`` step of the reduced model; neither they nor their
+    parent import JAX or the reference."""
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT / 'tests'}")
+    code = (
+        "import sys\n"
+        "import _torch_mesh as TM\n"
+        "from repro_torch.launch.mesh import spawn_ranks\n"
+        "if __name__ == '__main__':\n"
+        "    bad = spawn_ranks(TM.purity_rank, (2,), ('dev',), backend='gloo', device='cpu')\n"
+        "    bad.append(sorted(m for m in sys.modules if m.split('.')[0] in TM.FOREIGN))\n"
+        "    print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD [[], [], []]" in out.stdout, out.stdout
 
 
 def test_run_local_children_import_no_jax_or_reference(tmp_path):
