@@ -197,9 +197,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               card, card tensors staged through pinned host memory), each
               sub-phase's wall time printed:
               a) [mesh:small] the reduced model, 3 steps a case, each layout
-                 one spawn of gloo ranks on the card: p = 4 and (2, 2) mpi_sgd
-                 with sgd, adamw, adagrad at f32; p = 4 over the int8 and the
-                 bf16 wire and with overlap; (2, 2) mpi_esgd over int8, and
+                 one spawn of gloo ranks on the card (the two side by side):
+                 p = 4 and (2, 2) mpi_sgd with sgd, adamw, adagrad at f32;
+                 p = 4 over the int8 and the bf16 wire and with overlap;
+                 (2, 2) mpi_esgd over int8, and
                  (2, 2) mpi_esgd adamw through drive(mesh=) itself against
                  drive(p=) — each held against the emulated driver on the
                  card from the same weights and batches (state and metrics
@@ -219,6 +220,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  step ms and its split (grad fn, reduce-scatter and allgather
                  with their staged D2H / H2D and send / receive, kernel),
                  staged bytes, peak memory and the card's used MiB
+ 15. gspmd    slice 14, the GSPMD path: make_train_state(mesh=) /
+              make_train_step(mesh) on DTensor state over gloo ranks sharing
+              the card (every DTensor collective staged through pinned host
+              memory), per-leaf updates, none of the 14 kernels (their launch
+              counts, set to 0 in each rank before its steps, printed as 0):
+              a) [gspmd:small] the reduced model, 3 steps a case, the two
+                 layouts spawned side by side (and beside c): (data 2,
+                 model 2) mpi_sgd with sgd, adamw, adagrad, fsdp=True and
+                 seq_shard_activations=True; (pod 2, data 1, model 2)
+                 mpi_esgd C = 2 — each held against the one-process per-leaf step on the card
+                 (losses and the gathered state within rtol 1e-5)
+              b) [gspmd] full-width qwen2-0.5b as 4 ranks (data 2, model 2),
+                 3 momentum-SGD steps of 4 x 512: losses within rtol 1e-4 of
+                 the one-process per-leaf step on the same batches; per rank
+                 step ms split into forward + backward (with the
+                 tensor-parallel collectives), the gradient redistribute and
+                 the update, bytes staged a step, peak memory, the card's
+                 used MiB
+              c) [multidevice] python -m repro_torch.launch.multidevice_train:
+                 8 ranks (pod 2, data 2, model 2), the reduced model, 12
+                 mpi-ESGD steps; the loss falls, the consensus line printed
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -245,6 +267,7 @@ in other processes and are not counted here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -4540,13 +4563,25 @@ def phase_mesh_small(dev, card) -> dict:
     runs = [(shape, "gloo", cases, batches) for shape, cases in MESH_SMALL.items()]
     runs.append(((1,), "nccl", [dict(mode="mpi_sgd", opt="sgd")],
                  [{k: v[:2] for k, v in b.items()} for b in batches]))
+    # the gloo layouts' spawns side by side (start-up dominates them)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(MESH_SMALL)) as ex:
+        gloo = {shape: ex.submit(run_mesh, shape, "gloo", cases, params, batches)
+                for shape, cases in MESH_SMALL.items()}
+        gloo = {shape: f.result() for shape, f in gloo.items()}
+    gloo_wall = time.perf_counter() - t0
     for shape, backend, cases, bs in runs:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = run_mesh(shape, backend, cases, params, bs)
-        wall = time.perf_counter() - t0
+        if backend == "gloo":
+            ranks, wall = gloo[shape], gloo_wall
+        else:
+            ranks = run_mesh(shape, backend, cases, params, bs)
+            wall = time.perf_counter() - t0
         log(f"[mesh:small] {len(ranks)} {backend} rank(s) {shape} on the card: "
-            f"{len(cases)} cases in {wall:.1f} s (spawn, start-up, runs) | {card}")
+            f"{len(cases)} cases in {wall:.1f} s (spawn, start-up, runs"
+            + (", the gloo layouts side by side" if backend == "gloo" else "")
+            + f") | {card}")
         p = shape if len(shape) > 1 else shape[0]
         for i, case in enumerate(cases):
             label = f"[mesh:small] {backend} {_mesh_label(shape, case)}"
@@ -4663,6 +4698,253 @@ def phase_mesh(dev, card, overlap_report) -> tuple[int, float, dict]:
         report[label]["want_losses"] = want_losses
     return launches, err, report
 
+# ---------------------------------------------------------------------------
+# phase 15: the GSPMD path — DTensor state over a process mesh
+# ---------------------------------------------------------------------------
+
+GSPMD_STEPS = 3
+#: [gspmd:small]: the reduced model, one spawn of gloo ranks a layout (the
+#: two spawned side by side); AdamW / AdaGrad with a larger eps (1e-3 /
+#: 1e-2) than their defaults, which would turn the reduction-order noise
+#: of a tiny gradient into a visible step (ROADMAP's parity traps)
+GSPMD_SMALL = {
+    (2, 2): [dict(opt="sgd"), dict(opt="adamw"), dict(opt="adagrad"),
+             dict(opt="sgd", fsdp=True), dict(opt="sgd", seq_shard=True)],
+    (2, 1, 2): [dict(opt="sgd", mode="mpi_esgd", clients=2)],
+}
+GSPMD_HYPER = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=1e-3, eps=1e-3),
+               "adagrad": dict(lr=1e-2, eps=1e-2)}
+#: [gspmd]: full width, (data 2, model 2), momentum SGD, 4 x 512 tokens
+GSPMD_FULL = dict(opt="sgd", full=True)
+GSPMD_FULL_BATCH = 4
+
+
+def _gspmd_axes(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
+def _gspmd_label(shape, case) -> str:
+    extra = "".join(f" {k}" + (f"={v}" if v is not True else "")
+                    for k, v in case.items() if k in ("fsdp", "seq_shard", "microbatch"))
+    return (f"({', '.join(f'{a} {n}' for a, n in zip(_gspmd_axes(shape), shape))}) "
+            f"{case.get('mode', 'mpi_sgd')} {case['opt']}{extra}"
+            + (f" C={case['clients']}" if case.get("clients") else ""))
+
+
+def _gspmd_case(case):
+    """A case's model, optimizer, per-leaf SyncConfig and batches (a C > 1
+    batch stacked (C, B / C, S), one pipeline shard a client)."""
+    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(cfg if case.get("full") else reduced(cfg),
+                              seq_shard_activations=case.get("seq_shard", False))
+    model = build_model(cfg)
+    opt = sgd_mod.get_optimizer(case["opt"], **GSPMD_HYPER[case["opt"]])
+    C = case.get("clients", 1)
+    sync = SyncConfig(mode=case.get("mode", "mpi_sgd"), num_clients=C,
+                      esgd_alpha=0.5, esgd_interval=2, fsdp=case.get("fsdp", False),
+                      fused_update=False, flat_exchange=False)
+    B, S = (GSPMD_FULL_BATCH, 512) if case.get("full") else (8, 32)
+    batches = []
+    for i in range(GSPMD_STEPS):
+        parts = [TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=S,
+                                          batch_size=B // C, shard=c)).batch_at(0, i)
+                 for c in range(C)]
+        batches.append(parts[0] if C == 1 else
+                       {k: torch.stack([p[k] for p in parts]) for k in parts[0]})
+    return model, opt, sync, batches
+
+
+def _gspmd_run(mesh, case) -> dict:
+    """``GSPMD_STEPS`` steps of ``case`` from the seed-0 init: on the
+    DTensor state of ``mesh`` (through ``make_train_state(mesh=)`` and
+    ``make_train_step(mesh)``), or in one process with ``mesh=None`` — the
+    per-leaf step it is held to. The kernels' launch counts are set to 0
+    just before the steps and read just after."""
+    model, opt, sync, batches = _gspmd_case(case)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, opt, sync, 0, mesh=mesh)
+    split = {} if mesh is not None else None
+    step = make_train_step(model, opt, sync, mesh, split=split,
+                           microbatch=case.get("microbatch", 1))
+    rec = {"losses": [], "step_ms": [], "split": [], "staged": []}
+    if mesh is not None:
+        mesh.link.stats.reset()
+    reset_counts()
+    for b in batches:
+        before = (mesh.link.stats.d2h_bytes + mesh.link.stats.h2d_bytes
+                  if mesh is not None else 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(met["loss"]))
+        if mesh is not None:
+            rec["split"].append({k: v * 1e3 for k, v in split.items()})
+            split.clear()
+            rec["staged"].append(mesh.link.stats.d2h_bytes + mesh.link.stats.h2d_bytes
+                                 - before)
+    rec["launches"] = counts(ALL_KERNELS)
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if mesh is not None:
+        torch.distributed.barrier()             # every rank holds its state
+        free, total = torch.cuda.mem_get_info()
+        rec["card_used_mib"] = (total - free) / 2**20
+        torch.distributed.barrier()
+        rec["nvidia_fds"] = _nvidia_fds()
+    if not case.get("full"):
+        with (mesh.dtensor_collectives() if mesh is not None
+              else contextlib.nullcontext()):
+            full = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t,
+                            state)
+        rec["state"] = tree_map(lambda t: t.cpu(), full)
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gspmd_rank(mesh, cases) -> list:
+    """One rank of phase 15 (a spawned process, the card shared)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_gspmd_run(mesh, case) for case in cases]
+
+
+def _gspmd_spawn(shape, cases) -> list:
+    from repro_torch.launch.mesh import spawn_ranks
+
+    return spawn_ranks(_gspmd_rank, shape, _gspmd_axes(shape), backend="gloo",
+                       device="cuda", args=(cases,))
+
+
+def _gspmd_check_zero_launches(label, recs) -> None:
+    for r, rec in enumerate(recs):
+        if any(rec["launches"].values()):
+            raise AssertionError(f"{label} rank {r}: the GSPMD path launched "
+                                 f"{rec['launches']}")
+
+
+def _gspmd_hold_state(label, got, want) -> float:
+    """Every leaf within rtol 1e-5 of its value and of the leaf's scale;
+    -> the worst deviation over the leaf's scale."""
+    worst = 0.0
+    for key in want:
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(want[key])):
+            a, b = a.float(), b.float()
+            scale = float(b.abs().max()) if b.numel() else 0.0
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-5 * scale):
+                raise AssertionError(f"{label}: {key} leaf {tuple(b.shape)} off by "
+                                     f"{float((a - b).abs().max())} (scale {scale})")
+            if scale:
+                worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def phase_gspmd_small(dev, card) -> dict:
+    """[gspmd:small]: the reduced model's GSPMD step as gloo ranks on the
+    card, each case held against the one-process per-leaf step on the
+    card: losses and the gathered final state within rtol 1e-5."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(GSPMD_SMALL)) as ex:
+        futs = {shape: ex.submit(_gspmd_spawn, shape, cases)
+                for shape, cases in GSPMD_SMALL.items()}
+        ranks = {shape: f.result() for shape, f in futs.items()}
+    wall = time.perf_counter() - t0
+    log(f"[gspmd:small] gloo ranks {list(GSPMD_SMALL)} on the card, spawned side by "
+        f"side: {sum(map(len, GSPMD_SMALL.values()))} cases in {wall:.1f} s | {card}")
+    report = {"wall_s": wall}
+    for shape, cases in GSPMD_SMALL.items():
+        for i, case in enumerate(cases):
+            label = f"[gspmd:small] {_gspmd_label(shape, case)}"
+            per_rank = [r[i] for r in ranks[shape]]
+            want = _gspmd_run(None, case)
+            _gspmd_check_zero_launches(label, per_rank + [want])
+            worst, rel = 0.0, 0.0
+            for r, rec in enumerate(per_rank):
+                rel = max(rel, max(abs(a - b) / abs(b)
+                                   for a, b in zip(rec["losses"], want["losses"])))
+                if rel > 1e-5:
+                    raise AssertionError(f"{label} rank {r}: losses {rec['losses']} vs "
+                                         f"one process {want['losses']}")
+                worst = max(worst, _gspmd_hold_state(f"{label} rank {r}", rec["state"],
+                                                     want["state"]))
+            log(f"{label}: losses {per_rank[0]['losses']} (one process "
+                f"{want['losses']}, max rel {rel:.2e} <= 1e-5); gathered state within "
+                f"rtol 1e-5 (worst {worst:.2e} of a leaf's scale); the 14 kernels "
+                f"launched 0 times in every rank; staged a rank a step "
+                f"{per_rank[0]['staged']} B | {card}")
+            report[label] = {"losses": per_rank[0]["losses"], "want": want["losses"],
+                             "loss_rel": rel, "state_worst": worst,
+                             "staged": [rec["staged"] for rec in per_rank]}
+    return report
+
+
+def phase_gspmd(dev, card) -> dict:
+    """[gspmd]: full-width qwen2-0.5b as 4 gloo ranks (data 2, model 2) on
+    the card, 3 momentum-SGD steps, against the one-process per-leaf step
+    on the same batches (losses within rtol 1e-4)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _gspmd_spawn((2, 2), [GSPMD_FULL])
+    wall = time.perf_counter() - t0
+    per_rank = [r[0] for r in ranks]
+    want = _gspmd_run(None, GSPMD_FULL)
+    label = "[gspmd] (data 2, model 2) mpi_sgd sgd, full-width qwen2-0.5b"
+    _gspmd_check_zero_launches(label, per_rank + [want])
+    rel = 0.0
+    for r, rec in enumerate(per_rank):
+        rel = max(rel, max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], want["losses"])))
+        if rel > 1e-4:
+            raise AssertionError(f"{label} rank {r}: losses {rec['losses']} vs one "
+                                 f"process {want['losses']}")
+        if not rec["losses"][-1] < rec["losses"][0]:
+            raise AssertionError(f"{label}: loss did not fall {rec['losses']}")
+    log(f"{label}: 4 ranks, {GSPMD_STEPS} steps of {GSPMD_FULL_BATCH} x 512 in "
+        f"{wall:.1f} s (spawn, start-up, init, runs); losses {per_rank[0]['losses']} "
+        f"(one process {want['losses']}, max rel {rel:.2e} <= 1e-4); the 14 kernels "
+        f"launched 0 times in every rank; one-process step_ms "
+        f"{[round(x, 1) for x in want['step_ms']]}, peak "
+        f"{want['peak_mem_bytes'] / 2**30:.2f} GiB | {card}")
+    for r, rec in enumerate(per_rank):
+        sp = rec["split"][1:] or rec["split"]
+        mean = lambda k: sum(s.get(k, 0.0) for s in sp) / len(sp)
+        log(f"[gspmd] rank {r}: step_ms {[round(x, 1) for x in rec['step_ms']]}; steps "
+            f"1-{GSPMD_STEPS - 1} mean split: forward + backward (with the tensor-parallel "
+            f"collectives) {mean('fwd_bwd'):.1f} ms, gradient redistribute "
+            f"{mean('grad_sync'):.1f} ms, update {mean('update'):.1f} ms; staged a step "
+            f"{rec['staged']} B; peak {rec['peak_mem_bytes'] / 2**30:.2f} GiB; card used "
+            f"{rec['card_used_mib']:.0f} MiB | {card}")
+    return {"wall_s": wall, "want": {k: want[k] for k in ("losses", "step_ms", "peak_mem_bytes")},
+            "ranks": [{k: rec[k] for k in ("losses", "step_ms", "split", "staged",
+                                           "peak_mem_bytes", "card_used_mib", "launches")}
+                      for rec in per_rank]}
+
+
+def phase_multidevice(card) -> dict:
+    """``python -m repro_torch.launch.multidevice_train`` on the card: 8
+    gloo ranks (pod 2, data 2, model 2), the reduced model, mpi-ESGD with
+    C = 2; the loss falls and the consensus line is printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.multidevice_train"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[multidevice] exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    losses = [float(m.group(1)) for m in
+              (re.match(r"step\s+\d+ loss (\S+) replica spread", ln) for ln in lines) if m]
+    if len(losses) != 12 or not losses[-1] < losses[0]:
+        raise AssertionError(f"[multidevice] losses {losses}")
+    if not lines[-1].startswith("consensus model:"):
+        raise AssertionError(f"[multidevice] last line {lines[-1]!r}")
+    for ln in lines:
+        log(f"[multidevice] {ln}")
+    log(f"[multidevice] 8 gloo ranks on the card in {wall:.1f} s (spawn, start-up, "
+        f"12 steps); loss {losses[0]:.4f} -> {losses[-1]:.4f} | {card}")
+    return {"wall_s": wall, "losses": losses, "last": lines[-1]}
+
 
 def main() -> None:
     card = phase_device()
@@ -4772,6 +5054,22 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s | {card}")
     launches["sgd_momentum_flat"] += mesh_sgd        # 4 ranks x 3 steps x 2 runs
     sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], mesh_err)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the two correctness runs side by side (their wall times are not
+    # measurements), then the full-width one alone
+    with ThreadPoolExecutor(1) as ex:
+        multi = ex.submit(phase_multidevice, card)
+        gspmd_small = phase_gspmd_small(dev, card)
+        multidevice = multi.result()
+    log("[gspmd:small] " + json.dumps(gspmd_small, default=str))
+    log("[multidevice] " + json.dumps(multidevice, default=str))
+    log(f"[gspmd:small] and [multidevice] took {time.perf_counter() - t0:.1f} s | {card}")
+    t1 = time.perf_counter()
+    gspmd = phase_gspmd(dev, card)
+    log("[gspmd] " + json.dumps(gspmd, default=str))
+    log(f"[gspmd] took {time.perf_counter() - t1:.1f} s; phase 15 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

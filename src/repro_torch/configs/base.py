@@ -77,6 +77,17 @@ class ModelConfig:
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
     citation: str = ""
+    # --- lowering / memory knobs (not architecture) ---
+    # the reference's scan-vs-unroll switch for its layer stacks; the port
+    # always loops its layers in Python, so it is accepted and has no effect
+    unroll_layers: bool = False
+    # Megatron-style sequence parallelism on a DTensor mesh: shard the
+    # residual stream's seq dim over 'model' between blocks
+    # (sharding.rules.maybe_seq_shard)
+    seq_shard_activations: bool = False
+    # activation checkpointing per layer in the reference; not yet honoured
+    # by the port (ROADMAP Queue 3)
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:

@@ -14,6 +14,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.comm import CollectivePolicy, filter_mirrors, resolve_policy
+from repro_torch.sharding.rules import P, is_spec
 from repro_torch.tree import tree_map
 
 #: the flat-field defaults SyncConfig ships — the base point the
@@ -141,6 +142,13 @@ def clientize(params: Any, num_clients: int) -> Any:
         params)
 
 
+def clientize_specs(specs: Any, num_clients: int) -> Any:
+    """Prepend the 'pod' axis to every ``sharding.P`` of a spec tree."""
+    if num_clients <= 1:
+        return specs
+    return tree_map(lambda s: P("pod", *tuple(s)), specs, is_leaf=is_spec)
+
+
 def declientize(params: Any, num_clients: int) -> Any:
     """Consensus model: mean over the client dim (end of training)."""
     if num_clients <= 1:
@@ -148,5 +156,21 @@ def declientize(params: Any, num_clients: int) -> Any:
     return tree_map(lambda p: p.float().mean(0).to(p.dtype), params)
 
 
+def grad_sync_axes(mesh, num_clients: int) -> tuple[str, ...]:
+    """Axes a client's gradient allreduce runs over."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if num_clients > 1:
+        axes = tuple(a for a in axes if a != "pod")
+    return axes
+
+
 def should_elastic_sync(step: torch.Tensor, interval: int) -> torch.Tensor:
     return (step % interval) == 0
+
+
+def pod_mean(tree: Any) -> Any:
+    """Cross-client average over the leading client dim, kept as a dim of
+    one (the ESGD server interaction; on a DTensor whose client dim is
+    sharded over 'pod', an all-reduce over 'pod'). Accumulated in f32 as
+    ``declientize``."""
+    return tree_map(lambda p: p.float().mean(0, keepdim=True).to(p.dtype), tree)

@@ -67,7 +67,8 @@ def flat_exchange_active(sync: SyncConfig, mesh=None) -> bool:
 
 @dataclass(frozen=True)
 class SyncEngine:
-    """Per-leaf strategy (custom optimizers, SGD with a bf16 momentum).
+    """Per-leaf strategy (the GSPMD path, custom optimizers, SGD with a
+    bf16 momentum).
 
     ``comm`` is the gradient group the update leg syncs over."""
 
@@ -193,17 +194,17 @@ def make_sync_engine(optimizer: Optimizer, sync: SyncConfig, mesh=None, *,
                      spec: Optional[flatbuf.FlatBuffer] = None,
                      schedule: Optional[flatbuf.BucketSchedule] = None,
                      ) -> SyncEngine:
-    """Resolve the strategy for (optimizer, sync) once. ``comm`` is the
-    gradient group the update leg syncs over (trivial when omitted).
+    """Resolve the strategy for (optimizer, sync, mesh) once. ``comm`` is
+    the gradient group the update leg syncs over (trivial when omitted).
     ``spec`` (the param-tree FlatBuffer, ``launch.train.grad_spec``) is
     required when a flat leg engages; ``schedule`` (``launch.train.
-    overlap_schedule``) when ``sync.overlap`` is set."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not yet ported: make_sync_engine(mesh) is the GSPMD path "
-            "(per-leaf updates with the collectives left to the mesh), a "
-            "later slice; the shard driver's process mesh passes its "
-            "gradient group as comm= instead")
+    overlap_schedule``) when ``sync.overlap`` is set.
+
+    With a ``mesh`` (the GSPMD path: DTensor state laid out by
+    ``sharding.param_specs``) both legs stay per-leaf and ``comm`` is the
+    trivial group — the DTensor redistributes are the collectives. The
+    shard driver's process mesh passes no mesh here: it hands its
+    gradient group as ``comm=``."""
     if comm is None:
         comm = comm_lib.from_sync(sync)
     fused = flat_update_supported(optimizer, sync, mesh)

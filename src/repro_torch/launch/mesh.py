@@ -19,6 +19,7 @@ pinned host memory) or "nccl" (one card a rank).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import io
 import math
@@ -59,6 +60,7 @@ class Mesh:
         self.coords = dict(zip(self.axes, device_mesh.get_coordinate()))
         self.link = Link(backend, self.device)
         self._groups: dict = {}
+        self._dtensor_meshes: dict = {}
         for a in self.axes:
             # the ring's peers are addressed by coordinate
             g = self.get_group(a)
@@ -98,6 +100,46 @@ class Mesh:
                     mine = g
             self._groups[axes] = mine
         return self._groups[axes]
+
+    @property
+    def dtensor_mesh(self):
+        """The ``DeviceMesh`` this world's DTensors live on (the GSPMD
+        path): ``device_mesh`` when its device type is this rank's, else
+        one over the same axis groups with this rank's device type — gloo
+        ranks that hold card tensors."""
+        return self.dtensor_submesh(self.axes)
+
+    def dtensor_submesh(self, axes):
+        """The ``DeviceMesh`` over ``axes`` (in mesh order) through this
+        rank, for DTensors: each axis keeps its own process group; the
+        axes left out are fixed at this rank's coordinates (the mesh of
+        one client when 'pod' is left out)."""
+        axes = tuple(axes)
+        if list(axes) != [a for a in self.axes if a in axes]:
+            raise ValueError(f"axes {axes} are not in mesh order {self.axes}")
+        if axes == self.axes and self.device_mesh.device_type == self.device.type:
+            return self.device_mesh
+        if axes not in self._dtensor_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            ranks = self.device_mesh.mesh[tuple(
+                slice(None) if a in axes else self.coords[a]
+                for a in self.axes)]
+            self._dtensor_meshes[axes] = DeviceMesh.from_group(
+                [self.device_mesh.get_group(a) for a in axes],
+                self.device.type, mesh=ranks, mesh_dim_names=axes)
+        return self._dtensor_meshes[axes]
+
+    def dtensor_collectives(self):
+        """The context the GSPMD path runs its DTensor ops in: under gloo
+        with card tensors every collective staged through pinned host
+        memory (``sharding.staging.StagedCollectives``, counted in
+        ``link.stats``); otherwise nothing to do."""
+        if self.link.staged:
+            from repro_torch.sharding.staging import StagedCollectives
+
+            return StagedCollectives(self.link)
+        return contextlib.nullcontext()
 
     def rank_axis(self, axis: str, dim: int) -> RankAxis:
         """``axis`` as the collectives address it, at leading dim ``dim``

@@ -7,6 +7,10 @@
 ``device="cpu"`` runs on the CPU; a CUDA request with no card raises.
 The cache is updated in place (``Model.serve_step``), so one step moves
 the weights and the cache once and copies neither.
+
+``cache_specs`` / ``token_specs`` are the reference's sharding specs for
+the decode state and the tokens (``sharding.P``), for a DTensor mesh; no
+sharded serve step runs them yet.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import torch
 
 from repro_torch.launch.train import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.sharding.rules import P, _leaf_name
+from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -23,6 +29,76 @@ def make_serve_step(model: Model) -> Callable:
         return model.serve_step(params, cache, tokens)
 
     return serve_step
+
+
+def _shardable(dim: int, mesh, axis: str) -> bool:
+    return axis in mesh.shape and dim % mesh.shape[axis] == 0
+
+
+def cache_specs(cache, mesh):
+    """Name/rank-based sharding of the decode state (works on ``meta``
+    caches).
+
+    Priority: batch dim -> 'data'; heads/feature dim -> 'model' (the first
+    divisible candidate); everything else replicated. Covers KV caches
+    (L, B, S, KV, D), SSM states (L, B, H, P, N), conv states (L, B, K, C)
+    and whisper's encoder output (B, F, D). A GQA cache whose few KV heads
+    the 'model' axis does not divide shards its sequence dim instead."""
+
+    def leaf_spec(path, leaf):
+        name = _leaf_name(path)
+        shape = tuple(leaf.shape)
+        axes: list = [None] * len(shape)
+        if name == "index" or len(shape) == 0:
+            return P()
+        if name in ("k", "v"):
+            # (L, B, S, KV, D) or (B, S, KV, D)
+            off = len(shape) - 4
+            b, s, kv, _ = range(off, off + 4)
+            if _shardable(shape[b], mesh, "data"):
+                axes[b] = "data"
+            if _shardable(shape[kv], mesh, "model"):
+                axes[kv] = "model"
+            elif _shardable(shape[s], mesh, "model"):
+                axes[s] = "model"
+        elif name == "h":
+            # (L, B, H, P, N) ssm state
+            off = len(shape) - 4
+            b, hh, pp, nn = range(off, off + 4)
+            if _shardable(shape[b], mesh, "data"):
+                axes[b] = "data"
+            for cand in (hh, pp, nn):
+                if _shardable(shape[cand], mesh, "model"):
+                    axes[cand] = "model"
+                    break
+        elif name == "conv":
+            # (L, B, K-1, C)
+            off = len(shape) - 3
+            b, _, cc = range(off, off + 3)
+            if _shardable(shape[b], mesh, "data"):
+                axes[b] = "data"
+            if _shardable(shape[cc], mesh, "model"):
+                axes[cc] = "model"
+        elif name == "enc":
+            if _shardable(shape[0], mesh, "data"):
+                axes[0] = "data"
+            if _shardable(shape[-1], mesh, "model"):
+                axes[-1] = "model"
+        else:
+            if len(shape) >= 2 and _shardable(shape[0], mesh, "data"):
+                axes[0] = "data"
+        while axes and axes[-1] is None:
+            axes.pop()
+        return P(*axes)
+
+    pairs, treedef = tree_flatten_with_path(cache)
+    return tree_unflatten(treedef, [leaf_spec(path, leaf) for path, leaf in pairs])
+
+
+def token_specs(tokens_shape, mesh) -> P:
+    if _shardable(tokens_shape[0], mesh, "data"):
+        return P("data", None)
+    return P(None, None)
 
 
 class BatchedServer:

@@ -15,6 +15,17 @@
             every INTERVAL steps the elastic exchange (eqs. 2/3, one fused
             kernel) pulls the replicas and the center together
 
+With a ``mesh`` (a ``launch.mesh.Mesh``: one process per device) the step
+is the reference's GSPMD path on ``torch.distributed.tensor``:
+``make_train_state(..., mesh=)`` lays the state out as DTensors by
+``state_specs`` (``sharding.param_specs``: tensor parallelism on heads /
+ff / vocab over 'model', FSDP over 'data' with ``SyncConfig.fsdp``), the
+batch is sharded over ('pod', 'data'), the updates are per-leaf, and
+DTensor's redistributes are every collective: the model's tensor-parallel
+all-reduces, each gradient's ``Partial`` -> its param's placements (the
+data-axis all-reduce; a reduce-scatter under FSDP), and for C > 1 the
+elastic exchange across 'pod'. No hand kernel runs on this path.
+
 With ``SyncConfig.overlap`` (mpi_sgd, C = 1) the step is the reference's
 ``step_overlap``: ``make_overlap_grad_fn`` runs the forward stage by
 stage (``Model.overlap_stages``), then the backward head first, one
@@ -34,14 +45,22 @@ worker's flags and lowers them as it does (``settings_from_args``):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
+import time
+import types
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import comm as comm_lib, flatbuf
-from repro_torch.core.hierarchy import SyncConfig, clientize, should_elastic_sync
+from repro_torch.core.hierarchy import (
+    SyncConfig,
+    clientize,
+    clientize_specs,
+    should_elastic_sync,
+)
 from repro_torch.core.sync_engine import (
     flat_exchange_active,
     flat_update_supported,
@@ -49,7 +68,8 @@ from repro_torch.core.sync_engine import (
 )
 from repro_torch.models.model import Model
 from repro_torch.optim.sgd import Optimizer
-from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.rules import P, batch_pspec, distribute, param_specs, shard_batch_dim
+from repro_torch.tree import TreeDef, tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -77,9 +97,11 @@ def grad_spec(model: Model) -> flatbuf.FlatBuffer:
     return flatbuf.spec_for(model.init(device="meta"))
 
 
-def _engine_spec(model: Model, optimizer: Optimizer, sync: SyncConfig):
+def _engine_spec(model: Model, optimizer: Optimizer, sync: SyncConfig,
+                 mesh=None):
     """The FlatBuffer spec, when any flat leg will engage (else None)."""
-    if flat_update_supported(optimizer, sync) or flat_exchange_active(sync):
+    if (flat_update_supported(optimizer, sync, mesh)
+            or flat_exchange_active(sync, mesh)):
         return grad_spec(model)
     return None
 
@@ -209,19 +231,35 @@ def make_overlap_grad_fn(model: Model, stages, schedule,
     return grad_fn
 
 
+def _mesh_device(device, mesh) -> torch.device:
+    """The device an entry point runs on; with a mesh, this rank's device,
+    which the requested one must name."""
+    device = resolve_device(device)
+    if mesh is None:
+        return device
+    if device.type != mesh.device.type:
+        raise ValueError(f"device={str(device)!r} but the mesh's ranks hold "
+                         f"{mesh.device}; pass device={mesh.device.type!r}")
+    return mesh.device
+
+
 def make_train_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
                      seed: int = 0, *, device="cuda", mesh=None) -> dict:
     """Initial state ``{"params", "opt", "step"}`` (+ ``"center"``, the
     center variables w̃, for mpi_esgd). On the fused path the optimizer
     state is the flat state buffer (momentum / AdaGrad accumulator /
     AdamW ``{"mv", "t"}``) in local (p=1) geometry — one per client when
-    C > 1; with overlap, laid out bucket-major over the local schedule."""
-    device = resolve_device(device)
+    C > 1; with overlap, laid out bucket-major over the local schedule.
+
+    With a ``mesh`` the optimizer state is per-leaf and the whole state is
+    laid out as DTensors by ``state_specs`` (``sharding.distribute``):
+    every rank builds the same state from ``seed`` and keeps its shards."""
+    device = _mesh_device(device, mesh)
     schedule = None
     if sync.overlap:
         _, schedule = overlap_schedule(model, sync, 1)
     engine = make_sync_engine(optimizer, sync, mesh,
-                              spec=_engine_spec(model, optimizer, sync),
+                              spec=_engine_spec(model, optimizer, sync, mesh),
                               schedule=schedule)
     params = model.init(device=device, seed=seed)
     state = {
@@ -231,14 +269,88 @@ def make_train_state(model: Model, optimizer: Optimizer, sync: SyncConfig,
     }
     if sync.mode == "mpi_esgd":
         state["center"] = params
+    if mesh is not None:
+        state = distribute(state, state_specs(state, mesh, sync), mesh)
     return state
 
 
-def make_grad_fn(model: Model, microbatch: int = 1) -> Callable:
+def state_specs(state: Any, mesh, sync: SyncConfig) -> Any:
+    """``sharding.P`` specs for a TrainState (the params' rules + the
+    client dim on 'pod'). Optimizer state that mirrors the param tree
+    (per-leaf momentum, AdaGrad's accumulator) shares the param specs;
+    anything else (AdamW's ``{"m", "v", "t"}``, flat buffers) is
+    replicated."""
+    C = sync.num_clients
+    base_params = state["params"]
+    if C > 1:
+        base_params = tree_map(
+            lambda leaf: types.SimpleNamespace(shape=tuple(leaf.shape[1:])),
+            base_params)
+    pspecs = param_specs(base_params, mesh, fsdp=sync.fsdp)
+    out = {
+        "params": clientize_specs(pspecs, C),
+        "opt": clientize_specs(pspecs, C)
+        if _opt_matches(state["opt"], base_params)
+        else tree_map(lambda _: P(), state["opt"]),
+        "step": P(),
+    }
+    if "center" in state:
+        out["center"] = pspecs
+    return out
+
+
+def _opt_matches(opt_state: Any, params: Any) -> bool:
+    """Whether ``opt_state``'s tree is a prefix of ``params``' — where the
+    reference's ``jax.tree.map(lambda a, b: None, opt_state, params)``
+    succeeds."""
+    return _is_prefix(tree_flatten(opt_state)[1], tree_flatten(params)[1])
+
+
+def _is_prefix(a: TreeDef, b: TreeDef) -> bool:
+    if a.kind == "leaf":
+        return True
+    return (a.kind == b.kind and a.keys == b.keys
+            and len(a.children) == len(b.children)
+            and all(_is_prefix(x, y) for x, y in zip(a.children, b.children)))
+
+
+def _batch_spec(shape, mesh, num_clients: int) -> P:
+    """One batch leaf's spec: the batch dim over ('pod', 'data'), or for
+    C > 1 the client dim on 'pod' and the batch dim on 'data'."""
+    if num_clients > 1:
+        return P("pod", "data", *([None] * (len(shape) - 2)))
+    return batch_pspec(mesh, shape[0], extra_dims=len(shape) - 1)
+
+
+def batch_specs(model: Model, shape, mesh, sync: SyncConfig) -> dict:
+    """``sharding.P`` specs for the input batch of ``shape`` (an
+    ``InputShape``; the client dim first when C > 1)."""
+    specs = model.input_specs(shape)
+    C = sync.num_clients
+    if C > 1:
+        specs = clientize_batch_specs(specs, C)
+    return {k: _batch_spec(tuple(v.shape), mesh, C) for k, v in specs.items()}
+
+
+def clientize_batch_specs(specs: dict, C: int) -> dict:
+    """The batch's ``meta`` stand-ins as (C, B/C, ...): one slice a client."""
+    return {k: torch.empty((C, v.shape[0] // C) + tuple(v.shape[1:]),
+                           dtype=v.dtype, device="meta")
+            for k, v in specs.items()}
+
+
+def make_grad_fn(model: Model, microbatch: int = 1,
+                 pin: Optional[Callable] = None) -> Callable:
     """``(params, batch) -> (loss, metrics, grads)`` for one client.
 
     ``microbatch`` > 1 splits the batch into M accumulation steps (f32
-    accumulator, mean over M, grads cast back to the param dtype)."""
+    accumulator, mean over M, grads cast back to the param dtype); each
+    microbatch is rows ``i·B/M : (i+1)·B/M`` of the batch, resharded by
+    ``shard_batch_dim``. ``pin(grads, params)`` (leaf lists) lays each
+    microbatch's f32 grads out before they join the accumulator — the
+    GSPMD step keeps it in the params' placements, the reference's
+    ``pin``."""
+    pin = pin or (lambda grads, params: grads)
 
     def single_grad(params, batch):
         leaves, treedef = tree_flatten(params)
@@ -258,17 +370,18 @@ def make_grad_fn(model: Model, microbatch: int = 1) -> Callable:
             raise ValueError(f"batch {B} does not split into {M} microbatches")
         mb = B // M
         loss_acc, met_acc, g_acc = None, None, None
+        p_leaves, treedef = tree_flatten(params)
         for i in range(M):
-            sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            sub = {k: shard_batch_dim(v[i * mb:(i + 1) * mb])
+                   for k, v in batch.items()}
             loss, metrics, grads = single_grad(params, sub)
-            g_leaves = [g.float() for g in tree_flatten(grads)[0]]
+            g_leaves = pin([g.float() for g in tree_flatten(grads)[0]], p_leaves)
             if g_acc is None:
                 loss_acc, met_acc, g_acc = loss.float(), metrics, g_leaves
             else:
                 loss_acc = loss_acc + loss
                 met_acc = {k: met_acc[k] + v for k, v in metrics.items()}
                 g_acc = [a + g for a, g in zip(g_acc, g_leaves)]
-        p_leaves, treedef = tree_flatten(params)
         grads = tree_unflatten(treedef, [(g / M).to(p.dtype)
                                          for g, p in zip(g_acc, p_leaves)])
         return loss_acc / M, {k: v / M for k, v in met_acc.items()}, grads
@@ -307,12 +420,14 @@ def stacked_grads(grad_fn: Callable, params: Any, batch: dict, ndim: int = 1):
 def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
                     mesh=None, *, microbatch: int = 1,
                     comm: comm_lib.Communicator | None = None,
-                    device="cuda") -> Callable:
+                    device="cuda", split: Optional[dict] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
     reference's ``step_c1`` for C = 1, ``step_multiclient`` for C > 1
     (batch leaves then carry a leading client dim C), ``step_overlap``
-    with ``sync.overlap``."""
-    device = resolve_device(device)
+    with ``sync.overlap``. With a ``mesh``, the GSPMD step on the DTensor
+    state of ``make_train_state(..., mesh=)`` (``make_mesh_step``;
+    ``split`` collects its phase times)."""
+    device = _mesh_device(device, mesh)
     sync.validate(mesh)
     C = sync.num_clients
     if C > 1:
@@ -331,8 +446,11 @@ def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
                 "batch instead")
         stages, schedule = overlap_schedule(model, sync, comm.resolve_size())
     engine = make_sync_engine(optimizer, sync, mesh, comm=comm,
-                              spec=_engine_spec(model, optimizer, sync),
+                              spec=_engine_spec(model, optimizer, sync, mesh),
                               schedule=schedule)
+    if mesh is not None:
+        return make_mesh_step(model, engine, sync, mesh,
+                              microbatch=microbatch, split=split)
 
     if sync.overlap:
         ograd_fn = make_overlap_grad_fn(model, stages, schedule, comm)
@@ -380,6 +498,227 @@ def make_train_step(model: Model, optimizer: Optimizer, sync: SyncConfig,
             new_state = dict(new_state, params=p2, center=c2)
         return new_state, {"loss": loss.mean(),
                            **{k: v.mean() for k, v in metrics.items()}}
+
+    return step_c1 if C <= 1 else step_multiclient
+
+
+# -- the GSPMD path: DTensor state over a process mesh ----------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank; a plain tensor as it is."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def _relayout(new: Any, like: Any) -> Any:
+    """Each DTensor of ``new`` in the placements of its twin in ``like``
+    (the state keeps its layout step to step, as the reference's
+    ``out_shardings``)."""
+    def one(n, o):
+        if _is_dtensor(n) and tuple(n.placements) != tuple(o.placements):
+            return n.redistribute(o.device_mesh, o.placements)
+        return n
+
+    return tree_map(one, new, like)
+
+
+def _contiguous_stride(shape) -> tuple:
+    return torch.empty(shape, device="meta").stride()
+
+
+def _settle(tree: Any) -> None:
+    """Wait for every collective still pending under ``tree``'s DTensors
+    (their results are waited for lazily, at first use)."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+
+    for x in tree_leaves(tree):
+        if _is_dtensor(x):
+            local = x.to_local()
+            if isinstance(local, AsyncCollectiveTensor):
+                local.wait()
+
+
+class _PhaseTimer:
+    """Adds each phase's wall seconds to ``split[name]``, the device
+    synchronised at both ends; does nothing when ``split`` is None."""
+
+    def __init__(self, split: Optional[dict], device: torch.device):
+        self.split, self.device = split, device
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.split is None:
+            yield
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.split[name] = self.split.get(name, 0.0) + time.perf_counter() - t0
+
+
+def make_mesh_step(model: Model, engine, sync: SyncConfig, mesh, *,
+                   microbatch: int = 1, split: Optional[dict] = None
+                   ) -> Callable:
+    """The GSPMD step (``make_train_step(..., mesh)``) on the DTensor state
+    of ``make_train_state(..., mesh=)``; run by every rank of ``mesh``.
+
+    The batch comes as plain tensors holding the whole global batch on
+    every rank (each keeps its shard: the batch dim over ('pod', 'data'),
+    or for C > 1 the client dim on 'pod' and the batch dim on 'data'), or
+    as DTensors laid out so already.
+
+    ``step_c1``: ``loss_fn`` on the DTensor params and batch, each
+    gradient redistributed from the ``Partial`` placements its backward
+    leaves to its param's placements — over 'data' ``Partial -> Replicate``
+    is the mpi gradient all-reduce, ``Partial -> Shard`` FSDP's
+    reduce-scatter — then the per-leaf ``Optimizer.update``. With
+    ``microbatch > 1`` each microbatch's f32 grads are laid out so before
+    they join the accumulator (the reference's ``pin``).
+
+    ``step_multiclient`` (C > 1, the client dim on 'pod'): each pod's
+    ranks compute only their own client — its slice of every leaf viewed
+    as a DTensor on the pod's (data, model) sub-mesh, so the gradient
+    syncs over 'data' alone — the shard_map-over-'pod' counterpart of the
+    reference's vmap over a 'pod'-sharded client dim (indexing a
+    'pod'-sharded DTensor by client would gather every client onto every
+    pod). The elastic exchange then runs as DTensor ops over the whole
+    mesh: ``w − c`` broadcasts the pod-replicated center, the sum over
+    clients is partial over 'pod' and becomes an all-reduce.
+
+    Plain tensors built inside the model (RoPE's tables, masks, the aux
+    zero) meet DTensors there; ``implicit_replication`` treats them as
+    replicated, scoped to this step's forward, backward, update and
+    exchange — not to the model code, which stays plain PyTorch.
+
+    Every collective runs in ``mesh.dtensor_collectives()``: gloo ranks
+    that hold card tensors stage each through pinned host memory.
+
+    ``split`` (a dict), when given, collects the wall seconds of the
+    phases ``fwd_bwd`` (with the tensor-parallel collectives),
+    ``grad_sync``, ``update`` and ``exchange``, the device synchronised
+    around each."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    C = sync.num_clients
+    dm = mesh.dtensor_mesh
+    timer = _PhaseTimer(split, mesh.device)
+    if C > 1:
+        pod = mesh.axes.index("pod")
+        client_axes = tuple(a for a in mesh.axes if a != "pod")
+        sub = mesh.dtensor_submesh(client_axes)
+
+    def to_param_layout(g, p):
+        return g.redistribute(p.device_mesh, p.placements)
+
+    pin = lambda g_leaves, p_leaves: tree_map(to_param_layout, g_leaves, p_leaves)
+    grad_fn = make_grad_fn(model, microbatch, pin if microbatch > 1 else None)
+
+    def place_batch(batch: dict) -> dict:
+        out = {}
+        for k, v in batch.items():
+            if not _is_dtensor(v):
+                v = distribute(v.to(mesh.device), _batch_spec(tuple(v.shape), mesh, C),
+                               mesh)
+            out[k] = v
+        return out
+
+    def client_step(params, opt, batch):
+        with implicit_replication():
+            with timer("fwd_bwd"):
+                loss, metrics, grads = grad_fn(params, batch)
+            with timer("grad_sync"):
+                grads = tree_map(to_param_layout, grads, params)
+                if split is not None:
+                    _settle(grads)
+            with timer("update"):
+                new_p, new_o = engine.update(grads, opt, params)
+                new_p, new_o = _relayout(new_p, params), _relayout(new_o, opt)
+        return _full(loss), {k: _full(v) for k, v in metrics.items()}, new_p, new_o
+
+    def step_c1(state, batch):
+        engine.check_opt_layout(state["opt"])
+        with mesh.dtensor_collectives():
+            loss, metrics, new_p, new_o = client_step(
+                state["params"], state["opt"], place_batch(batch))
+        return ({"params": new_p, "opt": new_o, "step": state["step"] + 1},
+                {"loss": loss, **metrics})
+
+    # -- C > 1: one client a pod ----------------------------------------
+    def to_client(x):
+        """This pod's client of ``x`` (client dim 0) on the sub-mesh."""
+        pl = list(x.placements)
+        local = x.to_local()
+        if pl[pod] == Shard(0):
+            row = local[0]
+        elif pl[pod] == Replicate():
+            row = local[mesh.coords["pod"]]
+        else:
+            raise ValueError(f"client dim laid out as {pl[pod]} on 'pod'")
+        sub_pl = []
+        for i, q in enumerate(pl):
+            if i == pod:
+                continue
+            if isinstance(q, Shard):
+                if q.dim == 0:
+                    raise ValueError("only 'pod' may shard the client dim")
+                q = Shard(q.dim - 1)
+            sub_pl.append(q)
+        shape = tuple(x.shape[1:])
+        return DTensor.from_local(row, sub, sub_pl, run_check=False,
+                                  shape=shape, stride=_contiguous_stride(shape))
+
+    def from_client(y, like):
+        """``y`` (this pod's client) back in the client-dim DTensor
+        ``like``'s layout."""
+        y = _relayout(y, to_client(like))
+        pl = [Shard(q.dim + 1) if isinstance(q, Shard) else q
+              for q in y.placements]
+        pl.insert(pod, Shard(0))
+        shape = (C,) + tuple(y.shape)
+        x = DTensor.from_local(y.to_local().unsqueeze(0), dm, pl,
+                               run_check=False, shape=shape,
+                               stride=_contiguous_stride(shape))
+        return _relayout(x, like)
+
+    def client_mean(x: torch.Tensor) -> torch.Tensor:
+        """The mean over clients of a per-client scalar (one a pod)."""
+        pl = [Shard(0) if a == "pod" else Replicate() for a in mesh.axes]
+        x = DTensor.from_local(x.reshape(1), dm, pl, run_check=False,
+                               shape=(C,), stride=(1,))
+        return x.full_tensor().mean()
+
+    def step_multiclient(state, batch):
+        engine.check_opt_layout(state["opt"], C)
+        view = lambda tree: tree_map(to_client, tree)
+        with mesh.dtensor_collectives():
+            loss, metrics, new_p, new_o = client_step(
+                view(state["params"]), view(state["opt"]), view(place_batch(batch)))
+            new_state = dict(state,
+                             params=tree_map(from_client, new_p, state["params"]),
+                             opt=tree_map(from_client, new_o, state["opt"]),
+                             step=state["step"] + 1)
+            # the pre-increment step gates the exchange, after the update
+            if sync.mode == "mpi_esgd" and bool(
+                    should_elastic_sync(state["step"].to_local(), sync.esgd_interval)):
+                with implicit_replication(), timer("exchange"):
+                    p2, c2 = engine.exchange_multiclient(
+                        new_state["params"], new_state["center"],
+                        sync.esgd_alpha / C)
+                    new_state = dict(new_state,
+                                     params=_relayout(p2, new_state["params"]),
+                                     center=_relayout(c2, new_state["center"]))
+            metrics = {"loss": client_mean(loss),
+                       **{k: client_mean(v) for k, v in metrics.items()}}
+        return new_state, metrics
 
     return step_c1 if C <= 1 else step_multiclient
 

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.sharding.rules import on_local_heads
 
 NEG_INF = -1e30
 
@@ -155,9 +156,10 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     q = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)   # (B, KV, G, Sq, D)
     k = k.permute(0, 2, 1, 3)[:, :, None]                   # (B, KV, 1, Sk, D)
     v = v.permute(0, 2, 1, 3)[:, :, None]
-    if Sq <= q_chunk:
-        out = _softmax_blocks(q, k, v, 0, spec, kv_chunk)
-    else:
+
+    def core(q, k, v):
+        if Sq <= q_chunk:
+            return _softmax_blocks(q, k, v, 0, spec, kv_chunk)
         outs = []
         for lo in range(0, Sq, q_chunk):  # static triangular KV truncation
             hi = min(lo + q_chunk, Sq)
@@ -169,7 +171,10 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
             outs.append(_softmax_blocks(
                 q[..., lo:hi, :], k[..., k_lo:k_hi, :], v[..., k_lo:k_hi, :],
                 lo - k_lo, _shift_spec(spec, k_lo), kv_chunk))
-        out = torch.cat(outs, dim=-2)
+        return torch.cat(outs, dim=-2)
+
+    # on DTensors (the GSPMD path) each rank attends its own rows and heads
+    out = on_local_heads(core, q, k, v)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, spec.num_heads * D)
     return out @ params["wo"]
 

@@ -51,6 +51,7 @@ from repro_torch.models.transformer import (
     init_stack,
     init_stack_cache,
 )
+from repro_torch.sharding.rules import embedding_lookup, unshard_dim
 from repro_torch.tree import tree_map
 
 XENT_CHUNK = 512
@@ -141,8 +142,10 @@ def _logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not ``emb[tokens]``: on the CPU the indexing backward
     # accumulates repeated tokens with parallel atomic adds (run-to-run
-    # different sums); embedding's backward sums each row in token order
-    return torch.nn.functional.embedding(tokens.long(), p["embedding"])
+    # different sums); embedding's backward sums each row in token order.
+    # On DTensors (the GSPMD path) the vocab-parallel lookup, its rows laid
+    # out as the batch (sharding.rules.embedding_lookup)
+    return embedding_lookup(p["embedding"], tokens)
 
 
 def _embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -163,7 +166,9 @@ def _with_image(x: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    logits = logits.float()
+    # vocab-sharded logits (a DTensor) are gathered over the vocab first:
+    # torch.gather on the sharded dim leaves a pending form that fails
+    logits = unshard_dim(logits, -1).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum(lse - gold)

@@ -28,6 +28,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, ffn, gelu_ffn, init_ffn, init_mlp,
                                       layer_norm, mlp_ffn, rms_norm)
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.sharding.rules import maybe_seq_shard, unshard_dim
 from repro_torch.tree import tree_map
 
 
@@ -83,6 +84,11 @@ def _moe(params: dict, h: torch.Tensor, cfg: ModelConfig,
 def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     spec = attn_spec(cfg, prefix_len=prefix_len)
+    # a residual stream sequence-sharded between blocks (maybe_seq_shard)
+    # is gathered as the block starts: CUDA's matmul flattens (B, S), which
+    # DTensor cannot do with both dims sharded, in the forward or in the
+    # backward of a residual add
+    x = unshard_dim(x, -2)
     h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
     x = x + multi_head_attention(params["attn"], h, spec)
     h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
@@ -120,6 +126,7 @@ def apply_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(stacked["attn_norm"].shape[0]):
         layer = tree_map(lambda a: a[i], stacked)
+        x = maybe_seq_shard(x, cfg.seq_shard_activations)
         x, a = apply_block(layer, x, cfg, prefix_len=prefix_len)
         aux = aux + a
     return x, aux
@@ -291,6 +298,7 @@ def apply_mamba_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
     hi = stacked["norm"].shape[0] if hi is None else hi
     for i in range(lo, hi):
         lp = {k: v[i] for k, v in stacked.items() if k != "norm"}
+        x = maybe_seq_shard(x, cfg.seq_shard_activations)
         y, _ = ssm.mamba_block(lp, rms_norm(x, stacked["norm"][i], cfg.norm_eps),
                                chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
         x = x + y

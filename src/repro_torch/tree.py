@@ -44,20 +44,25 @@ class TreeDef:
 LEAF = TreeDef("leaf")
 
 
-def tree_flatten_with_path(tree: Any, prefix: tuple = ()
+def tree_flatten_with_path(tree: Any, prefix: tuple = (), is_leaf=None
                            ) -> tuple[list[tuple[tuple, Any]], TreeDef]:
+    """``is_leaf(node)`` True stops the walk there, as jax's ``is_leaf``
+    (a spec tree's ``sharding.P`` entries are tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)], LEAF
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
         out, defs = [], []
         for k in keys:
-            sub, d = tree_flatten_with_path(tree[k], prefix + (("k", k),))
+            sub, d = tree_flatten_with_path(tree[k], prefix + (("k", k),),
+                                            is_leaf)
             out += sub
             defs.append(d)
         return out, TreeDef("dict", keys, tuple(defs))
     if isinstance(tree, (list, tuple)):
         out, defs = [], []
         for i, item in enumerate(tree):
-            sub, d = tree_flatten_with_path(item, prefix + (("i", i),))
+            sub, d = tree_flatten_with_path(item, prefix + (("i", i),), is_leaf)
             out += sub
             defs.append(d)
         kind = "list" if isinstance(tree, list) else "tuple"
@@ -65,13 +70,13 @@ def tree_flatten_with_path(tree: Any, prefix: tuple = ()
     return [(prefix, tree)], LEAF
 
 
-def tree_flatten(tree: Any) -> tuple[list, TreeDef]:
-    pairs, treedef = tree_flatten_with_path(tree)
+def tree_flatten(tree: Any, is_leaf=None) -> tuple[list, TreeDef]:
+    pairs, treedef = tree_flatten_with_path(tree, is_leaf=is_leaf)
     return [leaf for _, leaf in pairs], treedef
 
 
-def tree_leaves(tree: Any) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree: Any, is_leaf=None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:
@@ -97,11 +102,11 @@ def _build(treedef: TreeDef, it) -> Any:
     return children if treedef.kind == "list" else tuple(children)
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    leaves, treedef = tree_flatten(tree)
+def tree_map(fn: Callable, tree: Any, *rest: Any, is_leaf=None) -> Any:
+    leaves, treedef = tree_flatten(tree, is_leaf)
     others = []
     for r in rest:
-        r_leaves, r_def = tree_flatten(r)
+        r_leaves, r_def = tree_flatten(r, is_leaf)
         if r_def != treedef:
             raise ValueError(f"tree structures differ: {treedef} vs {r_def}")
         others.append(r_leaves)

@@ -14,7 +14,8 @@ One case per mode is held to the reference's single-process
 ``make_train_step(..., None)`` losses within rtol 1e-4, as its selftest
 holds its shard_map driver. Then ``SyncConfig.validate(mesh)``'s
 messages against the reference's on duck-typed meshes, and the
-refusals that stay: faults on a mesh, ``make_sync_engine(mesh)``.
+refusal that stays (faults on a mesh); ``make_sync_engine(mesh)`` is the
+GSPMD path's per-leaf engine.
 """
 import importlib
 from types import SimpleNamespace
@@ -218,5 +219,6 @@ def test_refusals_that_stay(jmodel):
     bad = SimpleNamespace(shape={"x": 4})
     assert _message(lambda: TSD.make_sharded_step(model, opt, sync, bad)) == \
         _message(lambda: JSD._mesh_geometry(bad))
-    with pytest.raises(NotImplementedError, match="GSPMD path"):
-        make_sync_engine(opt, sync, mesh, spec=grad_spec(model))
+    # the GSPMD path is ported: with a mesh the engine is the per-leaf one
+    engine = make_sync_engine(opt, sync, mesh, spec=grad_spec(model))
+    assert not engine.fused and not engine.flat_exchange

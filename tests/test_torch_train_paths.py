@@ -101,7 +101,7 @@ def test_engine_selection_and_layout_guards():
         adam.check_opt_layout(torch.zeros(3))
     with pytest.raises(ValueError, match="FlatBuffer spec"):
         make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig())
-    # mpi_esgd, C > 1 and overlap engines exist now; meshes do not yet
+    # mpi_esgd, C > 1 and overlap engines exist, and the mesh (GSPMD) one
     esgd = make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(mode="mpi_esgd"),
                             spec=spec)
     assert isinstance(esgd, FlatEngine) and esgd.flat_exchange
@@ -112,8 +112,9 @@ def test_engine_selection_and_layout_guards():
     ov = make_sync_engine(tsgd.sgd(0.1, 0.9), overlap, spec=spec, schedule=sched)
     assert isinstance(ov, FlatEngine) and ov.schedule is sched
     ov.check_opt_layout(ov.init_opt(params))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(), object(), spec=spec)
+    # with a mesh the engine is the per-leaf one, as the reference's
+    gspmd = make_sync_engine(tsgd.sgd(0.1, 0.9), SyncConfig(), object(), spec=spec)
+    assert type(gspmd) is SyncEngine and not gspmd.fused and not gspmd.flat_exchange
 
 
 @pytest.mark.parametrize("name", ["sgd", "adagrad", "adamw"])
