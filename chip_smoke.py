@@ -175,7 +175,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  scripts under the supervisor, TCP on 127.0.0.1: the card's
                  compute mode and a fresh process's start-up time; dist_sgd
                  (3 steps) as card processes (their pids seen holding the
-                 card) == the same job as loopback threads on the card, and
+                 card; this job alone, the next five side by side) == the
+                 same job as loopback threads on the card, and
                  as CPU processes within rtol 1e-4; a worker killed and
                  respawned, and the server killed and restored, each ==
                  the clean job (exit history [137, 0], 0 degraded, restored
@@ -241,6 +242,22 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               c) [multidevice] python -m repro_torch.launch.multidevice_train:
                  8 ranks (pod 2, data 2, model 2), the reduced model, 12
                  mpi-ESGD steps; the loss falls, the consensus line printed
+ 16. remat    slice 15, each sub-phase's wall time printed, then the whole
+              smoke's:
+              a) [remat] full-width qwen2-0.5b, one sequence of 4096 tokens,
+                 momentum SGD on the main path: 3 steps with remat=True and
+                 3 with remat=False in turns from the same weights and
+                 batches — losses (within rtol 1e-3 of each other, and
+                 whether ==), the updated params' max abs difference, each
+                 step's peak memory beside what was resident as it began
+                 (the remat peak must be below the other), the median
+                 steady step of each; sgd_momentum_flat once a step (6,
+                 added to its row), held on one more step's operands
+              b) [examples] the main() of repro_torch.launch.quickstart
+                 (--steps 6), .esgd_multipod (--steps 8 --interval 4, both
+                 drivers) and .serve_batched, on the card: each ran on
+                 cuda, its losses fell, its tokens lie in the model's
+                 vocab, the served rate names the card
 
 Phase 2 also holds and times the PS tier's four kernels (quantize_wire,
 dequantize_wire, elastic_client_flat, elastic_server_flat) at the packed
@@ -269,6 +286,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -281,6 +299,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -1116,11 +1135,12 @@ def _train_split(model, opt, sync, state, batch, spec, label) -> dict:
     return out
 
 
-def _device_busy(step, state, batch) -> tuple:
-    """One more step under ``torch.profiler``: (device busy share, device
-    ms summed over the kernels and copies on the card, wall ms with the
-    profiler on), or Nones when the trace shows no device time. The
-    share is of the profiled wall clock, which the profiler lengthens."""
+def _step_profile(step, state, batch, top: int = 0) -> dict:
+    """One more step under ``torch.profiler``: the device ms summed over
+    the kernels and copies on the card (None when the trace shows no
+    device time), the wall ms with the profiler on, the busy share of
+    that wall clock (which the profiler lengthens), and the ``top`` device
+    kernels by summed time as (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1129,12 +1149,27 @@ def _device_busy(step, state, batch) -> tuple:
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an op's own row repeats its kernels' time
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    if not busy_ms:
-        return None, None, wall_ms
-    return busy_ms / wall_ms, busy_ms, wall_ms
+    # the trace's device events read as they come: building the profiler's
+    # per-op tables (``key_averages``) for a full-width step of ~10^5 ops
+    # takes tens of seconds; the device events alone give the same sums
+    per_name, busy_ns = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        busy_ns += e.duration_ns()
+        ns, n = per_name.get(e.name(), (0, 0))
+        per_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy_ms = busy_ns / 1e6
+    rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms or None,
+            "busy_share": busy_ms / wall_ms if busy_ms else None,
+            "top_kernels_ms": [(name[:60], ns / 1e6, n) for name, (ns, n) in rows]}
+
+
+def _device_busy(step, state, batch) -> tuple:
+    """``_step_profile``'s (busy share, device ms, wall ms)."""
+    p = _step_profile(step, state, batch)
+    return p["busy_share"], p["busy_ms"], p["wall_ms"]
 
 
 def _check_launches(label, got, want, steps: int = ESGD_STEPS) -> None:
@@ -4002,7 +4037,7 @@ def phase_launch_small(dev, card) -> dict:
     root = ROOT / "build" / "launch_small"
     shutil.rmtree(root, ignore_errors=True)
     env = run_local._child_env(str(root))
-    start = [_startup_s(env) for _ in range(2)]
+    start = [_startup_s(env)]
     log(f"[launch:small] process start-up (interpreter, port import, CUDA context): "
         f"{[round(s, 2) for s in start]} s | {card}")
     report = {"compute_mode": mode, "startup_s": start, "wall_s": {}}
@@ -4041,48 +4076,61 @@ def phase_launch_small(dev, card) -> dict:
         raise AssertionError(f"[launch:small] clean job: {clean.exit_codes}, "
                              f"{clean.losses}, degraded {clean.degraded_syncs}")
 
-    reset_counts()
-    loop, report["wall_s"]["loopback"] = _job("[launch:small] dist_sgd loopback threads "
-                                              "on the card", sgd, None,
-                                              transport="loopback", device="cuda")
-    torch.cuda.synchronize()
-    got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+    # the other five jobs side by side (each is mostly its processes'
+    # start-up): four of processes in threads, the loopback job's threads
+    # in this one, whose launches are the only ones counted here
+    jobs = {
+        "cpu": ("[launch:small] dist_sgd CPU processes", sgd, root / "cpu",
+                dict(device="cpu")),
+        "respawn": ("[launch:small] worker 1 killed at step 2 and respawned",
+                    alg.AlgoConfig(**LAUNCH_RUN, faults="kill@2:unit=1;restart@2:unit=1",
+                                   checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
+                    root / "respawn", dict(device="cuda")),
+        "restore": ("[launch:small] server killed after step 1 and restored",
+                    alg.AlgoConfig(**LAUNCH_RUN,
+                                   server_faults="kill@1:unit=0;restart@1:unit=0",
+                                   checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
+                    root / "restore", dict(device="cuda")),
+        "esgd_int8": ("[launch:small] dist_esgd int8 card processes",
+                      alg.AlgoConfig(**LAUNCH_ESGD, policy=CollectivePolicy(
+                          method="multi_ring", num_rings=2, wire_dtype="int8")),
+                      root / "esgd", dict(device="cuda")),
+    }
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(_job, label, algo, outdir, **kw)
+                   for k, (label, algo, outdir, kw) in jobs.items()}
+        reset_counts()
+        loop, report["wall_s"]["loopback"] = _job(
+            "[launch:small] dist_sgd loopback threads on the card", sgd, None,
+            transport="loopback", device="cuda")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+        done = {k: f.result() for k, f in futures.items()}
+    report["wall_s"]["side_by_side"] = time.perf_counter() - t0
+    log(f"[launch:small] the five jobs side by side took "
+        f"{report['wall_s']['side_by_side']:.1f} s | {card}")
+    for k, (_, wall) in done.items():
+        report["wall_s"][k] = wall
+    host, kill, srv, ex = (done[k][0] for k in ("cpu", "respawn", "restore", "esgd_int8"))
     if got != {"sgd_momentum_flat": 6}:
         raise AssertionError(f"[launch:small] loopback launches {got}, want 6 sgd")
     _same_curve("[launch:small] card processes vs loopback threads", clean, loop)
 
-    host, report["wall_s"]["cpu"] = _job("[launch:small] dist_sgd CPU processes", sgd,
-                                         root / "cpu", device="cpu")
     torch.testing.assert_close(torch.tensor(host.losses), torch.tensor(clean.losses),
                                rtol=1e-4, atol=0)
     torch.testing.assert_close(torch.tensor(host.metrics), torch.tensor(clean.metrics),
                                rtol=1e-4, atol=0)
-
-    kill, report["wall_s"]["respawn"] = _job(
-        "[launch:small] worker 1 killed at step 2 and respawned",
-        alg.AlgoConfig(**LAUNCH_RUN, faults="kill@2:unit=1;restart@2:unit=1",
-                       checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
-        root / "respawn", device="cuda")
     _same_curve("[launch:small] respawn", kill, clean)
     if kill.exit_history.get("client_1") != [137, 0] or kill.degraded_syncs:
         raise AssertionError(f"[launch:small] respawn: exit history "
                              f"{kill.exit_history}, degraded {kill.degraded_syncs}")
-
-    srv, report["wall_s"]["restore"] = _job(
-        "[launch:small] server killed after step 1 and restored",
-        alg.AlgoConfig(**LAUNCH_RUN, server_faults="kill@1:unit=0;restart@1:unit=0",
-                       checkpoint_every=1, barrier_timeout=LAUNCH_GUARD_S),
-        root / "restore", device="cuda")
     _same_curve("[launch:small] restore", srv, clean)
     restored = srv.server_stats[0].get("restored_step")
     if restored is None or restored < 1 or srv.degraded_syncs:
         raise AssertionError(f"[launch:small] restore: restored step {restored}, "
                              f"degraded {srv.degraded_syncs}")
 
-    esgd = alg.AlgoConfig(**LAUNCH_ESGD, policy=CollectivePolicy(
-        method="multi_ring", num_rings=2, wire_dtype="int8"))
-    ex, report["wall_s"]["esgd_int8"] = _job("[launch:small] dist_esgd int8 card processes",
-                                             esgd, root / "esgd", device="cuda")
     n = flatbuf.spec_for(net_problem.build_problem("logreg8", device="cpu").init_fn(
         torch.Generator().manual_seed(0))).size
     per_push = cost_model.ps_wire_nbytes(n, "int8")
@@ -4946,6 +4994,185 @@ def phase_multidevice(card) -> dict:
     return {"wall_s": wall, "losses": losses, "last": lines[-1]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: remat honoured, and the reference's three examples as modules
+# ---------------------------------------------------------------------------
+
+#: [remat]: full-width qwen2-0.5b, one sequence of train_4k's length a card
+REMAT_BATCH, REMAT_SEQ = 1, 4096
+REMAT_STEPS = 3
+
+
+def phase_remat(dev, card) -> dict:
+    """Full-width qwen2-0.5b, 1 x 4096, momentum SGD on the main path:
+    ``REMAT_STEPS`` steps with ``remat=True`` and as many with
+    ``remat=False``, in turns (on, off, on, ...), from the same weights and
+    batches. Each step's peak (``max_memory_allocated`` after a reset just
+    before it) beside what was resident as it began (both runs' states);
+    then one forward + backward of each run alone (``make_grad_fn``), its
+    peak above what was resident: remat's own lever, which must be lower
+    with remat. Losses, the updated params' max abs difference, the median
+    steady step (steps 2 on) of each run, and one profiled step of the
+    remat run (device busy, top kernels); ``sgd_momentum_flat`` once a
+    step, held on one more step's operands."""
+    base = get_config("qwen2-0.5b")
+    opt, sync = sgd_optimizer(0.1, momentum=0.9), SyncConfig()
+    pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=REMAT_SEQ,
+                                    batch_size=REMAT_BATCH), device=dev)
+    batches = [pipe.batch_at(0, i) for i in range(REMAT_STEPS)]
+    runs = {}
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(base, remat=remat))
+        state = make_train_state(model, opt, sync, device=dev)
+        if remat is False:                 # the same weights, bit for bit
+            state["params"] = tree_map(torch.clone, runs[True]["state"]["params"])
+        runs[remat] = dict(model=model, state=state,
+                           step=make_train_step(model, opt, sync, device=dev),
+                           losses=[], step_ms=[], peak=[], resident=[])
+    label = f"[remat] qwen2-0.5b full width, {REMAT_BATCH} x {REMAT_SEQ}"
+    reset_counts()
+    for batch in batches:
+        for remat in (True, False):
+            r = runs[remat]
+            torch.cuda.synchronize()
+            r["resident"].append(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r["state"], met = r["step"](r["state"], batch)
+            torch.cuda.synchronize()
+            r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["peak"].append(torch.cuda.max_memory_allocated())
+            r["losses"].append(float(met["loss"]))
+    got = counts(ALL_KERNELS)
+    _check_launches(label, got, {"sgd_momentum_flat": 2 * REMAT_STEPS}, 2 * REMAT_STEPS)
+    on, off = runs[True], runs[False]
+    for remat, r in runs.items():
+        if not all(math.isfinite(x) for x in r["losses"]) or not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"{label} remat={remat}: losses {r['losses']} not falling")
+    # a wrong recompute would change the gradient, and the next losses with it
+    torch.testing.assert_close(torch.tensor(on["losses"]), torch.tensor(off["losses"]),
+                               rtol=1e-3, atol=0)
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in
+               zip(tree_leaves(on["state"]["params"]), tree_leaves(off["state"]["params"])))
+    for r in runs.values():              # forward + backward alone, not timed
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = make_grad_fn(r["model"])(r["state"]["params"], batches[0])[2]
+        torch.cuda.synchronize()
+        r["fwd_bwd_peak"] = torch.cuda.max_memory_allocated() - base
+        del grads
+    if not on["fwd_bwd_peak"] < off["fwd_bwd_peak"]:
+        raise AssertionError(f"{label}: forward + backward peaks {on['fwd_bwd_peak']} B "
+                             f"above the resident with remat, {off['fwd_bwd_peak']} B "
+                             "without: remat saves nothing")
+    with _KernelHold() as hold:            # one more step, not timed
+        on["step"](on["state"], batches[0])
+    # one profiled step, of the run remat makes slower (its trace costs
+    # tens of seconds to read on a step of this many ops)
+    on["profile"] = _step_profile(on["step"], on["state"], batches[0], top=5)
+    gib = lambda xs: [round(x / 2**30, 3) for x in xs]   # noqa: E731
+    rep = {"batch": REMAT_BATCH, "seq": REMAT_SEQ, "profile_remat": on["profile"],
+           "launches": {k: v for k, v in got.items() if v},
+           "params_max_abs_diff": diff, "losses_equal": on["losses"] == off["losses"],
+           "hold_max_abs_err": hold.err.get("sgd_momentum_flat")}
+    for remat, r in runs.items():
+        key = "remat" if remat else "no_remat"
+        rep[key] = {"losses": r["losses"], "step_ms": r["step_ms"],
+                    "steady_ms_median": float(np.median(r["step_ms"][1:])),
+                    "peak_bytes": r["peak"], "resident_bytes": r["resident"],
+                    "fwd_bwd_peak_above_resident_bytes": r["fwd_bwd_peak"]}
+        log(f"{label} remat={remat}: losses {r['losses']}; step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} (steady median "
+            f"{rep[key]['steady_ms_median']:.1f}); step peak {gib(r['peak'])} GiB over "
+            f"{gib(r['resident'])} GiB resident as each step began; forward + "
+            f"backward alone {r['fwd_bwd_peak'] / 2**30:.3f} GiB above the resident "
+            f"| {card}")
+    log(f"{label}: losses {'==' if rep['losses_equal'] else '!='} between the runs; "
+        f"updated params max abs diff {diff}; forward + backward peak "
+        f"{on['fwd_bwd_peak'] / 2**30:.3f} GiB with remat against "
+        f"{off['fwd_bwd_peak'] / 2**30:.3f} GiB without; step peak "
+        f"{max(on['peak']) / 2**30:.3f} GiB against {max(off['peak']) / 2**30:.3f}; a "
+        f"profiled step with remat: device busy {on['profile']['busy_ms']} of "
+        f"{on['profile']['wall_ms']:.1f} ms, top kernels (name, ms, count) "
+        f"{on['profile']['top_kernels_ms']}; launches "
+        f"{rep['launches']}; kernel hold ({'; '.join(hold.calls)}) == plain: "
+        f"max_abs_err {rep['hold_max_abs_err']} | {card}")
+    del runs, on, off
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _example(label, main_fn, argv) -> tuple:
+    """``main_fn(argv)`` with what it prints logged under ``label``; ->
+    (its result, wall s, the printed lines, launches counted)."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main_fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        log(f"{label} | {ln}")
+    launches = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+    log(f"{label}: {wall:.1f} s wall, launches {launches}")
+    return out, wall, lines, launches
+
+
+def phase_examples(card) -> dict:
+    """The three example modules' ``main`` on the card (their default
+    device), reduced: quickstart 6 steps, esgd_multipod 8 steps with an
+    exchange every 4 on both drivers, serve_batched as it is. Each ran on
+    the card, its losses fell, its tokens lie in the model's vocab, and
+    the served rate names the card."""
+    from repro_torch.launch import esgd_multipod, quickstart, serve_batched
+
+    rep = {}
+    q, wall, lines, launches = _example("[examples] quickstart", quickstart.main,
+                                        ["--steps", "6"])
+    vocab = q["model"].cfg.vocab_size
+    if (q["device"].type != "cuda" or not q["losses"][-1] < q["losses"][0]
+            or not 0 <= int(q["tokens"].min()) <= int(q["tokens"].max()) < vocab
+            or not any(ln.startswith("checkpoint round-trip ok") for ln in lines)
+            or launches != {"sgd_momentum_flat": 6}):
+        raise AssertionError(f"[examples] quickstart: device {q['device']}, losses "
+                             f"{q['losses']}, tokens {q['tokens'].tolist()}, launches "
+                             f"{launches}")
+    rep["quickstart"] = {"losses": q["losses"], "wall_s": wall, "launches": launches}
+    for driver in ("vmap", "shard"):
+        e, wall, lines, launches = _example(
+            f"[examples] esgd_multipod --driver {driver}", esgd_multipod.main,
+            ["--steps", "8", "--interval", "4", "--driver", driver])
+        finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(e["params"]))
+        if (e["device"].type != "cuda" or not finite or e["syncs"] != (8, 2)
+                or not e["sgd_losses"][-1] < e["sgd_losses"][0]
+                or not e["esgd_losses"][-1] < e["esgd_losses"][0]):
+            raise AssertionError(f"[examples] esgd_multipod {driver}: device "
+                                 f"{e['device']}, losses {e['sgd_losses']} / "
+                                 f"{e['esgd_losses']}, finite {finite}")
+        rep[f"esgd_{driver}"] = {"sgd_losses": e["sgd_losses"],
+                                 "esgd_losses": e["esgd_losses"], "wall_s": wall,
+                                 "launches": launches}
+    s, wall, lines, launches = _example("[examples] serve_batched", serve_batched.main, [])
+    name = torch.cuda.get_device_name(0)
+    for arch, res in s.items():
+        toks = res["tokens"]
+        if (toks.device.type != "cuda" or tuple(toks.shape) != (4, 16)
+                or not 0 <= int(toks.min()) <= int(toks.max()) < res["vocab_size"]):
+            raise AssertionError(f"[examples] serve_batched {arch}: tokens on "
+                                 f"{toks.device}, {toks.tolist()}")
+    if len(lines) != 3 or not all(f"on {name})" in ln for ln in lines) or launches:
+        raise AssertionError(f"[examples] serve_batched: lines {lines}, launches {launches}")
+    rep["serve_batched"] = {arch: {"seconds": res["seconds"],
+                                   "tokens_per_s": res["tokens"].numel() / res["seconds"]}
+                            for arch, res in s.items()}
+    rep["serve_batched"]["wall_s"] = wall
+    log(f"[examples] all three on the card: losses falling, tokens in the vocab | {card}")
+    return rep
+
+
 def main() -> None:
     card = phase_device()
     phase_cuda_build()
@@ -4956,27 +5183,38 @@ def main() -> None:
     kernels.update(phase_elastic_kernels(spec, dev))
     kernels.update(phase_ps_kernels(spec, dev))
     kernels.update(phase_fault_kernels(build_model(get_config("qwen2-0.5b")), spec, dev))
+    log(f"[kernels] phases 1-2 took {time.perf_counter() - T_START:.1f} s since start")
+    t0 = time.perf_counter()
     phase_small_reference(dev)
     launches, _, params = phase_slice(dev)
     phase_checkpoint(params)
     del params
     torch.cuda.empty_cache()
+    log(f"[slice] phases 3-4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_small_esgd(dev)
     esgd_launches, report = phase_esgd(dev)
+    log(f"[esgd] phase 5 took {time.perf_counter() - t0:.1f} s")
     for name, c in esgd_launches.items():
         launches.setdefault(name, c)
+    t0 = time.perf_counter()
     phase_ps_small(dev)
     ps_launches, ps_errs, _ = phase_ps(dev)
+    log(f"[ps] phase 6 took {time.perf_counter() - t0:.1f} s")
     launches.update(ps_launches)
     for name, e in ps_errs.items():     # worst hold: phase 2 or the run's operands
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    t0 = time.perf_counter()
     phase_faults_small(dev)
     fault_launches, fault_errs, _ = phase_faults(dev)
+    log(f"[faults] phase 7 took {time.perf_counter() - t0:.1f} s")
     launches.update(fault_launches)
     for name, e in fault_errs.items():  # worst hold: phase 2 or the [faults] run
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+    t0 = time.perf_counter()
     overlap_errs = phase_overlap_small(dev)
     _, overlap_full_errs, overlap_report = phase_overlap(dev)
+    log(f"[overlap] phase 8 took {time.perf_counter() - t0:.1f} s")
     for name, e in overlap_full_errs.items():
         overlap_errs[name] = max(overlap_errs.get(name, 0.0), e)
     for name, e in overlap_errs.items():  # worst hold: phase 2 or the overlapped runs
@@ -5070,6 +5308,19 @@ def main() -> None:
     log("[gspmd] " + json.dumps(gspmd, default=str))
     log(f"[gspmd] took {time.perf_counter() - t1:.1f} s; phase 15 took "
         f"{time.perf_counter() - t0:.1f} s | {card}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    remat = phase_remat(dev, card)
+    log("[remat] " + json.dumps(remat, default=str))
+    log(f"[remat] took {time.perf_counter() - t0:.1f} s | {card}")
+    launches["sgd_momentum_flat"] += remat["launches"]["sgd_momentum_flat"]
+    sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], remat["hold_max_abs_err"])
+    t1 = time.perf_counter()
+    examples = phase_examples(card)
+    log("[examples] " + json.dumps(examples, default=str))
+    log(f"[examples] took {time.perf_counter() - t1:.1f} s; phase 16 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    log(f"[smoke] phases 1-16 took {time.perf_counter() - T_START:.1f} s | {card}")
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -9,7 +9,10 @@ path loops over query chunks with the KV range statically truncated
 (triangular skipping; the sliding window's ``k_lo``) and keeps a running
 (max, sum, acc) over KV blocks inside each chunk. A sequence that fits
 one chunk and one block runs the single-block softmax with no rescale.
-No ``scaled_dot_product_attention``.
+Each query chunk is rematerialised in the backward (``layers.remat``),
+always, as the reference checkpoints its ``attend``: only the chunk's q,
+k and v stay alive for the backward, not its f32 scores and
+probabilities. No ``scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, remat, rms_norm
 from repro_torch.sharding.rules import on_local_heads
 
 NEG_INF = -1e30
@@ -159,7 +162,7 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
 
     def core(q, k, v):
         if Sq <= q_chunk:
-            return _softmax_blocks(q, k, v, 0, spec, kv_chunk)
+            return remat(_softmax_blocks, q, k, v, 0, spec, kv_chunk)
         outs = []
         for lo in range(0, Sq, q_chunk):  # static triangular KV truncation
             hi = min(lo + q_chunk, Sq)
@@ -168,12 +171,14 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
                 k_hi = hi  # blocks past the diagonal are skipped
                 if spec.sliding_window > 0:
                     k_lo = max(0, (lo - spec.sliding_window) // kv_chunk * kv_chunk)
-            outs.append(_softmax_blocks(
-                q[..., lo:hi, :], k[..., k_lo:k_hi, :], v[..., k_lo:k_hi, :],
-                lo - k_lo, _shift_spec(spec, k_lo), kv_chunk))
+            outs.append(remat(
+                _softmax_blocks, q[..., lo:hi, :], k[..., k_lo:k_hi, :],
+                v[..., k_lo:k_hi, :], lo - k_lo, _shift_spec(spec, k_lo),
+                kv_chunk))
         return torch.cat(outs, dim=-2)
 
-    # on DTensors (the GSPMD path) each rank attends its own rows and heads
+    # on DTensors (the GSPMD path) each rank attends its own rows and heads,
+    # and each rank's local chunks are the ones rematerialised
     out = on_local_heads(core, q, k, v)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, spec.num_heads * D)
     return out @ params["wo"]

@@ -1,5 +1,5 @@
-"""Shared building blocks: init helpers, RMSNorm, LayerNorm, RoPE, the
-SwiGLU / GeGLU FFNs and whisper's plain GELU MLP.
+"""Shared building blocks: init helpers, rematerialisation, RMSNorm,
+LayerNorm, RoPE, the SwiGLU / GeGLU FFNs and whisper's plain GELU MLP.
 
 Functions on plain tensors with the reference's layouts
 (``repro/models/layers.py``). Weights are drawn from a ``torch.Generator``
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator | None, fan_in: int, shape, dtype,
@@ -21,6 +22,18 @@ def dense_init(gen: torch.Generator | None, fan_in: int, shape, dtype,
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     # in place: no second f32 copy of a large leaf before the cast
     return w.div_(max(fan_in, 1) ** 0.5).to(dtype)
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    saved (``jax.checkpoint``): only ``args`` stay alive for the backward.
+    The autograd graph is the one ``fn`` builds, so every gradient term
+    adds in the same order as without. Without grad mode nothing would be
+    saved, and ``fn`` simply runs. No model op draws random numbers, so
+    no RNG state is stashed."""
+    if not enabled or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

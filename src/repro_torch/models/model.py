@@ -31,7 +31,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models.layers import layer_norm, rms_norm
+from repro_torch.models.layers import layer_norm, remat, rms_norm
 from repro_torch.models.transformer import (
     apply_dec_stack,
     apply_enc_stack,
@@ -178,17 +178,25 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _xent_sum(logits, labels) / labels.numel()
 
 
+def _chunk_xent(p: dict, hc: torch.Tensor, lc: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    return _xent_sum(_logits(p, hc, cfg), lc)
+
+
 def _sequence_xent(p: dict, h: torch.Tensor, labels: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Next-token xent from hidden states, in ``XENT_CHUNK``-long sequence
-    chunks when the sequence is a multiple longer than one chunk."""
+    chunks when the sequence is a multiple longer than one chunk. Each
+    chunk is rematerialised (always, as the reference's scan body is), so
+    its logits, logsumexp and gold are recomputed in the backward and one
+    chunk's f32 logits are alive at a time, not all of them."""
     B, S, _ = h.shape
     if S % XENT_CHUNK or S <= XENT_CHUNK:
         return _xent(_logits(p, h, cfg), labels)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, S, XENT_CHUNK):
         hc, lc = h[:, lo:lo + XENT_CHUNK], labels[:, lo:lo + XENT_CHUNK]
-        total = total + _xent_sum(_logits(p, hc, cfg), lc)
+        total = total + remat(_chunk_xent, p, hc, lc, cfg)
     return total / (B * S)
 
 

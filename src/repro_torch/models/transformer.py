@@ -10,7 +10,11 @@ so the param tree, and with it the FlatBuffer layout, is the reference's
 of (L, B, S, KV, D), ``index`` of (L,) int32; the hybrid's ``{"mamba":
 {"conv", "h"}, "attn": {...}}``, its attention caches stacked over the
 shared block's invocations). A Python loop over ``L`` replaces
-``lax.scan``; decode writes every cache in place.
+``lax.scan``; decode writes every cache in place. With ``cfg.remat`` each
+layer body of the training stacks is rematerialised (``layers.remat``)
+where the reference wraps its scan body in ``jax.checkpoint``: the
+decoder, Mamba2, encoder and decoder layers — not the hybrid's shared
+block.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, ffn, gelu_ffn, init_ffn, init_mlp,
-                                      layer_norm, mlp_ffn, rms_norm)
+                                      layer_norm, mlp_ffn, remat, rms_norm)
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.sharding.rules import maybe_seq_shard, unshard_dim
 from repro_torch.tree import tree_map
@@ -123,11 +127,15 @@ def apply_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 prefix_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the stacked layers in order; the stack's own leading dim (all
     ``cfg.num_layers``, or one stage's slice of them) sets the depth."""
+
+    def body(x, layer):
+        x = maybe_seq_shard(x, cfg.seq_shard_activations)
+        return apply_block(layer, x, cfg, prefix_len=prefix_len)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(stacked["attn_norm"].shape[0]):
-        layer = tree_map(lambda a: a[i], stacked)
-        x = maybe_seq_shard(x, cfg.seq_shard_activations)
-        x, a = apply_block(layer, x, cfg, prefix_len=prefix_len)
+        x, a = remat(body, x, tree_map(lambda a: a[i], stacked),
+                     enabled=cfg.remat)
         aux = aux + a
     return x, aux
 
@@ -221,14 +229,16 @@ def decode_dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor, cache: dict,
 
 def apply_enc_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     for i in range(stacked["attn_norm"].shape[0]):
-        x = apply_enc_layer(tree_map(lambda a: a[i], stacked), x, cfg)
+        x = remat(apply_enc_layer, tree_map(lambda a: a[i], stacked), x, cfg,
+                  enabled=cfg.remat)
     return x
 
 
 def apply_dec_stack(stacked: dict, x: torch.Tensor, enc: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     for i in range(stacked["attn_norm"].shape[0]):
-        x = apply_dec_layer(tree_map(lambda a: a[i], stacked), x, enc, cfg)
+        x = remat(apply_dec_layer, tree_map(lambda a: a[i], stacked), x, enc,
+                  cfg, enabled=cfg.remat)
     return x
 
 
@@ -295,13 +305,17 @@ def _mamba_kw(cfg: ModelConfig) -> dict:
 def apply_mamba_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig,
                       lo: int = 0, hi: int | None = None) -> torch.Tensor:
     """Layers ``lo:hi`` of a Mamba2 stack: x + mamba(rms_norm(x))."""
+
+    def body(x, norm, lp):
+        x = maybe_seq_shard(x, cfg.seq_shard_activations)
+        y, _ = ssm.mamba_block(lp, rms_norm(x, norm, cfg.norm_eps),
+                               chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
+        return x + y
+
     hi = stacked["norm"].shape[0] if hi is None else hi
     for i in range(lo, hi):
         lp = {k: v[i] for k, v in stacked.items() if k != "norm"}
-        x = maybe_seq_shard(x, cfg.seq_shard_activations)
-        y, _ = ssm.mamba_block(lp, rms_norm(x, stacked["norm"][i], cfg.norm_eps),
-                               chunk=cfg.ssm_chunk, **_mamba_kw(cfg))
-        x = x + y
+        x = remat(body, x, stacked["norm"][i], lp, enabled=cfg.remat)
     return x
 
 

@@ -116,6 +116,15 @@ class _TcpConnection(Connection):
 
 
 class _TcpServer(Server):
+    """Accepts on ``addr``; one daemon thread per connection. ``close``
+    stops them all: the listener and every live connection are shut down
+    and their threads joined, so a process that exits after ``close``
+    leaves no serving thread racing its interpreter's shutdown."""
+
+    #: how long ``close`` waits for a thread still inside a handler (a
+    #: blocked barrier wait) before leaving it, a daemon, to the exit
+    JOIN_S = 5.0
+
     def __init__(self, handler: Handler, host: str, port: int):
         self._handler = handler
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -123,6 +132,8 @@ class _TcpServer(Server):
         self._sock.bind((host, port))
         self._sock.listen(64)
         self._closed = threading.Event()
+        self._live: dict[socket.socket, threading.Thread] = {}
+        self._live_lock = threading.Lock()
         self.addr = "%s:%d" % self._sock.getsockname()[:2]
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name=f"tcp-serve-{self.addr}",
@@ -136,8 +147,14 @@ class _TcpServer(Server):
             except OSError:
                 return  # listener closed
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            threading.Thread(target=self._serve_conn, args=(conn,),
-                             daemon=True).start()
+            t = threading.Thread(target=self._serve_conn, args=(conn,),
+                                 name=f"tcp-conn-{self.addr}", daemon=True)
+            with self._live_lock:
+                if self._closed.is_set():
+                    conn.close()
+                    return
+                self._live[conn] = t
+            t.start()
 
     def _serve_conn(self, conn: socket.socket) -> None:
         def read_exact(n: int) -> bytes:
@@ -154,10 +171,14 @@ class _TcpServer(Server):
             while not self._closed.is_set():
                 try:
                     op, meta, payload = wire.read_frame(read_exact)
-                except wire.WireError:
-                    return  # peer went away (normal teardown, or a kill)
-                conn.sendall(_run_handler(self._handler, op, meta, payload))
+                    conn.sendall(_run_handler(self._handler, op, meta, payload))
+                except (wire.WireError, OSError):
+                    # the peer went away (normal teardown, a kill, a
+                    # reset), or close() shut the connection down
+                    return
         finally:
+            with self._live_lock:
+                self._live.pop(conn, None)
             try:
                 conn.close()
             except OSError:  # pragma: no cover
@@ -165,10 +186,25 @@ class _TcpServer(Server):
 
     def close(self) -> None:
         self._closed.set()
+        with self._live_lock:
+            live = list(self._live.items())
+        # wake a thread blocked in accept() / recv() (close() alone does
+        # not on Linux); a connection keeps its write side, so a response
+        # still in flight (the one to "shutdown") reaches its caller
+        for sock, how in [(self._sock, socket.SHUT_RDWR)] + [
+                (c, socket.SHUT_RD) for c, _ in live]:
+            try:
+                sock.shutdown(how)
+            except OSError:
+                pass  # not connected, or already shut down by the peer
         try:
             self._sock.close()
         except OSError:  # pragma: no cover
             pass
+        me = threading.current_thread()
+        for t in [self._accept_thread] + [t for _, t in live]:
+            if t is not me:
+                t.join(self.JOIN_S)
 
 
 # ---------------------------------------------------------------------------

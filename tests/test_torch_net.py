@@ -168,6 +168,85 @@ def test_loopback_byte_accounting_matches_tcp():
         transport_for("udp")
 
 
+def _serving_threads(addr):
+    return [t for t in threading.enumerate() if t.is_alive() and t.name.endswith(addr)]
+
+
+def test_tcp_server_close_leaves_no_serving_thread(monkeypatch):
+    """``close`` shuts down the listener and every live connection and
+    joins their threads: an idle peer, a peer that reset its connection
+    (a SO_LINGER 0 close sends RST) and one that left cleanly, none of
+    them raising in its thread. A server process exits right after
+    ``close``; a serving thread left running would race the interpreter's
+    shutdown."""
+    import socket
+    import struct
+
+    raised = []
+    monkeypatch.setattr(threading, "excepthook", raised.append)
+    tr = transport_for("tcp")
+    srv = tr.serve(_echo)
+    conns = [tr.connect(srv.addr) for _ in range(3)]
+    for c in conns:
+        assert c.request("ping")[0]["op_seen"] == "ping"
+    assert len(_serving_threads(srv.addr)) == 4      # accept + 3 connections
+    reset = conns[1]._sock
+    reset.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+    reset.close()
+    conns[2].close()
+    srv.close()                                      # conns[0] still open, idle
+    assert _serving_threads(srv.addr) == []
+    assert raised == []
+    with pytest.raises((OSError, wire.WireError)):   # the server hung up
+        conns[0].request("ping")
+    conns[0].close()
+
+
+#: a server process whose one connection is inside a torch op (the GIL
+#: released) when its main thread closes the server and returns
+_EXIT_RACE = """
+import threading, time, torch
+from repro_torch.net.transport import transport_for
+torch.set_num_threads(1)
+started = threading.Event()
+
+def handler(op, meta, payload):
+    started.set()
+    a, t0 = torch.randn(600, 600), time.monotonic()
+    while time.monotonic() - t0 < 1.0:
+        a = a @ a / 600.0
+    return {}, b""
+
+tr = transport_for("tcp")
+srv = tr.serve(handler)
+threading.Thread(target=lambda: tr.connect(srv.addr).request("work"),
+                 daemon=True).start()
+started.wait()
+time.sleep(0.05)
+srv.close()
+print("closed", flush=True)
+"""
+
+
+def test_tcp_server_process_exits_cleanly_while_a_handler_runs():
+    """``close`` waits for a handler still running, so a server process that
+    returns from main right after it exits 0. A serving thread left inside
+    a torch op when the interpreter shuts down is killed through C++ frames
+    (Python 3.12's exit of a daemon thread): "terminate called without an
+    active exception", exit 134 — the KV server's exit code that
+    ``run_job`` reported for a job whose losses were right."""
+    import subprocess
+    import sys
+
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", _EXIT_RACE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert (out.returncode, out.stdout) == (0, "closed\n"), out.stderr
+
+
 # ---------------------------------------------------------------------------
 # rendezvous: the job config and the identities are the reference's
 # ---------------------------------------------------------------------------
