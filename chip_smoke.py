@@ -121,9 +121,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  qwen2-moe-a2.7b cut to 3 layers 4 x 512 — falling losses,
                  sgd_momentum_flat launches == steps, the kernel held on one
                  more step's operands, step ms, peak memory, device busy;
-                 serving (BatchedServer) mamba2-130m B 8 64 + 64, zamba2-1.2b
-                 B 4 32 + 32, qwen2-moe-a2.7b (all 24 layers) and mixtral-8x7b
-                 (cut to 8 layers) B 4 32 + 32 — ms per token beside the
+                 serving (BatchedServer; depths cut for phase 15 d) mamba2-130m (8
+                 layers) B 8 64 + 64, zamba2-1.2b (12) B 4 32 + 32,
+                 qwen2-moe-a2.7b (4) and mixtral-8x7b (2) B 4 32 + 32 — ms
+                 per token beside the
                  bytes bound (weights + cache), tokens/s, peak memory, busy,
                  0 launches, no host sync; mamba2 / zamba2 decode against
                  forward over the served tokens, in f32 within 1e-3 of max
@@ -133,7 +134,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  whisper's serve steps cross-attending a seeded random ``enc``;
                  b) trained 3 steps at full depth (whisper 8 x 448 + 1500
                  frames, paligemma 2 x (256 image + 256 text)) and served
-                 (B 8 / B 4, 32 + 32), decode held against forward in the
+                 (B 8 / B 4 at 6 layers, 32 + 32), decode held against forward in the
                  dense family's bf16 band (paligemma against its text-only
                  twin, whisper against a forward with zero encoder output)
  11. resnet   slice 10, the paper's ResNet through the PS / MPI modes:
@@ -242,6 +243,36 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               c) [multidevice] python -m repro_torch.launch.multidevice_train:
                  8 ranks (pod 2, data 2, model 2), the reduced model, 12
                  mpi-ESGD steps; the loss falls, the consensus line printed
+              d) [gspmd:families] (slice 16) the MoE, SSM and hybrid families
+                 and the decode step on the mesh, none of the 14 kernels
+                 launched in any rank or one-process run:
+                 a) the CPU tests' reduced cases (f32; the rank workers of
+                    tests/_torch_gspmd_families.py) as gloo ranks sharing
+                    the card, three meshes spawned side by side — (data 2,
+                    expert 2, tp 2) for qwen2-moe-a2.7b and mixtral-8x7b,
+                    (data 2, model 2) for mamba2-130m, zamba2-1.2b and
+                    qwen2-0.5b's KV-head cache, (data 1, model 4) for its
+                    sequence-sharded cache: 3 steps (losses, metrics, the
+                    state after steps 1 and 3), a prefill (logits, the MoE's
+                    slots and keeps of each rank's rows) and 16 + 8 decode
+                    tokens (logits, greedy tokens, cache) each within rtol
+                    1e-5 of the one-process run on the card (zamba2's state
+                    within 1e-4 / 1e-2 of a leaf's scale after steps 1 / 3)
+                 b) full width, one case at a time, each as gloo ranks then
+                    in one process: qwen2-moe-a2.7b (bf16, 2 of 24 layers,
+                    (data 2, expert 2, tp 1), 3 steps of 4 x 512),
+                    mixtral-8x7b (bf16, 2 of 32, (data 1, expert 2, tp 2),
+                    decode only), mamba2-130m (f32, 24, (data 2, model 2),
+                    4 x 512), zamba2-1.2b (f32, 6 of 38, (data 2, model 2),
+                    2 x 512), each decoding B 4, 4 + 4 tokens; qwen2-0.5b
+                    (bf16, 24, (data 1, model 4), sequence-sharded cache)
+                    decoding B 4, 8 + 8: losses within rtol 1e-3 of one
+                    process, the MoE's differing routes counted, greedy
+                    tokens equal wherever the one-process top-2 margin
+                    exceeds twice the logit band over the prompt; per rank
+                    step ms and its split, ms a token, bytes staged a step
+                    and a token by collective,
+                    peak memory and the card's used MiB
  16. remat    slice 15, each sub-phase's wall time printed, then the whole
               smoke's:
               a) [remat] full-width qwen2-0.5b, one sequence of 4096 tokens,
@@ -329,10 +360,11 @@ from repro_torch.core.elastic import elastic_exchange_packed  # noqa: E402
 from repro_torch.core.comm import Communicator, from_sync  # noqa: E402
 from repro_torch.launch import hybrid_ps_mpi as hyb, shard_driver as sd, train as train_mod  # noqa: E402
 from repro_torch.launch import analysis, autotune, launcher, run_local  # noqa: E402
-from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.launch.serve import BatchedServer, make_serve_step  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     grad_spec, make_grad_fn, make_overlap_grad_fn, make_train_state, make_train_step,
     overlap_schedule, stacked_grads)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.core import kvstore as kvstore_mod  # noqa: E402
 from repro_torch.net import (kvserver as net_kvserver, problem as net_problem,  # noqa: E402
@@ -342,6 +374,7 @@ from repro_torch.net import (kvserver as net_kvserver, problem as net_problem,  
 from repro_torch.models.resnet import _block_plan, init_resnet, resnet_loss  # noqa: E402
 from repro_torch.optim import sgd as sgd_mod  # noqa: E402
 from repro_torch.optim.sgd import flat_hp, sgd as sgd_optimizer  # noqa: E402
+from repro_torch.sharding.rules import distribute, param_specs  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
@@ -2297,8 +2330,9 @@ def _overlap_split(model, opt, sync, p, state, batch) -> dict:
     select, ONE kernel, the trailing allgather, unpack), the kernel
     alone and the allgather alone. Staged forward + backward is the grad
     fn less the legs. Then the gradient half of the step in its two
-    forms, timed in turns (``interleaved_ms``, 3 rounds of 2 calls a
-    block): the staged grad fn against the monolithic one (every
+    forms, timed in turns (``interleaved_ms``, one round of one call a
+    block, cut from 3 rounds of 2 to pay for phase 15's
+    [gspmd:families]): the staged grad fn against the monolithic one (every
     device's forward + backward, pack, and the one reduce-scatter at the
     same ring count)."""
     shape = sd._factorize(p)[0] if p != 1 else ()
@@ -2348,7 +2382,7 @@ def _overlap_split(model, opt, sync, p, state, batch) -> dict:
         return comm.reduce_scatter(buf, num_rings=1) if shape else buf
 
     turns = interleaved_ms(lambda: gfn(params, wbatch), monolithic,
-                           rounds=3, reps=2, warmup=1)
+                           rounds=1, reps=1, warmup=1)
     out["grad_half_staged_ms"] = turns["kernel"]
     out["grad_half_monolithic_ms"] = turns["library"]
     return out
@@ -2905,10 +2939,13 @@ TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4 + 4 + 4 + 4
 FAMILY_TRAIN = (("mamba2-130m", 24, 8, 512, 0.1), ("zamba2-1.2b", 38, 4, 512, 0.1),
                 ("qwen2-moe-a2.7b", 3, 4, 512, 0.1), ("whisper-base", 6, 8, 448, 0.1),
                 ("paligemma-3b", 18, 2, 512, 0.1))
-#: [families] serving cells: (config, depth, batch, prompt, new tokens)
-FAMILY_SERVE = (("mamba2-130m", 24, 8, 64, 64), ("zamba2-1.2b", 38, 4, 32, 32),
-                ("qwen2-moe-a2.7b", 24, 4, 32, 32), ("mixtral-8x7b", 8, 4, 32, 32),
-                ("whisper-base", 6, 8, 32, 32), ("paligemma-3b", 18, 4, 32, 32))
+#: [families] serving cells: (config, depth, batch, prompt, new tokens).
+#: Depths cut to pay for phase 15's [gspmd:families]: mamba2 24 ->
+#: 8, zamba2 38 -> 12 (two shared-block calls), qwen2-moe 24 -> 4,
+#: mixtral 8 -> 2, paligemma 18 -> 6; whisper-base is whole (6)
+FAMILY_SERVE = (("mamba2-130m", 8, 8, 64, 64), ("zamba2-1.2b", 12, 4, 32, 32),
+                ("qwen2-moe-a2.7b", 4, 4, 32, 32), ("mixtral-8x7b", 2, 4, 32, 32),
+                ("whisper-base", 6, 8, 32, 32), ("paligemma-3b", 6, 4, 32, 32))
 #: f32 decode against f32 forward over the served tokens: |Δlogit| <= this
 #: x max |forward logit| (CPU at full width, 4 / 8 layers: 1.9e-6 / 8.7e-6)
 FAMILY_F32_BAND_REL = 1e-3
@@ -4995,6 +5032,455 @@ def phase_multidevice(card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15 d: the MoE, SSM and hybrid families and the decode step on the mesh
+# ---------------------------------------------------------------------------
+
+#: [gspmd:families] a): the CPU tests' cases, run by their rank workers
+#: (tests/_torch_gspmd_families.py, which imports no JAX) on the card
+FAM_RTOL = 1e-5
+#: zamba2's state after steps 1 and 3, as a share of a leaf's scale: its
+#: gradients amplify noise — a 1e-7 relative change of the initial params
+#: moves the state by 1.4e-5 after one step and 3.4e-4 after three (CPU),
+#: so no other summation order meets 1e-5 there. On the card the mesh came
+#: 1.04e-5 / 1.8e-5 (two runs) and 2.2e-3 from one process.
+FAM_STATE_BAND = {"zamba2-1.2b": (1e-4, 1e-2)}
+#: [gspmd:families] b): full width, depth cut where a full depth does not
+#: fit the budget. mixtral trains only reduced (a): a full-width step would
+#: cost more of the card budget than its 2-layer cut pays for. mamba2 and
+#: zamba2 run in f32: in bf16 their losses drift apart by the third step
+#: (1.4e-3 and 4.9e-3 of the loss on the card), the SSM drift ROADMAP's
+#: parity traps record for their decode. A decode step on the mesh costs
+#: 0.2–3 s (4 processes time-slice one card, ~10 staged collectives a
+#: layer), so each case decodes 4 + 4 tokens, qwen2-0.5b 8 + 8.
+FAM_MOE_AXES, FAM_DENSE_AXES = ("data", "expert", "tp"), ("data", "model")
+GSPMD_FAMILIES_FULL = (
+    dict(name="qwen2-moe-a2.7b", depth=2, mesh=(2, 2, 1), axes=FAM_MOE_AXES,
+         train=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="mixtral-8x7b", depth=2, mesh=(1, 2, 2), axes=FAM_MOE_AXES,
+         train=None, batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="mamba2-130m", depth=24, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=(4, 512), batch=4, prompt=4, new=4, dtype="float32"),
+    dict(name="zamba2-1.2b", depth=6, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=(2, 512), batch=4, prompt=4, new=4, dtype="float32"),
+    dict(name="qwen2-0.5b", depth=24, mesh=(1, 4), axes=FAM_DENSE_AXES,
+         train=None, batch=4, prompt=8, new=8, dtype="bfloat16"),
+)
+#: training losses on the mesh against the one-process step
+FAM_FULL_LOSS_RTOL = 1e-3
+
+
+def _fam_harness():
+    path = str(ROOT / "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import _torch_gspmd_families as GF
+    return GF
+
+
+def _fam_small_rank(mesh, jobs) -> dict:
+    """One rank of [gspmd:families] a): its jobs, the 14 kernels'
+    launches (their counts set to 0 just before) and the bytes staged by
+    collective."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    GF = _fam_harness()
+    mesh.link.stats.reset()
+    reset_counts()
+    out = GF.rank(mesh, jobs, device="cuda")
+    return {"jobs": out, "launches": counts(ALL_KERNELS),
+            "staged": dict(mesh.link.stats.by_op)}
+
+
+def _fam_close(label, a, b, rtol) -> float:
+    """``a`` within ``rtol`` of ``b`` and of b's scale (max |b|); -> the
+    deviation over the scale."""
+    a, b = a.float(), b.float()
+    if a.shape != b.shape:
+        raise AssertionError(f"{label}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    diff = float((a - b).abs().max()) if b.numel() else 0.0
+    if not torch.allclose(a, b, rtol=rtol, atol=rtol * scale):
+        raise AssertionError(f"{label}: off by {diff} (scale {scale}, rtol {rtol})")
+    return diff / scale if scale else 0.0
+
+
+def _fam_close_trees(label, got, want, rtol) -> float:
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    if len(gl) != len(wl):
+        raise AssertionError(f"{label}: {len(gl)} leaves != {len(wl)}")
+    return max([_fam_close(label, a, b, rtol) for a, b in zip(gl, wl)] or [0.0])
+
+
+def _fam_hold(GF, label, path, case, got, want) -> str:
+    """One rank's ``path`` run of ``case`` against the one-process run at
+    the CPU tests' tolerances; -> what was held."""
+    if path == "train":
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+        if rel > FAM_RTOL:
+            raise AssertionError(f"{label}: losses {got['losses']} vs {want['losses']}")
+        for gm, wm in zip(got["metrics"], want["metrics"]):
+            for k in wm:
+                if abs(gm[k] - wm[k]) > FAM_RTOL * abs(wm[k]):
+                    raise AssertionError(f"{label}: metric {k} {gm[k]} vs {wm[k]}")
+        b1, b3 = FAM_STATE_BAND.get(case, (FAM_RTOL, FAM_RTOL))
+        first = _fam_close_trees(label + " first-step state", got["first"], want["first"],
+                                 b1)
+        last = _fam_close_trees(label + " final state", got["state"], want["state"], b3)
+        return (f"losses {[round(x, 6) for x in got['losses']]} (max rel {rel:.1e}); "
+                f"state after step 1 worst {first:.1e} (<= {b1}), after step "
+                f"{len(want['losses'])} worst {last:.1e} (<= {b3}) of a leaf's scale")
+    if path == "prefill":
+        worst = _fam_close(label, got["logits"], want["logits"], FAM_RTOL)
+        note = f"logits {tuple(want['logits'].shape)} worst {worst:.1e} of their scale"
+        if want["dispatch"]:
+            half = GF.BATCH // 2
+            rows = slice(got["row0"], got["row0"] + half)
+            for (e, cap, slot, keep), (we, wcap, wslot, wkeep) in zip(
+                    got["dispatch"], want["dispatch"]):
+                if not (cap == wcap and torch.equal(e, we[rows]) and torch.equal(
+                        slot, wslot[rows]) and torch.equal(keep, wkeep[rows])):
+                    raise AssertionError(f"{label}: dispatch of rows {rows} differs")
+            note += (f"; dispatch slots / keeps of its rows == one process in all "
+                     f"{len(want['dispatch'])} layers")
+        return note
+    worst = max(_fam_close(f"{label} step {t}", got["logits"][t], want["logits"][t],
+                           FAM_RTOL) for t in range(want["logits"].shape[0]))
+    if not torch.equal(got["tokens"], want["tokens"]):
+        raise AssertionError(f"{label}: greedy {got['tokens']} vs {want['tokens']}")
+    cache = _fam_close_trees(label + " cache", got["cache"], want["cache"], FAM_RTOL)
+    return (f"{want['logits'].shape[0]} steps' logits worst {worst:.1e}, greedy tokens "
+            f"equal, cache worst {cache:.1e} of a leaf's scale")
+
+
+def _fam_mesh_label(shape, axes) -> str:
+    return "(" + ", ".join(f"{a} {n}" for a, n in zip(axes, shape)) + ")"
+
+
+def phase_gspmd_families_small(card) -> dict:
+    """[gspmd:families] a): the CPU tests' reduced cases (f32) as gloo
+    ranks sharing the card — mesh A (data 2, expert 2, tp 2) for the MoE,
+    B (data 2, model 2) for mamba2 / zamba2 and qwen2-0.5b's KV-head
+    cache, C (data 1, model 4) for its sequence-sharded cache, spawned
+    side by side — each held against the one-process run on the card."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    GF = _fam_harness()
+    groups = {}
+    for name, mesh in GF.MESHES.items():
+        groups.setdefault(mesh, []).extend(
+            [("train", name), ("prefill", name), ("decode", name)])
+    for case, (_, mesh) in GF.DECODE.items():
+        if case not in GF.MESHES:
+            groups.setdefault(mesh, []).append(("decode", case))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(groups)) as ex:
+        futs = {mesh: ex.submit(spawn_ranks, _fam_small_rank, mesh[0], mesh[1],
+                                backend="gloo", device="cuda", args=(jobs,))
+                for mesh, jobs in groups.items()}
+        # meanwhile, the one-process runs on the card
+        wants = {}
+        for jobs in groups.values():
+            for path, case in jobs:
+                reset_counts()
+                wants[(path, case)] = GF.PATHS[path](None, case, "cuda")
+                if any(counts(ALL_KERNELS).values()):
+                    raise AssertionError(f"[gspmd:families] one-process {path} {case} "
+                                         f"launched {counts(ALL_KERNELS)}")
+        ranks = {mesh: f.result() for mesh, f in futs.items()}
+    wall = time.perf_counter() - t0
+    n = sum(math.prod(m[0]) for m in groups)
+    log(f"[gspmd:families] a) {n} gloo ranks on the card in {len(groups)} meshes, "
+        f"spawned side by side, the one-process runs meanwhile: "
+        f"{sum(map(len, groups.values()))} runs in {wall:.1f} s | {card}")
+    report = {"wall_s": wall}
+    for mesh, jobs in groups.items():
+        per_rank = ranks[mesh]
+        ml = _fam_mesh_label(*mesh)
+        for r, rec in enumerate(per_rank):
+            if any(rec["launches"].values()):
+                raise AssertionError(f"[gspmd:families] {ml} rank {r} launched "
+                                     f"{rec['launches']}")
+        for path, case in jobs:
+            want = wants[(path, case)]
+            label = f"[gspmd:families] a) {path} {case} {ml}"
+            notes = [_fam_hold(GF, f"{label} rank {r}", path, case, rec["jobs"][(path, case)],
+                               want) for r, rec in enumerate(per_rank)]
+            log(f"{label}: every rank == one process on the card: {notes[0]}")
+            report[label] = notes[0]
+        log(f"[gspmd:families] a) {ml}: the 14 kernels launched 0 times in every rank; "
+            f"rank 0 staged {per_rank[0]['staged']} B by collective over its "
+            f"{len(jobs)} runs | {card}")
+        report[f"staged {ml}"] = per_rank[0]["staged"]
+    return report
+
+
+def _fam_full_cfg(case: dict):
+    return dataclasses.replace(get_config(case["name"]), num_layers=case["depth"],
+                               dtype=case["dtype"])
+
+
+def _fam_staged(mesh) -> dict:
+    return dict(mesh.link.stats.by_op) if mesh is not None else {}
+
+
+def _fam_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def _fam_full_run(mesh, case) -> dict:
+    """A full-width case, on ``mesh`` (a rank) or in one process: the
+    training steps (timed, split, bytes staged by collective, the MoE's
+    routes of the first step's forward), then the decode (every step
+    timed, its staged bytes, its logits on rank 0 / one process, the
+    greedy tokens). The 14 kernels' counts are set to 0 first."""
+    name, depth, train = case["name"], case["depth"], case["train"]
+    B, P, new = case["batch"], case["prompt"], case["new"]
+    cfg = _fam_full_cfg(case)
+    model = build_model(cfg)
+    rec = {"index": mesh.index if mesh is not None else 0}
+    reset_counts()
+    if train:
+        Bt, S = train
+        opt = sgd_optimizer(0.1, momentum=0.9)
+        sync = SyncConfig(fused_update=False, flat_exchange=False)
+        batches = [TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=S,
+                                            batch_size=Bt)).batch_at(0, i)
+                   for i in range(GSPMD_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(model, opt, sync, 0, mesh=mesh)
+        split = {} if mesh is not None else None
+        step = make_train_step(model, opt, sync, mesh, split=split)
+        routes, orig = [], moe_mod._dispatch_indices
+
+        def recording(e, E, C):
+            if len(routes) < depth:         # the first step's forward
+                routes.append(e.cpu())
+            return orig(e, E, C)
+
+        t_rec = {"losses": [], "step_ms": [], "split": [], "staged": []}
+        moe_mod._dispatch_indices = recording
+        try:
+            for b in batches:
+                before = _fam_staged(mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b)
+                torch.cuda.synchronize()
+                t_rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                t_rec["losses"].append(float(met["loss"]))
+                t_rec["staged"].append(_fam_delta(before, _fam_staged(mesh)))
+                if split is not None:
+                    t_rec["split"].append({k: v * 1e3 for k, v in split.items()})
+                    split.clear()
+        finally:
+            moe_mod._dispatch_indices = orig
+        t_rec["routes"] = routes
+        t_rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if mesh is not None:
+            torch.distributed.barrier()             # every rank holds its state
+            free, total = torch.cuda.mem_get_info()
+            t_rec["card_used_mib"] = (total - free) / 2**20
+            torch.distributed.barrier()
+        rec["train"] = t_rec
+        del state, step
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(device="cuda", seed=0)
+    if mesh is not None:
+        with mesh.dtensor_collectives():
+            params = distribute(params, param_specs(params, mesh), mesh)
+    cache = model.init_cache(B, P + new, "cuda")
+    step = make_serve_step(model, mesh)
+    prompts = TokenPipeline(DataConfig(seed=1, vocab_size=256, seq_len=P,
+                                       batch_size=B)).batch_at(0, 0)["tokens"].cuda()
+    d_rec = {"step_ms": [], "staged": [], "tokens": []}
+    logits, tok = [], None
+    with torch.no_grad():
+        for t in range(P + new):
+            inp = prompts[:, t:t + 1] if t < P else tok
+            before = _fam_staged(mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, inp)
+            torch.cuda.synchronize()
+            d_rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            d_rec["staged"].append(_fam_delta(before, _fam_staged(mesh)))
+            last = lg[:, -1, :cfg.vocab_size].float()
+            if not bool(torch.isfinite(last).all()):
+                raise AssertionError(f"{name} decode step {t}: non-finite logits")
+            if rec["index"] == 0:
+                logits.append(last.cpu())
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            if t >= P - 1 and len(d_rec["tokens"]) < new:
+                d_rec["tokens"].append(tok.cpu())
+    d_rec["tokens"] = torch.cat(d_rec["tokens"], dim=1)
+    d_rec["logits"] = torch.stack(logits) if logits else None
+    d_rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if mesh is not None:
+        torch.distributed.barrier()
+        free, total = torch.cuda.mem_get_info()
+        d_rec["card_used_mib"] = (total - free) / 2**20
+        torch.distributed.barrier()
+    rec["decode"] = d_rec
+    rec["launches"] = counts(ALL_KERNELS)
+    del params, cache, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _fam_full_rank(world, cases) -> list:
+    """One rank of [gspmd:families] b) (a spawned process, the card
+    shared): every case in turn on its own layout of the same 4-rank world
+    (one process start for all of them), each case's wall seconds
+    beside its record."""
+    from repro_torch.launch.mesh import _mesh_over_world
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for case in cases:
+        t0 = time.perf_counter()
+        mesh = _mesh_over_world(case["mesh"], case["axes"], world.device,
+                                "[gspmd:families] b)")
+        rec = _fam_full_run(mesh, case)
+        torch.distributed.barrier()
+        rec["wall_s"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def _fam_route_diffs(case, rank_rec, want) -> tuple:
+    """(token, k) routes of the first step's forward on a rank against the
+    same rows of the one-process run: (differing, total)."""
+    shape, Bt = case["mesh"], case["train"][0]
+    data = shape[0]                                 # 'data' is the first axis
+    coord = rank_rec["index"] // math.prod(shape[1:])
+    rows = slice(coord * Bt // data, (coord + 1) * Bt // data)
+    diff = total = 0
+    for e, we in zip(rank_rec["train"]["routes"], want["train"]["routes"]):
+        diff += int((e != we[rows]).sum())
+        total += e.numel()
+    return diff, total
+
+
+def phase_gspmd_families(card) -> dict:
+    """[gspmd:families] b): the full-width cases as 4 gloo ranks sharing the
+    card (one spawn; each case on its own layout of the world), then each
+    in one process on the card from the same seed: training
+    losses within rtol 1e-3 (the difference printed; for the MoE how many
+    (token, k) routes differ), greedy decode tokens equal
+    wherever the one-process top-2 margin exceeds twice the logit band
+    measured over the teacher-forced prompt (``_logit_margins``, the serve
+    phases' rule); per rank the step ms and its split, ms a decode token,
+    bytes staged a step and a token by collective, peak memory and the
+    card's used MiB."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    n = {math.prod(c["mesh"]) for c in GSPMD_FAMILIES_FULL}.pop()
+    t0 = time.perf_counter()
+    all_ranks = spawn_ranks(_fam_full_rank, (n,), ("world",), backend="gloo",
+                            device="cuda", args=(GSPMD_FAMILIES_FULL,))
+    log(f"[gspmd:families] b) {n} gloo ranks on the card ran the {len(GSPMD_FAMILIES_FULL)} "
+        f"cases in {time.perf_counter() - t0:.1f} s (spawn and start-up once) | {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {}
+    for i, case in enumerate(GSPMD_FAMILIES_FULL):
+        name, depth, shape, axes = case["name"], case["depth"], case["mesh"], case["axes"]
+        train, B, P, new = case["train"], case["batch"], case["prompt"], case["new"]
+        ml = _fam_mesh_label(shape, axes)
+        label = f"[gspmd:families] b) {name} ({depth} layers, {case['dtype']}) {ml}"
+        ranks = [r[i] for r in all_ranks]
+        wall = ranks[0]["wall_s"]
+        torch.cuda.empty_cache()
+        want = _fam_full_run(None, case)
+        for r, rec in enumerate(ranks + [want]):
+            if any(rec["launches"].values()):
+                raise AssertionError(f"{label} run {r} launched {rec['launches']}")
+        out = {"wall_s": wall, "ranks": []}
+        numel = sum(a.numel() for a in tree_leaves(build_model(
+            _fam_full_cfg(case)).init(device="meta")))
+        log(f"{label}: {math.prod(shape)} ranks, {numel} params, trained and served in "
+            f"{wall:.1f} s; the 14 kernels launched 0 times in every rank and in the "
+            f"one-process run | {card}")
+        if train:
+            wl = want["train"]["losses"]
+            rel = max(max(abs(a - b) / abs(b) for a, b in zip(rec["train"]["losses"], wl))
+                      for rec in ranks)
+            if not rel <= FAM_FULL_LOSS_RTOL:
+                raise AssertionError(f"{label}: losses {ranks[0]['train']['losses']} vs "
+                                     f"one process {wl} (max rel {rel})")
+            note = ""
+            if want["train"]["routes"]:
+                diffs = [_fam_route_diffs(case, rec, want) for rec in ranks]
+                note = (f"; (token, k) routes of the first step differing from one "
+                        f"process: {[d for d, _ in diffs]} of {[t for _, t in diffs]} "
+                        f"a rank")
+                out["route_diffs"] = diffs
+            log(f"{label} train {GSPMD_STEPS} steps of {train[0]} x {train[1]}: losses "
+                f"{ranks[0]['train']['losses']} (one process {wl}, max rel {rel:.2e} <= "
+                f"{FAM_FULL_LOSS_RTOL}){note}; one-process step_ms "
+                f"{[round(x, 1) for x in want['train']['step_ms']]}, peak "
+                f"{want['train']['peak_mem_bytes'] / 2**30:.2f} GiB | {card}")
+            out.update(loss_rel=rel, losses=ranks[0]["train"]["losses"], want_losses=wl)
+        # decode: the band over the teacher-forced prompt, then the greedy tokens
+        got_l, want_l = ranks[0]["decode"]["logits"], want["decode"]["logits"]
+        band = float((got_l[:P] - want_l[:P]).abs().max())
+        scale = float(want_l[:P].abs().max())
+        margins = _logit_margins(want_l)
+        wt = want["decode"]["tokens"]
+        diverged = None
+        for rec in ranks:
+            gt = rec["decode"]["tokens"]
+            for j in range(new):
+                rows = gt[:, j].ne(wt[:, j])
+                if not bool(rows.any()):
+                    continue
+                if bool((margins[P - 1 + j][rows] > 2 * band).any()):
+                    raise AssertionError(f"{label}: greedy token {j} differs at a "
+                                         f"one-process margin > 2 x band {band}")
+                diverged = j if diverged is None else min(diverged, j)
+                break
+        log(f"{label} decode B {B}, {P}-token prompt + {new} greedy: logit band over "
+            f"the prompt {band:.4f} ({band / scale:.2e} of max |logit| {scale:.2f}); greedy "
+            f"tokens == one process ({'all' if diverged is None else f'until token {diverged}, where the one-process margin <= 2 x band'}); "
+            f"one-process ms a token {_ms_stats(want['decode']['step_ms'][P:])} | {card}")
+        out.update(band=band, scale=scale, diverged=diverged,
+                   want_ms_token=want["decode"]["step_ms"][P:])
+        for r, rec in enumerate(ranks):
+            row = {"decode_ms": rec["decode"]["step_ms"],
+                   "decode_staged": rec["decode"]["staged"],
+                   "decode_peak": rec["decode"]["peak_mem_bytes"],
+                   "decode_card_used_mib": rec["decode"]["card_used_mib"]}
+            tok_staged = rec["decode"]["staged"][P:]
+            per_tok = {k: sum(s.get(k, 0) for s in tok_staged) / len(tok_staged)
+                       for k in set().union(*tok_staged)}
+            msg = (f"{label} rank {r}: decode ms a token "
+                   f"{_ms_stats(rec['decode']['step_ms'][P:])}, staged a token "
+                   f"{ {k: round(v) for k, v in sorted(per_tok.items())} } B; ")
+            if train:
+                tr_ = rec["train"]
+                sp = tr_["split"][1:] or tr_["split"]
+                mean = lambda k: sum(x.get(k, 0.0) for x in sp) / len(sp)
+                row.update(step_ms=tr_["step_ms"], split=tr_["split"], staged=tr_["staged"],
+                           train_peak=tr_["peak_mem_bytes"],
+                           train_card_used_mib=tr_["card_used_mib"])
+                msg += (f"train step_ms {[round(x, 1) for x in tr_['step_ms']]}, steps "
+                        f"1-{GSPMD_STEPS - 1} mean split= forward + backward "
+                        f"{mean('fwd_bwd'):.1f} ms, gradient redistribute "
+                        f"{mean('grad_sync'):.1f} ms, update {mean('update'):.1f} ms; "
+                        f"staged a step {tr_['staged'][-1]} B; train peak "
+                        f"{tr_['peak_mem_bytes'] / 2**30:.2f} GiB, card used "
+                        f"{tr_['card_used_mib']:.0f} MiB; ")
+            msg += (f"decode peak {rec['decode']['peak_mem_bytes'] / 2**30:.2f} GiB, card "
+                    f"used {rec['decode']['card_used_mib']:.0f} MiB | {card}")
+            log(msg)
+            out["ranks"].append(row)
+        report[label] = out
+        del ranks, want
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 16: remat honoured, and the reference's three examples as modules
 # ---------------------------------------------------------------------------
 
@@ -5306,7 +5792,17 @@ def main() -> None:
     t1 = time.perf_counter()
     gspmd = phase_gspmd(dev, card)
     log("[gspmd] " + json.dumps(gspmd, default=str))
-    log(f"[gspmd] took {time.perf_counter() - t1:.1f} s; phase 15 took "
+    log(f"[gspmd] took {time.perf_counter() - t1:.1f} s | {card}")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fam_small = phase_gspmd_families_small(card)
+    log("[gspmd:families] a) " + json.dumps(fam_small, default=str))
+    log(f"[gspmd:families] a) took {time.perf_counter() - t1:.1f} s | {card}")
+    t2 = time.perf_counter()
+    fam = phase_gspmd_families(card)
+    log("[gspmd:families] b) " + json.dumps(fam, default=str))
+    log(f"[gspmd:families] b) took {time.perf_counter() - t2:.1f} s; [gspmd:families] "
+        f"took {time.perf_counter() - t1:.1f} s; phase 15 took "
         f"{time.perf_counter() - t0:.1f} s | {card}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -111,7 +111,9 @@ class LinkStats:
     """What a rank's ``Link`` moved and how long it took, summed over
     exchanges: the bytes staged device -> host and host -> device (0 when
     nothing is staged) and the seconds of those copies and of the
-    send / receive itself."""
+    send / receive itself; ``by_op`` splits the staged bytes (both ways)
+    by the collective that moved them, where the GSPMD path names it
+    (``sharding.staging``)."""
 
     messages: int = 0
     d2h_bytes: int = 0
@@ -119,6 +121,7 @@ class LinkStats:
     d2h_s: float = 0.0
     h2d_s: float = 0.0
     p2p_s: float = 0.0
+    by_op: dict = field(default_factory=dict)
 
     def reset(self) -> None:
         self.__init__()

@@ -9,8 +9,16 @@ The cache is updated in place (``Model.serve_step``), so one step moves
 the weights and the cache once and copies neither.
 
 ``cache_specs`` / ``token_specs`` are the reference's sharding specs for
-the decode state and the tokens (``sharding.P``), for a DTensor mesh; no
-sharded serve step runs them yet.
+the decode state and the tokens (``sharding.P``). With a ``mesh`` (a
+``launch.mesh.Mesh``, one process a device) ``make_serve_step`` and
+``make_prefill_step`` run on DTensors laid out by them and by
+``param_specs`` / ``batch_pspec``: the port's form of the reference's
+``jax.jit(..., in_shardings=...)`` of the serve step and of
+``model.forward`` (``repro/launch/dryrun.py``). In a rank::
+
+  step = make_serve_step(model, mesh)                     # this rank's card
+  params = distribute(params, param_specs(params, mesh), mesh)   # once
+  logits, cache = step(params, cache, tokens)             # every rank
 """
 from __future__ import annotations
 
@@ -18,17 +26,67 @@ from typing import Callable
 
 import torch
 
-from repro_torch.launch.train import resolve_device
+from repro_torch.launch.train import _mesh_device, _relayout, resolve_device
 from repro_torch.models.model import Model
-from repro_torch.sharding.rules import P, _leaf_name
+from repro_torch.sharding.rules import P, _leaf_name, batch_pspec, distribute, param_specs
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 
-def make_serve_step(model: Model) -> Callable:
-    def serve_step(params, cache, tokens):
-        return model.serve_step(params, cache, tokens)
+def make_serve_step(model: Model, mesh=None, *, device="cuda") -> Callable:
+    """``serve_step(params, cache, tokens) -> (logits, cache)``, one token
+    for every batch row; the cache is consumed (updated in place).
 
-    return serve_step
+    With a ``mesh``, every rank calls it: params, cache and tokens are laid
+    out by ``param_specs``, ``cache_specs`` and ``token_specs`` (plain
+    tensors holding the whole value on every rank are laid out at each
+    call; DTensors so laid out are taken as they are), and the step runs
+    on them under ``implicit_replication()`` and the mesh's
+    ``dtensor_collectives()``, as the train step does. The cache comes
+    back in its ``cache_specs`` layout (the reference's out_shardings),
+    the (B, 1, V) logits whole on every rank."""
+    device = _mesh_device(device, mesh)
+    if mesh is None:
+        def serve_step(params, cache, tokens):
+            return model.serve_step(params, cache, tokens)
+
+        return serve_step
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def mesh_serve_step(params, cache, tokens):
+        with mesh.dtensor_collectives(), implicit_replication():
+            params = distribute(params, param_specs(params, mesh), mesh)
+            cache = distribute(cache, cache_specs(cache, mesh), mesh)
+            tokens = distribute(tokens, token_specs(tuple(tokens.shape), mesh), mesh)
+            logits, new_cache = model.serve_step(params, cache, tokens)
+            new_cache = _relayout(new_cache, cache)
+            return logits.full_tensor(), new_cache
+
+    return mesh_serve_step
+
+
+def make_prefill_step(model: Model, mesh=None, *, device="cuda") -> Callable:
+    """``prefill(params, batch) -> logits``: ``model.forward`` with grad
+    off. With a ``mesh``, on params laid out by ``param_specs`` and a
+    batch by ``batch_pspec`` (each leaf's batch dim over the data axes),
+    as the train step's forward; the logits come back as the forward
+    leaves them (a DTensor, batch over the data axes)."""
+    device = _mesh_device(device, mesh)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        batch = {k: v.to(device) for k, v in batch.items()}
+        if mesh is None:
+            return model.forward(params, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with mesh.dtensor_collectives(), implicit_replication():
+            params = distribute(params, param_specs(params, mesh), mesh)
+            batch = distribute(batch, {k: batch_pspec(mesh, v.shape[0],
+                                                  extra_dims=v.ndim - 1)
+                                   for k, v in batch.items()}, mesh)
+            return model.forward(params, batch)
+
+    return prefill
 
 
 def _shardable(dim: int, mesh, axis: str) -> bool:
@@ -113,7 +171,7 @@ class BatchedServer:
         self.max_seq = max_seq
         self.device = resolve_device(device)
         self.cache = model.init_cache(batch, max_seq, self.device)
-        self._step = make_serve_step(model)
+        self._step = make_serve_step(model, device=self.device)
 
     def prefill_tokens(self, prompts: torch.Tensor) -> torch.Tensor:
         """Teacher-forced prefill by stepping the prompt one token at a

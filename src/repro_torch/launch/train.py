@@ -623,13 +623,8 @@ def make_mesh_step(model: Model, engine, sync: SyncConfig, mesh, *,
     grad_fn = make_grad_fn(model, microbatch, pin if microbatch > 1 else None)
 
     def place_batch(batch: dict) -> dict:
-        out = {}
-        for k, v in batch.items():
-            if not _is_dtensor(v):
-                v = distribute(v.to(mesh.device), _batch_spec(tuple(v.shape), mesh, C),
-                               mesh)
-            out[k] = v
-        return out
+        return {k: distribute(v, _batch_spec(tuple(v.shape), mesh, C), mesh)
+                for k, v in batch.items()}
 
     def client_step(params, opt, batch):
         with implicit_replication():

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, remat, rms_norm
-from repro_torch.sharding.rules import on_local_heads
+from repro_torch.sharding.rules import fit_heads, on_local_cache, on_local_heads
 
 NEG_INF = -1e30
 
@@ -70,9 +70,11 @@ def _project_qkv(params, x, x_kv, spec: AttnSpec, positions, kv_positions):
     v = x_kv @ params["wv"]
     if spec.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, -1, h, hd)
-    k = k.reshape(B, -1, kvh, hd)
-    v = v.reshape(B, -1, kvh, hd)
+    # on a mesh whose head axis does not divide the heads, the projection's
+    # columns are gathered before the split into heads (rules.fit_heads)
+    q = fit_heads(q, h).reshape(B, -1, h, hd)
+    k = fit_heads(k, kvh).reshape(B, -1, kvh, hd)
+    v = fit_heads(v, kvh).reshape(B, -1, kvh, hd)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -228,25 +230,53 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict,
     the same tensors, with ``index + 1`` a new tensor. Slot, mask and
     position stay on the device: no host sync. The scores and the value
     product read the (B, S, KV, D) cache in place, one strided KV head
-    at a time.
+    at a time. On a mesh each rank writes and reads its own shard of the
+    cache (``sharding.rules.on_local_cache``): its batch rows and KV
+    heads, or its slots of a sequence-sharded cache.
     """
     B = x.shape[0]
     idx = cache["index"]
     q, k_new, v_new = _project_qkv(params, x, x, spec, idx[None, None],
                                    idx[None, None])
-    k_cache, v_cache = cache["k"], cache["v"]
-    size = k_cache.shape[1]
-    slot = idx % size if spec.sliding_window > 0 else torch.clamp(idx, max=size - 1)
-    at = slot.long().reshape(1)
-    k_cache.index_copy_(1, at, k_new)
-    v_cache.index_copy_(1, at, v_new)
+    core = lambda *a, **kw: _decode_core(*a, spec=spec, **kw)
+    out = on_local_cache(core, q, k_new, v_new, cache["k"], cache["v"], idx)
+    out = out.reshape(B, 1, spec.num_heads * spec.head_dim) @ params["wo"]
+    return out, {"k": cache["k"], "v": cache["v"], "index": idx + 1}
 
-    KV, G, D = spec.num_kv_heads, spec.num_heads // spec.num_kv_heads, spec.head_dim
+
+def _decode_core(q, k_new, v_new, k_cache, v_cache, idx, *, spec: AttnSpec,
+                 lo: int = 0, size: int | None = None, seq_max=None,
+                 seq_sum=None) -> torch.Tensor:
+    """The cache write and the attention of one token over (B, S, KV, D)
+    caches that hold slots ``lo : lo + S`` of ``size``; ``seq_max`` /
+    ``seq_sum`` reduce over the ranks that hold the other slots (none in
+    one process). Returns (B, KV, G, D)."""
+    B = q.shape[0]
+    seq_max = seq_max or (lambda t: t)
+    seq_sum = seq_sum or (lambda t: t)
+    S = k_cache.shape[1]
+    size = S if size is None else size
+    slot = idx % size if spec.sliding_window > 0 else torch.clamp(idx, max=size - 1)
+    if lo == 0 and S == size:
+        at = slot.long().reshape(1)
+        k_cache.index_copy_(1, at, k_new)
+        v_cache.index_copy_(1, at, v_new)
+    else:
+        # only the rank whose slots hold ``slot`` writes its token there
+        inside = (slot >= lo) & (slot < lo + S)
+        at = torch.clamp(slot - lo, 0, S - 1).long().reshape(1)
+        k_cache.index_copy_(1, at, torch.where(
+            inside, k_new, k_cache.index_select(1, at)))
+        v_cache.index_copy_(1, at, torch.where(
+            inside, v_new, v_cache.index_select(1, at)))
+
+    KV, D = k_cache.shape[2], spec.head_dim
+    G = spec.num_heads // spec.num_kv_heads
     q = q.reshape(B, KV, G, D)
     s = torch.stack([q[:, h] @ k_cache[:, :, h].transpose(1, 2)
                      for h in range(KV)], dim=1)          # (B, KV, G, S)
     s = s.float() * (1.0 / math.sqrt(D))
-    slots = torch.arange(size, device=x.device)
+    slots = lo + torch.arange(S, device=q.device)
     if spec.sliding_window > 0:
         # rolling buffer: a slot is valid if written within the last `size`
         # steps (including the token just inserted at `slot`)
@@ -254,8 +284,7 @@ def decode_attention(params: dict, x: torch.Tensor, cache: dict,
     else:
         valid = slots <= idx
     s = torch.where(valid, s, NEG_INF)
-    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    p = (e / torch.sum(e, dim=-1, keepdim=True)).to(x.dtype)
-    out = torch.stack([p[:, h] @ v_cache[:, :, h] for h in range(KV)], dim=1)
-    out = out.reshape(B, 1, spec.num_heads * D) @ params["wo"]
-    return out, {"k": k_cache, "v": v_cache, "index": idx + 1}
+    e = torch.exp(s - seq_max(torch.amax(s, dim=-1, keepdim=True)))
+    p = (e / seq_sum(torch.sum(e, dim=-1, keepdim=True))).to(q.dtype)
+    return seq_sum(torch.stack([p[:, h] @ v_cache[:, :, h] for h in range(KV)],
+                               dim=1))

@@ -3,9 +3,16 @@
 FLOPs, no dense all-experts compute), load-balance auxiliary loss.
 
 Expert weights are stacked ``(L, E, d, f)`` per layer stack, as the
-reference's. Dispatch is per batch row (capacity ∝ S). The reference's
-GSPMD sharding hints (``shard_batch_dim``, ``_expert_extra``) are
-identities without a mesh and are left out.
+reference's. Dispatch is per batch row (capacity ∝ S). On a DTensor mesh
+(the GSPMD path) each rank routes and dispatches its own batch rows
+(``sharding.rules.local_rows``), so its slots and keeps are the
+one-process ones; the expert buffers carry the reference's hint
+(``expert_hint``: E on 'expert', the B·C rows on the data axes), the
+expert product runs on them as DTensors, and the reshard after it
+gathers each rank's rows of every expert over 'expert'
+(``local_expert_rows``). The aux loss's means over (B, S) are DTensor
+reductions over the data axes. On plain tensors every hint is the
+identity.
 
 Every step is deterministic on the CPU and on the card, and none waits
 for the device (capacity from Python ints, masks by ``torch.where``):
@@ -28,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, ffn, init_ffn
+from repro_torch.sharding.rules import (expert_buffer, expert_hint, local_expert_rows,
+                                        local_replica, local_rows, rows_like)
 
 
 def init_moe(gen, d_model: int, num_experts: int, num_shared: int,
@@ -80,54 +89,60 @@ def moe_block(params: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
               deterministic_capacity: Optional[int] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (out, aux_loss)."""
-    B, S, d = x.shape
+    _, S, d = x.shape
     E, K = num_experts, top_k
     capacity = deterministic_capacity or max(
         K, int(math.ceil(S * K * capacity_factor / E)))
-    logits = x.float() @ params["router"]                     # (B, S, E)
+    # routing and dispatch are per batch row: on a mesh, this rank's rows
+    xl = local_rows(x)
+    Bl, dev = xl.shape[0], xl.device
+    logits = xl.float() @ local_replica(params["router"], x)  # (Bl, S, E)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, K)                           # (B, S, K)
+    top_p, top_e = _top_k(probs, K)                           # (Bl, S, K)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
 
-    flat_e = top_e.reshape(B, S * K)
+    flat_e = top_e.reshape(Bl, S * K)
     slot, keep = _dispatch_indices(flat_e, E, capacity)
     safe_slot = torch.where(keep, slot, capacity - 1).long()
     # row (e, b, slot) of the expert buffers, laid out (E, B·C, d) so each
     # expert's tokens of every row are one operand of its product
-    rows = ((flat_e.long() * B + torch.arange(B, device=x.device)[:, None])
+    rows = ((flat_e.long() * Bl + torch.arange(Bl, device=dev)[:, None])
             * capacity + safe_slot).reshape(-1)
 
     # scatter into the buffers (drops add zeros); x[:, tok_ids] as an
     # expand, so its backward sums each token's K terms deterministically
-    xk = x[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
+    xk = xl[:, :, None, :].expand(Bl, S, K, d).reshape(Bl, S * K, d)
     vals = torch.where(keep[..., None], xk, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-    buf = torch.zeros((E * B * capacity, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, rows, vals.reshape(-1, d)).reshape(E, B * capacity, d)
+                                                        device=dev))
+    buf = torch.zeros((E * Bl * capacity, d), dtype=x.dtype, device=dev)
+    buf = buf.index_add(0, rows, vals.reshape(-1, d)).reshape(E, Bl * capacity, d)
+    buf = expert_buffer(buf, x)
 
     # grouped expert FFN, the reference's einsum "becd,edf->becf": one
     # batched product over E, each expert's weights read once (a (B, E, C,
     # d) @ (E, d, f) matmul would copy the weights B times to broadcast)
     g = buf @ params["moe_gate"]
     u = buf @ params["moe_up"]
-    y = (F.silu(g) * u) @ params["moe_down"]                  # (E, B·C, d)
+    y = expert_hint((F.silu(g) * u) @ params["moe_down"], x)  # (E, B·C, d)
 
     # gather back, weight by router prob, sum over k in k order
-    gathered = y.reshape(E * B * capacity, d).index_select(0, rows)
+    y = local_expert_rows(y, x)
+    gathered = y.reshape(E * Bl * capacity, d).index_select(0, rows)
     gathered = torch.where(keep.reshape(-1, 1), gathered,
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    w = top_p.reshape(B * S * K, 1).to(x.dtype)
-    terms = (gathered * w).reshape(B, S, K, d)
+                           torch.zeros((), dtype=x.dtype, device=dev))
+    w = top_p.reshape(Bl * S * K, 1).to(x.dtype)
+    terms = (gathered * w).reshape(Bl, S, K, d)
     out = terms[:, :, 0]
     for k in range(1, K):
         out = out + terms[:, :, k]
+    out = rows_like(out, x)
 
     if "shared" in params:
         out = out + ffn(params["shared"], x)
 
-    hit = (top_e[..., None] == torch.arange(E, device=x.device)).any(dim=2)
-    frac_tokens = torch.mean(hit.float(), dim=(0, 1))
-    frac_probs = torch.mean(probs, dim=(0, 1))
+    hit = (top_e[..., None] == torch.arange(E, device=dev)).any(dim=2)
+    frac_tokens = torch.mean(rows_like(hit.float(), x), dim=(0, 1))
+    frac_probs = torch.mean(rows_like(probs, x), dim=(0, 1))
     aux = aux_weight * E * torch.sum(frac_tokens * frac_probs)
     return out, aux
 

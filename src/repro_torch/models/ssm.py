@@ -12,8 +12,15 @@ than left to an einsum planner.
 The casts mirror the reference's: the SSD runs in f32 and returns the
 activation dtype, ``dt`` is ``softplus(dt.f32 + dt_bias)``, the skip term
 ``y + D·x`` and the causal conv (K shifted products summed in index
-order) run in the activation dtype, and the gated norm is ``rms_norm``'s
-``(1 + scale)``.
+order, in the full pass and in decode alike) run in the activation dtype,
+and the gated norm is ``rms_norm``'s ``(1 + scale)``.
+
+On a DTensor mesh (the GSPMD path) the causal conv, the SSD scan and
+their decode steps run on each rank's own batch rows and channels or
+heads (``sharding.rules.on_local_shards``; Bm / Cm are shared by every
+head), and the z | xBC | dt and x | B | C slices, which cross the 'model'
+shards of ``in_proj``'s output and of the conv channels, read those
+gathered over 'model'.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.rules import on_local_shards, unshard_dim
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -153,6 +161,9 @@ def init_mamba(gen, d_model: int, *, expand: int, head_dim: int, state: int,
 
 
 def _split_proj(proj, d_inner, state, nheads):
+    # the slices cross the 'model' shards of the projection's columns: on
+    # a mesh they are cut from its gather over 'model'
+    proj = unshard_dim(proj, -1)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:2 * d_inner + 2 * state]
     dt = proj[..., 2 * d_inner + 2 * state:]
@@ -175,6 +186,27 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return F.silu(out + b)
 
 
+def _conv_with_state(xbc, w, b, conv0=None):
+    """The causal conv of ``xbc`` (after ``conv0``'s K-1 tokens, where
+    given) and the last K-1 tokens of its input, the next conv state."""
+    K = w.shape[0]
+    if conv0 is not None:
+        xbc_in = torch.cat([conv0, xbc], dim=1)
+        return causal_conv(xbc_in, w, b)[:, conv0.shape[1]:], xbc_in[:, -(K - 1):]
+    return causal_conv(xbc, w, b), F.pad(xbc, (0, 0, K - 1, 0))[:, -(K - 1):]
+
+
+def _conv_step(conv_state, xbc, w, b):
+    """One token's conv: the K products of the window summed in index
+    order, as ``causal_conv``; -> (its output (B, 1, C), the window's last
+    K-1 tokens)."""
+    window = torch.cat([conv_state, xbc], dim=1)             # (B, K, conv)
+    acc = window[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + window[:, i] * w[i]
+    return F.silu(acc + b)[:, None], window[:, 1:]
+
+
 def mamba_block(params: dict, x: torch.Tensor, *, expand: int, head_dim: int,
                 state: int, chunk: int, h0=None, conv0=None):
     """x: (B, L, d). Returns (out, (h_final, conv_state))."""
@@ -182,21 +214,21 @@ def mamba_block(params: dict, x: torch.Tensor, *, expand: int, head_dim: int,
     d_inner, nheads, conv_dim = mamba_dims(d, expand, head_dim, state)
     proj = x @ params["in_proj"]
     z, xbc, dt = _split_proj(proj, d_inner, state, nheads)
-    K = params["conv_w"].shape[0]
-    if conv0 is not None:
-        xbc_in = torch.cat([conv0, xbc], dim=1)
-        conv_out = causal_conv(xbc_in, params["conv_w"],
-                               params["conv_b"])[:, conv0.shape[1]:]
-        conv_state = xbc_in[:, -(K - 1):]
-    else:
-        conv_out = causal_conv(xbc, params["conv_w"], params["conv_b"])
-        conv_state = F.pad(xbc, (0, 0, K - 1, 0))[:, -(K - 1):]
+    # each rank convolves its own batch rows and channels
+    conv_out, conv_state = on_local_shards(
+        _conv_with_state, (xbc, params["conv_w"], params["conv_b"], conv0),
+        [(0, 2), (None, 1), (None, 0), (0, 2)], [(0, 2), (0, 2)])
+    conv_out = unshard_dim(conv_out, -1)   # x | B | C cross the channel shards
     xs = conv_out[..., :d_inner].reshape(B, L, nheads, head_dim)
     Bm = conv_out[..., d_inner:d_inner + state]
     Cm = conv_out[..., d_inner + state:]
     dt = _softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, h = ssd_chunked(xs, dt, A, Bm, Cm, chunk, h0=h0)
+    # each rank scans its own batch rows and heads
+    y, h = on_local_shards(
+        lambda x_, dt_, A_, B_, C_, h_: ssd_chunked(x_, dt_, A_, B_, C_, chunk, h0=h_),
+        (xs, dt, A, Bm, Cm, h0),
+        [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1)], [(0, 2), (0, 1)])
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
     y = y.reshape(B, L, d_inner)
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
@@ -213,19 +245,22 @@ def mamba_decode(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
     d_inner, nheads, conv_dim = mamba_dims(d, expand, head_dim, state)
     proj = x @ params["in_proj"]
     z, xbc, dt = _split_proj(proj, d_inner, state, nheads)
-    window = torch.cat([conv_state, xbc], dim=1)             # (B, K, conv)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, params["conv_w"])
-                      + params["conv_b"])[:, None]
+    conv_out, new_conv = on_local_shards(
+        _conv_step, (conv_state, xbc, params["conv_w"], params["conv_b"]),
+        [(0, 2), (0, 2), (None, 1), (None, 0)], [(0, 2), (0, 2)])
+    conv_out = unshard_dim(conv_out, -1)
     xs = conv_out[..., :d_inner].reshape(B, nheads, head_dim)
     Bm = conv_out[:, 0, d_inner:d_inner + state]
     Cm = conv_out[:, 0, d_inner + state:]
     dt = _softplus(dt[:, 0].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, h = ssd_decode_step(ssm_state, xs, dt, A, Bm, Cm)
+    y, h = on_local_shards(
+        ssd_decode_step, (ssm_state, xs, dt, A, Bm, Cm),
+        [(0, 1), (0, 1), (0, 1), (None, 0), (0, None), (0, None)], [(0, 1), (0, 1)])
     y = y + params["D"].to(y.dtype)[None, :, None] * xs
     y = y.reshape(B, 1, d_inner)
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
-    return y @ params["out_proj"], (h, window[:, 1:])
+    return y @ params["out_proj"], (h, new_conv)
 
 
 def init_mamba_state(batch: int, d_model: int, *, expand: int, head_dim: int,

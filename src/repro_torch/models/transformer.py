@@ -32,7 +32,7 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (dense_init, ffn, gelu_ffn, init_ffn, init_mlp,
                                       layer_norm, mlp_ffn, remat, rms_norm)
 from repro_torch.models.moe import init_moe, moe_block
-from repro_torch.sharding.rules import maybe_seq_shard, unshard_dim
+from repro_torch.sharding.rules import maybe_seq_shard, shard_batch_dim, unshard_dim
 from repro_torch.tree import tree_map
 
 
@@ -94,21 +94,24 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # backward of a residual add
     x = unshard_dim(x, -2)
     h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
-    x = x + multi_head_attention(params["attn"], h, spec)
+    # the residual laid out as the batch after each add (on a mesh): left
+    # partial over the head axes, it reaches the next products in layouts
+    # whose sharding DTensor plans for minutes on a 3-axis mesh
+    x = shard_batch_dim(x + multi_head_attention(params["attn"], h, spec))
     h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
     if cfg.arch_type == "moe":
         y, aux = _moe(params, h, cfg)
     else:
         y = _dense_ffn(cfg)(params["mlp"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    return shard_batch_dim(x + y), aux
 
 
 def decode_block(params: dict, x: torch.Tensor, cache: dict,
                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     h = rms_norm(x, params["attn_norm"], cfg.norm_eps)
     a, cache = decode_attention(params["attn"], h, cache, attn_spec(cfg))
-    x = x + a
+    x = shard_batch_dim(x + a)
     h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
     if cfg.arch_type == "moe":
         # decode never drops: every row's K entries fit this capacity
@@ -116,7 +119,7 @@ def decode_block(params: dict, x: torch.Tensor, cache: dict,
         y, _ = _moe(params, h, cfg, max(K, (x.shape[0] * K + E - 1) // E + 1))
     else:
         y = _dense_ffn(cfg)(params["mlp"], h)
-    return x + y, cache
+    return shard_batch_dim(x + y), cache
 
 
 def init_stack(gen, cfg: ModelConfig, dtype, device) -> dict:

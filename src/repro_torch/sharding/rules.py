@@ -13,10 +13,15 @@ The reference hands its specs to XLA (``NamedSharding``), whose GSPMD
 inserts the collectives. The port hands them to ``torch.distributed.
 tensor``: ``placements`` turns a ``P`` into one DTensor placement per mesh
 axis, ``distribute`` lays a tree out, and DTensor's redistributes are the
-collectives. ``shard_batch_dim`` / ``maybe_seq_shard`` are the model code's
-hints: a redistribute on a DTensor, the tensor unchanged on a plain one.
-Unlike the reference's, they swallow no error: a redistribute that fails
-raises.
+collectives. ``shard_batch_dim`` / ``maybe_seq_shard`` / ``expert_hint``
+are the model code's hints: a redistribute on a DTensor, the tensor
+unchanged on a plain one. Unlike the reference's, they swallow no error:
+a redistribute that fails raises. Where DTensor cannot run a piece of the
+model on the card (a batched product over two sharded dims, a pad, an
+in-place cache write at a traced index), the piece runs on each rank's
+local shards: ``on_local_shards`` / ``on_local_heads`` (attention, the
+SSD scan, the convs), ``on_local_cache`` (decode attention),
+``local_rows`` / ``rows_like`` (the MoE's per-row routing and dispatch).
 """
 from __future__ import annotations
 
@@ -217,7 +222,9 @@ def placements(spec: P, mesh) -> list:
 def distribute(tree: Any, specs: Any, mesh, *, src_data_rank=None) -> Any:
     """Lay ``tree`` out as DTensors on ``mesh.dtensor_mesh`` by ``specs``
     (a ``P`` tree of the same structure): the counterpart of the
-    reference's ``param_shardings`` + ``jax.device_put``.
+    reference's ``param_shardings`` + ``jax.device_put``. Plain leaves
+    move to this rank's device first; DTensor leaves are taken as they
+    are laid out.
 
     ``src_data_rank=None`` (the default) skips the broadcast: every rank
     must hold the same full values — the port's ranks build their params
@@ -231,8 +238,8 @@ def distribute(tree: Any, specs: Any, mesh, *, src_data_rank=None) -> Any:
     if spec_def != treedef:
         raise ValueError(f"spec tree {spec_def} does not match {treedef}")
     return tree_unflatten(treedef, [
-        distribute_tensor(t, dm, placements(s, mesh),
-                          src_data_rank=src_data_rank)
+        t if _is_dtensor(t) else distribute_tensor(
+            t.to(mesh.device), dm, placements(s, mesh), src_data_rank=src_data_rank)
         for t, s in zip(leaves, spec_leaves)])
 
 
@@ -333,45 +340,254 @@ def shard_batch_dim(x: torch.Tensor, extra: tuple = ()) -> torch.Tensor:
     not divide (the reference's rules)."""
     if not _is_dtensor(x):
         return x
-    shape = mesh_shape(x.device_mesh)
-    batch_axes = tuple(a for a in ("pod", "data") if a in shape)
-    if not batch_axes or x.shape[0] % math.prod(shape[a] for a in batch_axes):
+    entry = _data_entry(x.device_mesh, x.shape[0])
+    if entry is None:
         return x
-    spec = P(batch_axes if len(batch_axes) > 1 else batch_axes[0], *extra)
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    return x.redistribute(x.device_mesh, placements(P(entry, *extra), x.device_mesh))
+
+
+def _data_entry(mesh, size: int):
+    """The ``P`` entry that lays a dim of ``size`` over the data axes
+    (('pod', 'data') jointly where both are present), or None where there
+    is none or they do not divide it."""
+    shape = mesh_shape(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in shape)
+    if not axes or size % math.prod(shape[a] for a in axes):
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _row_placements(x) -> list:
+    """``x``'s dim 0 over the data axes (where it divides), replicated over
+    the other axes: ``shard_batch_dim``'s layout."""
+    return placements(P(_data_entry(x.device_mesh, x.shape[0])), x.device_mesh)
+
+
+def local_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's own batch rows of ``x`` (dim 0) as a plain tensor: ``x``
+    laid out as ``shard_batch_dim`` lays it, then its local shard; its
+    gradient comes back in that layout. A plain tensor unchanged. Work
+    that is independent per batch row (the MoE's routing and dispatch)
+    runs on it as in one process."""
+    if not _is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, _row_placements(x)).to_local()
+
+
+def rows_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, this rank's rows of a result computed from
+    ``local_rows(like)``, as a DTensor laid out as ``local_rows`` read
+    ``like``; ``t`` itself when ``like`` is a plain tensor."""
+    if not _is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, like.device_mesh, _row_placements(like),
+                              run_check=False)
+
+
+def local_replica(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A replicated weight ``w`` whole, as a plain tensor, for work on
+    ``local_rows(like)``: its gradient on a rank covers that rank's rows
+    only, so it is partial over the data axes that split ``like``'s batch.
+    ``w`` itself when ``like`` is a plain tensor."""
+    if not _is_dtensor(like):
+        return w
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = like.device_mesh
+    rows = _row_placements(like)
+    return w.redistribute(mesh, [Replicate()] * len(rows)).to_local(
+        grad_placements=[Partial() if p != Replicate() else p for p in rows])
+
+
+def expert_hint(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The MoE's expert-buffer constraint for the port's (E, B·C, ...)
+    layout: E on 'expert' where the mesh has that axis and it divides E,
+    the B·C rows on the data axes where they divide ``like``'s batch B,
+    replicated over the other axes — the reference's ``shard_batch_dim(buf,
+    extra=_expert_extra(E))`` on its (B, E, C, d) buffers. Unchanged on a
+    plain tensor."""
+    if not _is_dtensor(y):
+        return y
+    mesh = y.device_mesh
+    shape = mesh_shape(mesh)
+    expert = ("expert" if "expert" in shape and y.shape[0] % shape["expert"] == 0
+              else None)
+    spec = P(expert, _data_entry(mesh, like.shape[0]))
+    return y.redistribute(mesh, placements(spec, mesh))
+
+
+def expert_buffer(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``buf``, an (E, B·C, ...) dispatch buffer of this rank's rows of
+    ``like`` (routed from ``local_rows(like)``), as a DTensor with the B·C
+    rows laid out as ``like``'s batch, then under ``expert_hint`` (no
+    collective: each rank keeps its experts' slice). ``buf`` itself when
+    ``like`` is a plain tensor."""
+    if not _is_dtensor(like):
+        return buf
+    from torch.distributed.tensor import DTensor
+
+    mesh = like.device_mesh
+    pl = placements(P(None, _data_entry(mesh, like.shape[0])), mesh)
+    return expert_hint(DTensor.from_local(buf, mesh, pl, run_check=False), like)
+
+
+def local_expert_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Every expert's slots of this rank's rows of an (E, B·C, ...) expert
+    output, as a plain tensor: the B·C rows kept on the data axes as
+    ``like``'s batch is, and E gathered over the axes that split it — the
+    reshard after the expert FFN, an all-gather over 'expert' (the batch
+    is never split there) — then the local shard. A plain tensor
+    unchanged."""
+    if not _is_dtensor(y):
+        return y
+    mesh = y.device_mesh
+    spec = P(None, _data_entry(mesh, like.shape[0]))
+    return y.redistribute(mesh, placements(spec, mesh)).to_local()
+
+
+def fit_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """``x`` (..., heads·head_dim) ready to split its last dim into
+    ``heads``: a DTensor whose last dim is sharded over more ways than
+    divide ``heads`` (a 4-way 'model' over 2 KV heads; the param rules
+    shard the columns wherever the axis divides them) is gathered over
+    that dim first — a shard that splits a head cannot be viewed as
+    heads. Unchanged otherwise."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    ways = math.prod(n for n, pl in zip(x.device_mesh.shape, x.placements)
+                     if isinstance(pl, Shard) and pl.dim % x.ndim == x.ndim - 1)
+    return x if heads % ways == 0 else unshard_dim(x, -1)
 
 
 def on_local_heads(fn, *xs: torch.Tensor) -> torch.Tensor:
     """``fn(*xs)`` with each rank computing on its own batch rows and
-    heads: ``xs`` share dim 0 (batch) and dim 1 (heads), which are laid
-    out over the data axes and over the other axes respectively (each
-    axis where it divides, else replicated); ``fn`` runs on the local
-    shards and its output (batch and heads first as well) keeps that
-    layout. Attention is independent per row and head, so no collective
-    is needed inside. On plain tensors, simply ``fn(*xs)``.
+    heads: ``xs`` share dim 0 (batch) and dim 1 (heads), and so does
+    ``fn``'s output (``on_local_shards``). Attention is independent per
+    row and head, so no collective is needed inside.
 
     DTensor cannot run the attention core itself on the card: CUDA's
     batched matmul flattens the (batch, heads, group) dims with a view,
     and DTensor refuses to flatten two sharded dims."""
+    return on_local_shards(fn, xs, [(0, 1)] * len(xs), (0, 1))
+
+
+def on_local_shards(fn, xs, dims, out_dims):
+    """``fn(*xs)`` with each rank computing on its own batch rows and
+    heads. ``dims`` gives each input's (batch dim, heads dim), either None
+    where the input has no such dim; ``out_dims`` the same for the output
+    (one pair) or for each of a tuple of outputs. The batch is laid out
+    over the data axes and the heads over the other axes, each axis where
+    it divides (the batch of the first input that has one, the heads
+    likewise), else replicated; ``fn`` runs on the local shards and its
+    outputs keep that layout. An input without one of the dims is
+    replicated over that dim's axes, and its gradient is partial there
+    (each rank's rows or heads add their share). None inputs pass through.
+    On plain tensors, simply ``fn(*xs)``.
+
+    The SSD scan (``models/ssm``) runs so: x (B, L, H, P), dt (B, L, H),
+    A (H,), Bm / Cm (B, L, N) shared by every head."""
     if not any(_is_dtensor(x) for x in xs):
         return fn(*xs)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = next(x for x in xs if _is_dtensor(x)).device_mesh
-    B, H = xs[0].shape[0], xs[0].shape[1]
-    pl, b_ways, h_ways = [], 1, 1
+    B = next(x.shape[b] for x, (b, _) in zip(xs, dims)
+             if x is not None and b is not None)
+    H = next(x.shape[h] for x, (_, h) in zip(xs, dims)
+             if x is not None and h is not None)
+    role, b_ways, h_ways = [], 1, 1
     for axis, n in mesh_shape(mesh).items():
         if axis in ("pod", "data") and B % (b_ways * n) == 0:
-            pl.append(Shard(0))
+            role.append("batch")
             b_ways *= n
         elif axis not in ("pod", "data") and H % (h_ways * n) == 0:
-            pl.append(Shard(1))
+            role.append("heads")
             h_ways *= n
         else:
-            pl.append(Replicate())
-    out = fn(*[_ContiguousGrad.apply(x.redistribute(mesh, pl).to_local())
-               for x in xs])
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+            role.append(None)
+
+    def layout(bh):
+        pl, grad = [], []
+        for r in role:
+            d = {"batch": bh[0], "heads": bh[1]}.get(r)
+            pl.append(Replicate() if d is None else Shard(d))
+            grad.append(Partial() if r is not None and d is None else pl[-1])
+        return pl, grad
+
+    local = []
+    for x, bh in zip(xs, dims):
+        if x is None:
+            local.append(None)
+            continue
+        pl, grad = layout(bh)
+        if not _is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * len(pl),
+                                   run_check=False)
+        local.append(_ContiguousGrad.apply(
+            x.redistribute(mesh, pl).to_local(grad_placements=grad)))
+    out = fn(*local)
+    single = not isinstance(out, tuple)
+    outs, odims = ((out,), (out_dims,)) if single else (out, out_dims)
+    wrapped = tuple(DTensor.from_local(o, mesh, layout(bh)[0], run_check=False)
+                    for o, bh in zip(outs, odims))
+    return wrapped[0] if single else wrapped
+
+
+def on_local_cache(fn, q, k_new, v_new, k_cache, v_cache, index):
+    """One decode token's attention with each rank writing and reading its
+    own shard of a (B, S, KV, D) cache laid out by ``cache_specs``: the
+    batch over 'data', and the KV heads over 'model' or, where 'model'
+    does not divide them, the sequence. q (B, 1, H, D) and the new k / v
+    (B, 1, KV, D) are laid out to match (q's heads grouped with their KV
+    head), ``index`` is replicated. ``fn(q, k_new, v_new, k_cache,
+    v_cache, index, lo=, size=, seq_max=, seq_sum=)`` runs on the local
+    shards, its cache holding slots ``lo : lo + S_local`` of ``size``;
+    ``seq_max`` / ``seq_sum`` all-reduce over the axes that split the
+    sequence (the softmax's max and sum and the value product are
+    contractions over it). Its (B, KV, G, D) output comes back laid out
+    as the batch and the KV heads. On plain tensors, ``fn`` over the whole
+    cache."""
+    if not _is_dtensor(k_cache):
+        return fn(q, k_new, v_new, k_cache, v_cache, index)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = k_cache.device_mesh
+    shape = mesh_shape(mesh)
+    role = {0: "batch", 1: "seq", 2: "heads"}
+    roles = []
+    for axis, pl in zip(shape, k_cache.placements):
+        if isinstance(pl, Shard) and pl.dim not in role:
+            raise ValueError(f"cache sharded on dim {pl.dim} over {axis!r}")
+        roles.append(role[pl.dim] if isinstance(pl, Shard) else None)
+    new_pl = [Shard(0) if r == "batch" else Shard(2) if r == "heads"
+              else Replicate() for r in roles]
+    local = lambda x: x.redistribute(mesh, new_pl).to_local()
+    seq_axes = [a for a, r in zip(shape, roles) if r == "seq"]
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    block = 0
+    for axis in seq_axes:       # mesh-major, as DTensor lays the shards out
+        block = block * shape[axis] + coord[axis]
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+
+    def over_seq(op):
+        def reduce(t):
+            for axis in seq_axes:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, mesh.get_group(axis)))
+            return t
+        return reduce
+
+    out = fn(local(q), local(k_new), local(v_new), kc, vc,
+             index.redistribute(mesh, [Replicate()] * len(roles)).to_local(),
+             lo=block * kc.shape[1], size=k_cache.shape[1],
+             seq_max=over_seq("max"), seq_sum=over_seq("sum"))
+    out_pl = [Shard(0) if r == "batch" else Shard(1) if r == "heads"
+              else Replicate() for r in roles]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -13,7 +13,11 @@ tensors over the same gloo group — same algorithm, same values — and the
 outputs copied back to the card. ``StagedCollectives`` is the dispatch
 mode that does so; the mesh step enters it when its ``Link`` is staged
 (gloo with a card device: a property of the configuration, not of what
-the run finds). The bytes and seconds land in the ``Link``'s ``stats``.
+the run finds). The bytes and seconds land in the ``Link``'s ``stats``,
+the bytes also by collective (``stats.by_op``: all-gather, reduce-scatter,
+all-reduce, all-to-all, over whichever axis the op's group spans — the
+model's tensor- and expert-parallel reshards and the MoE's expert
+gather as much as the gradient sync).
 """
 from __future__ import annotations
 
@@ -60,6 +64,15 @@ class StagedCollectives(TorchDispatchMode):
         if name in _PASS_THROUGH:
             # staged results are complete: there is no work to wait for
             return args[0] if name == "wait_tensor" else func(*args, **kwargs)
+        stats = self.link.stats
+        before = stats.d2h_bytes + stats.h2d_bytes
+        try:
+            return self._staged(func, args, kwargs, dev)
+        finally:
+            stats.by_op[name] = (stats.by_op.get(name, 0) + stats.d2h_bytes
+                                 + stats.h2d_bytes - before)
+
+    def _staged(self, func, args, kwargs, dev):
         host = lambda x: (self.link._to_host(x.contiguous())
                           if isinstance(x, torch.Tensor) else x)
         h_args, h_kwargs = tree_map(host, list(args)), tree_map(host, kwargs)

@@ -986,3 +986,32 @@ def test_gspmd_on_the_card_equals_one_process(cuda):
                 scale = float(b.float().abs().max()) if b.numel() else 0.0
                 torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
                                            atol=1e-5 * scale)
+
+
+def test_moe_on_the_card_mesh_equals_one_process(cuda):
+    """The reduced qwen2-moe on 4 gloo ranks of the card laid out ('data',
+    'expert', 'tp') = (2, 2, 1) — each rank routing its own rows, the
+    expert buffers on 'expert', every DTensor collective staged — against
+    the one-process run on the card: one momentum-SGD step (loss and the
+    gathered state within rtol 1e-5 of the value and of each leaf's
+    scale) and one decode token (logits and cache within the same)."""
+    import _torch_gspmd_families as G
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.tree import tree_leaves
+
+    ranks = spawn_ranks(G.card_case, (2, 2, 1), G.MOE_AXES, backend="gloo",
+                        device="cuda", args=("cuda",))
+    want = G.card_case(None, "cuda")
+
+    def close(a, b):
+        scale = float(b.float().abs().max()) if b.numel() else 0.0
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5, atol=1e-5 * scale)
+
+    for r in ranks:
+        torch.testing.assert_close(torch.tensor(r["train"]["losses"]),
+                                   torch.tensor(want["train"]["losses"]), rtol=1e-5, atol=0)
+        for a, b in zip(tree_leaves(r["train"]["state"]), tree_leaves(want["train"]["state"])):
+            close(a, b)
+        close(r["decode"]["logits"], want["decode"]["logits"])
+        for a, b in zip(tree_leaves(r["decode"]["cache"]), tree_leaves(want["decode"]["cache"])):
+            close(a, b)
