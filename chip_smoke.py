@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               kernel x10, kernel x10, library x10; median and min–max)
   3. slice    a) the reduced model, 3 steps per optimizer on the card
                  against the same steps on the CPU (a small reference)
-              b) full-width qwen2-0.5b in bf16, batch 8 x seq 512, through
+              b) full-width qwen2-0.5b in bf16 (8 of its 24 layers), batch
+                 8 x seq 512, through
                  make_train_state -> make_train_step -> FlatEngine, a few
                  mpi-SGD steps each for sgd, adamw and adagrad, with the
                  kernels' launch counts set to 0 just before and read just
@@ -29,7 +30,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               a) the reduced model, 3 steps of the (2, 2) shard driver
                  (mpi_esgd, int8 wire) and of the C = 2 multi-client step,
                  card against CPU
-              b) full-width qwen2-0.5b in bf16, 6 momentum-SGD steps per
+              b) full-width qwen2-0.5b in bf16 (8 of its 24 layers), 6
+                 momentum-SGD steps per
                  run, each run's launch counts set to 0 just before it and
                  read just after: the C = 2 multi-client train step; the
                  (2, 2) shard driver (mpi_esgd, f32 wire, then int8); the
@@ -42,7 +44,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               a) the reduced model, all six modes (and mpi-/dist-ESGD over
                  the int8 wire) on the card against the CPU: the simulated
                  clock equal, losses and eval metrics within rtol 1e-4
-              b) full-width qwen2-0.5b in bf16, mpi-ESGD with 4 workers in
+              b) full-width qwen2-0.5b in bf16 (8 of its 24 layers),
+                 mpi-ESGD with 4 workers in
                  2 clients, 2 x 512 tokens per worker, 4 iterations per
                  client (8 completions, 4 exchanges), over the int8 PS wire
                  and then the f32 one: launch counts, finite losses, the
@@ -59,7 +62,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  push; mpi_esgd over the per-leaf int8 codec: a kill and a
                  straggler), the clock and the robustness counters equal;
                  then drive(p=4) under a kill and a rejoin, card == CPU
-              b) [faults] full-width qwen2-0.5b in bf16: (i) mpi-ESGD
+              b) [faults] full-width qwen2-0.5b in bf16 (8 of its 24
+                 layers): (i) mpi-ESGD
                  through algorithms.run over the per-leaf int8 PS wire
                  (flat_exchange=False) under a straggle, a retried drop
                  and a kill; (ii) a list push of two full-width bf16 grad
@@ -74,8 +78,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  and the (2, 2) driver (f32); losses within rtol 1e-4;
                  the int8 codes and each bucket leg on identical inputs
                  card == CPU
-              b) [overlap] full-width qwen2-0.5b in bf16, 4 schedule
-                 buckets: the p = 4 driver (momentum SGD, 6 steps of
+              b) [overlap] full-width qwen2-0.5b in bf16 (8 of its 24
+                 layers), 4 schedule
+                 buckets: the p = 4 driver (momentum SGD, 4 steps of
                  2 x 512 per device) over the f32 and then the int8 wire,
                  each beside the same run without overlap; then
                  make_train_step at p = 1 with AdamW (8 x 512, 3 steps).
@@ -213,7 +218,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  bytes per rank == emulated == the cost model, every rank
                  holding /dev/nvidia*; then one NCCL rank (p = 1) == the
                  emulated p = 1 step
-              b) [mesh] full-width qwen2-0.5b, 4 gloo ranks on the card,
+              b) [mesh] full-width qwen2-0.5b (8 of 24 layers), 4 gloo ranks,
                  momentum SGD over the int8 then the f32 wire, 3 steps each on
                  [overlap]'s batches without overlap: losses falling and
                  within rtol 1e-6 of that run's, sgd_momentum_flat once a step
@@ -226,56 +231,62 @@ Phases (any failure exits non-zero; no phase carries on past its own):
               make_train_step(mesh) on DTensor state over gloo ranks sharing
               the card (every DTensor collective staged through pinned host
               memory), per-leaf updates, none of the 14 kernels (their launch
-              counts, set to 0 in each rank before its steps, printed as 0):
-              a) [gspmd:small] the reduced model, 3 steps a case, the two
-                 layouts spawned side by side (and beside c): (data 2,
-                 model 2) mpi_sgd with sgd, adamw, adagrad, fsdp=True and
-                 seq_shard_activations=True; (pod 2, data 1, model 2)
-                 mpi_esgd C = 2 — each held against the one-process per-leaf step on the card
-                 (losses and the gathered state within rtol 1e-5)
-              b) [gspmd] full-width qwen2-0.5b as 4 ranks (data 2, model 2),
-                 3 momentum-SGD steps of 4 x 512: losses within rtol 1e-4 of
-                 the one-process per-leaf step on the same batches; per rank
-                 step ms split into forward + backward (with the
-                 tensor-parallel collectives), the gradient redistribute and
-                 the update, bytes staged a step, peak memory, the card's
-                 used MiB
-              c) [multidevice] python -m repro_torch.launch.multidevice_train:
-                 8 ranks (pod 2, data 2, model 2), the reduced model, 12
-                 mpi-ESGD steps; the loss falls, the consensus line printed
-              d) [gspmd:families] (slice 16) the MoE, SSM and hybrid families
-                 and the decode step on the mesh, none of the 14 kernels
-                 launched in any rank or one-process run:
-                 a) the CPU tests' reduced cases (f32; the rank workers of
-                    tests/_torch_gspmd_families.py) as gloo ranks sharing
-                    the card, three meshes spawned side by side — (data 2,
-                    expert 2, tp 2) for qwen2-moe-a2.7b and mixtral-8x7b,
-                    (data 2, model 2) for mamba2-130m, zamba2-1.2b and
-                    qwen2-0.5b's KV-head cache, (data 1, model 4) for its
-                    sequence-sharded cache: 3 steps (losses, metrics, the
-                    state after steps 1 and 3), a prefill (logits, the MoE's
-                    slots and keeps of each rank's rows) and 16 + 8 decode
-                    tokens (logits, greedy tokens, cache) each within rtol
-                    1e-5 of the one-process run on the card (zamba2's state
-                    within 1e-4 / 1e-2 of a leaf's scale after steps 1 / 3)
-                 b) full width, one case at a time, each as gloo ranks then
-                    in one process: qwen2-moe-a2.7b (bf16, 2 of 24 layers,
-                    (data 2, expert 2, tp 1), 3 steps of 4 x 512),
-                    mixtral-8x7b (bf16, 2 of 32, (data 1, expert 2, tp 2),
-                    decode only), mamba2-130m (f32, 24, (data 2, model 2),
-                    4 x 512), zamba2-1.2b (f32, 6 of 38, (data 2, model 2),
-                    2 x 512), each decoding B 4, 4 + 4 tokens; qwen2-0.5b
-                    (bf16, 24, (data 1, model 4), sequence-sharded cache)
-                    decoding B 4, 8 + 8: losses within rtol 1e-3 of one
-                    process, the MoE's differing routes counted, greedy
-                    tokens equal wherever the one-process top-2 margin
-                    exceeds twice the logit band over the prompt; per rank
-                    step ms and its split, ms a token, bytes staged a step
-                    and a token by collective,
-                    peak memory and the card's used MiB
+              counts, set to 0 in each rank before its steps, printed as 0).
+              First the correctness runs, all side by side (their wall times
+              are no measurement):
+              a) [gspmd:small] the reduced model, 3 steps a case, one spawn
+                 a layout: (data 2, model 2) mpi_sgd with sgd, adamw,
+                 adagrad, fsdp=True and seq_shard_activations=True; (pod 2,
+                 data 1, model 2) mpi_esgd C = 2 — each held against the
+                 one-process per-leaf step on the card (losses and the
+                 gathered state within rtol 1e-5)
+              c) [multidevice] python -m repro_torch.launch.multidevice_train
+                 --steps 4: 8 ranks (pod 2, data 2, model 2), the reduced
+                 model, mpi-ESGD; the loss falls, the consensus line printed
+              d) a) [gspmd:families] the CPU tests' reduced cases (f32; the
+                 rank workers of tests/_torch_gspmd_families.py), three
+                 worlds — 8 ranks for qwen2-moe-a2.7b and mixtral-8x7b on
+                 (data 2, expert 2, tp 2); 4 for mamba2-130m, zamba2-1.2b
+                 and qwen2-0.5b's caches on (data 2, model 2) / (data 1,
+                 model 4); 4 for whisper-base, paligemma-3b, qwen2.5-3b,
+                 qwen3-4b and phi3-medium-14b on (data 2, model 2) and
+                 qwen2.5-3b on (data 1, model 4): 3 steps (losses, metrics,
+                 the state after steps 1 and 3), a prefill (logits, the
+                 MoE's slots and keeps of each rank's rows) and an 8 + 4
+                 token decode (logits, greedy tokens, cache) each within
+                 rtol 1e-5 of the one-process run on the card (zamba2's
+                 state within 1e-4 / 1e-2 of a leaf's scale after steps 1 /
+                 3); each world's rank 0 prints its seconds a run
+              Then the full-width runs, in one spawn of 4 ranks, each on its
+              own layout of it, then each in one process:
+              b) [gspmd] qwen2-0.5b at 8 of 24 layers, (data 2, model 2), 3
+                 momentum-SGD steps of 4 x 512: losses within rtol 1e-4 of
+                 the one-process per-leaf step; per rank step ms split into
+                 forward + backward (with the tensor-parallel collectives),
+                 the gradient redistribute and the update, bytes staged a
+                 step, peak memory, the card's used MiB
+              d) b) [gspmd:families] qwen2-moe-a2.7b (bf16, 2 of 24 layers,
+                 (data 2, expert 2, tp 1), 3 steps of 4 x 512), mixtral-8x7b
+                 (bf16, 2 of 32, (data 1, expert 2, tp 2), decode only),
+                 mamba2-130m (f32, 8 of 24, 4 x 512), zamba2-1.2b (f32, 6
+                 of 38, 2 x 512), each decoding B 4, 2 + 2 tokens, and
+                 qwen2-0.5b (bf16, 8 of 24, (data 1, model 4),
+                 sequence-sharded cache) decoding 4 + 4;
+                 c) whisper-base (6 + 6) and paligemma-3b (2 of 18) trained
+                 3 steps, qwen2.5-3b, qwen3-4b (2 of 36) on (data 2, model 2)
+                 and phi3-medium-14b (2 of 40) on (data 1, model 4), all
+                 bf16, prefilled (the last 8 positions' logits within 4 % of
+                 max |logit|) and decoding B 4, 4 + 4 tokens. Losses within
+                 rtol 1e-3 of one process, the MoE's differing routes
+                 counted, greedy tokens equal wherever the one-process top-2
+                 margin exceeds twice the logit band over the prompt; per
+                 rank step ms and its split, ms a token, bytes staged a
+                 step, a prefill and a token by collective, peak memory and
+                 the card's used MiB
  16. remat    slice 15, each sub-phase's wall time printed, then the whole
               smoke's:
-              a) [remat] full-width qwen2-0.5b, one sequence of 4096 tokens,
+              a) [remat] full-width qwen2-0.5b (8 of its 24 layers), one
+                 sequence of 4096 tokens,
                  momentum SGD on the main path: 3 steps with remat=True and
                  3 with remat=False in turns from the same weights and
                  batches — losses (within rtol 1e-3 of each other, and
@@ -470,6 +481,10 @@ FAULT_KERNELS = {
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:69"),
 }
 ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS, **PS_KERNELS, **FAULT_KERNELS}
+#: the full-width qwen2-0.5b of the slice, [esgd], [ps], [faults],
+#: [overlap], [mesh] and [remat]: 8 of its 24 layers (cut to keep the smoke
+#: in its time; phase 2's kernels and the serve phases keep all 24)
+RUN_DEPTH = 8
 #: slice 2's full-width runs: 6 momentum-SGD steps each, global batch
 #: 8 x 512 (C = 2 clients of 4 x 512; 4 devices of 2 x 512)
 ESGD_STEPS = 6
@@ -488,14 +503,14 @@ FAULTS_SCHED = "straggle@0:unit=0:factor=3:duration=2;drop@2:unit=0:duration=1;k
 DRIVE_SCHED = "kill@2:unit=3;restart@4:unit=3"
 DRIVE_STEPS = 6
 #: slice 7's full-width runs: 4 schedule buckets ([embed] + 2 layer slices
-#: + [head]); the p = 4 driver takes 6 momentum-SGD steps of 2 x 512 per
+#: + [head]); the p = 4 driver takes 4 momentum-SGD steps of 2 x 512 per
 #: device, the p = 1 train step 3 AdamW steps of 8 x 512
 OVERLAP_BUCKETS = 4
-OVERLAP_STEPS = 6
+OVERLAP_STEPS = 4
 OVERLAP_ADAMW_STEPS = 3
 #: the full-width schedule's issue-order share at p = 4
-#: (cost_model.overlap_fraction of the bucket bytes)
-OVERLAP_SHARE_P4 = 0.7242739853201428
+#: (cost_model.overlap_fraction of the bucket bytes) at RUN_DEPTH layers
+OVERLAP_SHARE_P4 = 0.4668376342362558
 
 
 def log(msg: str) -> None:
@@ -782,8 +797,13 @@ def _breakdown(model, settings, state, batch, dev) -> dict:
     return {"grad_ms": grad_ms, "update_ms": update_ms, "pack_ms": pack_ms}
 
 
+def _run_cfg():
+    """Full-width qwen2-0.5b at ``RUN_DEPTH`` layers."""
+    return dataclasses.replace(get_config("qwen2-0.5b"), num_layers=RUN_DEPTH)
+
+
 def phase_slice(dev) -> tuple[dict, dict, object]:
-    cfg = get_config("qwen2-0.5b")
+    cfg = _run_cfg()
     model = build_model(cfg)
     spec = grad_spec(model)
     pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512,
@@ -1213,7 +1233,7 @@ def _check_launches(label, got, want, steps: int = ESGD_STEPS) -> None:
 
 
 def phase_esgd(dev) -> tuple[dict, dict]:
-    cfg = get_config("qwen2-0.5b")
+    cfg = _run_cfg()
     model = build_model(cfg)
     spec = grad_spec(model)
     opt = sgd_optimizer(ESGD_LR, momentum=0.9)
@@ -1565,7 +1585,7 @@ def _ps_split(cfg, model, grad, params, center, batches) -> dict:
 
 
 def phase_ps(dev) -> tuple[dict, dict, dict]:
-    cfg_model = get_config("qwen2-0.5b")
+    cfg_model = _run_cfg()
     model = build_model(cfg_model)
     spec = grad_spec(model)
     grad = _grad_loss_only(make_grad_fn(model))
@@ -1573,7 +1593,8 @@ def phase_ps(dev) -> tuple[dict, dict, dict]:
                 steps_per_epoch=PS_ITERS, num_shards=PS_RUN["num_workers"])
     held = TokenPipeline(DataConfig(**dict(data, shard=99)), device=dev).batch_at(0, 0)
     evaluate = _eval_fn(model, held)
-    log(f"[ps] full-width {cfg_model.name} {cfg_model.dtype}: FlatBuffer payload="
+    log(f"[ps] full-width {cfg_model.name} {cfg_model.dtype}, {cfg_model.num_layers} of "
+        f"24 layers: FlatBuffer payload="
         f"{spec.payload} size={spec.size}; {PS_RUN['num_workers']} workers in "
         f"{PS_RUN['num_clients']} clients, 2 x 512 tokens per worker pass, "
         f"{PS_ITERS} iterations per client (8 completions), interval "
@@ -2117,14 +2138,15 @@ def _drive_faults(model, spec, opt, dev) -> dict:
 
 
 def phase_faults(dev) -> tuple[dict, dict, dict]:
-    cfg_model = get_config("qwen2-0.5b")
+    cfg_model = _run_cfg()
     model = build_model(cfg_model)
     spec = grad_spec(model)
     grad = _grad_loss_only(make_grad_fn(model))
     data = dict(seed=0, vocab_size=256, seq_len=512, batch_size=2,
                 steps_per_epoch=PS_ITERS, num_shards=PS_RUN["num_workers"])
     held = TokenPipeline(DataConfig(**dict(data, shard=99)), device=dev).batch_at(0, 0)
-    log(f"[faults] full-width {cfg_model.name} {cfg_model.dtype}, depth uncut")
+    log(f"[faults] full-width {cfg_model.name} {cfg_model.dtype}, {cfg_model.num_layers} "
+        f"of 24 layers")
     report = {"(i) run": _faults_run(model, spec, grad, _eval_fn(model, held), data, dev)}
     pipe = TokenPipeline(DataConfig(**data), device=dev)
     report["(ii) list push"] = _list_push(model, grad,
@@ -2447,7 +2469,7 @@ def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
 
 
 def phase_overlap(dev) -> tuple[dict, dict, dict]:
-    cfg = get_config("qwen2-0.5b")
+    cfg = _run_cfg()
     model = build_model(cfg)
     p = 4
     pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=512,
@@ -2457,7 +2479,7 @@ def phase_overlap(dev) -> tuple[dict, dict, dict]:
     share_model = cost_model.overlap_fraction([n * 4 for n in sched.sizes], p)
     if share_model != OVERLAP_SHARE_P4:
         raise AssertionError(f"[overlap] modeled share {share_model}")
-    log(f"[overlap] full-width {cfg.name} {cfg.dtype}, depth uncut: "
+    log(f"[overlap] full-width {cfg.name} {cfg.dtype}, {cfg.num_layers} of 24 layers: "
         f"{stages.num_stages} stages, staged spec size {sched.spec.size}, "
         f"buckets {sched.sizes}, p = {p} chunks {sched.chunks}, shard "
         f"{sched.shard_size}; global batch 8 x 512 (2 x 512 per device); "
@@ -4325,8 +4347,8 @@ MESH_HYPER = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=3e-3),
 #: [mesh]: full width, p = 4, [overlap]'s momentum SGD without overlap
 MESH_FULL = [dict(mode="mpi_sgd", opt="sgd", wire="int8", full=True),
              dict(mode="mpi_sgd", opt="sgd", full=True)]
-#: the 1/4 shard of the full-width packed buffer at one ring
-MESH_SHARD = 123_536_896
+#: the 1/4 shard of the full-width packed buffer at one ring, RUN_DEPTH layers
+MESH_SHARD = 63_887_360
 
 
 def _mesh_axes(shape) -> tuple:
@@ -4336,8 +4358,8 @@ def _mesh_axes(shape) -> tuple:
 def _mesh_case(case):
     """A case's model, optimizer and SyncConfig; the full-width cases are
     [overlap]'s runs without overlap."""
-    cfg = get_config("qwen2-0.5b")
-    model = build_model(cfg if case.get("full") else reduced(cfg))
+    cfg = _run_cfg() if case.get("full") else reduced(get_config("qwen2-0.5b"))
+    model = build_model(cfg)
     hyper = dict(lr=ESGD_LR, momentum=0.9) if case.get("full") else MESH_HYPER[case["opt"]]
     opt = sgd_mod.get_optimizer(case["opt"], **hyper)
     if case.get("full"):
@@ -4648,25 +4670,19 @@ def phase_mesh_small(dev, card) -> dict:
     runs = [(shape, "gloo", cases, batches) for shape, cases in MESH_SMALL.items()]
     runs.append(((1,), "nccl", [dict(mode="mpi_sgd", opt="sgd")],
                  [{k: v[:2] for k, v in b.items()} for b in batches]))
-    # the gloo layouts' spawns side by side (start-up dominates them)
+    # every layout's spawn side by side, the NCCL rank's too (start-up
+    # dominates them)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(MESH_SMALL)) as ex:
-        gloo = {shape: ex.submit(run_mesh, shape, "gloo", cases, params, batches)
-                for shape, cases in MESH_SMALL.items()}
-        gloo = {shape: f.result() for shape, f in gloo.items()}
-    gloo_wall = time.perf_counter() - t0
-    for shape, backend, cases, bs in runs:
+    with ThreadPoolExecutor(len(runs)) as ex:
+        futs = [ex.submit(run_mesh, shape, backend, cases, params, bs)
+                for shape, backend, cases, bs in runs]
+        spawned = [f.result() for f in futs]
+    wall = time.perf_counter() - t0
+    for (shape, backend, cases, bs), ranks in zip(runs, spawned):
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        if backend == "gloo":
-            ranks, wall = gloo[shape], gloo_wall
-        else:
-            ranks = run_mesh(shape, backend, cases, params, bs)
-            wall = time.perf_counter() - t0
         log(f"[mesh:small] {len(ranks)} {backend} rank(s) {shape} on the card: "
-            f"{len(cases)} cases in {wall:.1f} s (spawn, start-up, runs"
-            + (", the gloo layouts side by side" if backend == "gloo" else "")
-            + f") | {card}")
+            f"{len(cases)} cases in {wall:.1f} s (spawn, start-up, runs; every layout "
+            f"side by side) | {card}")
         p = shape if len(shape) > 1 else shape[0]
         for i, case in enumerate(cases):
             label = f"[mesh:small] {backend} {_mesh_label(shape, case)}"
@@ -4728,9 +4744,10 @@ def phase_mesh(dev, card, overlap_report) -> tuple[int, float, dict]:
     t0 = time.perf_counter()
     ranks = run_mesh((4,), "gloo", MESH_FULL, None, batches)
     wall = time.perf_counter() - t0
-    spec = grad_spec(build_model(get_config("qwen2-0.5b")))
+    spec = grad_spec(build_model(_run_cfg()))
     report, launches, err = {"wall_s": wall}, 0, 0.0
-    log(f"[mesh] 4 gloo ranks, full-width qwen2-0.5b ({spec.size} packed values), "
+    log(f"[mesh] 4 gloo ranks, full-width qwen2-0.5b at {RUN_DEPTH} of 24 layers "
+        f"({spec.size} packed values), "
         f"2 runs x {MESH_STEPS} steps in {wall:.1f} s (spawn, start-up, init, runs) | {card}")
     for i, case in enumerate(MESH_FULL):
         tag = case.get("wire") or "f32"
@@ -4788,8 +4805,8 @@ def phase_mesh(dev, card, overlap_report) -> tuple[int, float, dict]:
 # ---------------------------------------------------------------------------
 
 GSPMD_STEPS = 3
-#: [gspmd:small]: the reduced model, one spawn of gloo ranks a layout (the
-#: two spawned side by side); AdamW / AdaGrad with a larger eps (1e-3 /
+#: [gspmd:small]: the reduced model, each layout on a mesh over one of
+#: [gspmd:families] a)'s 4-rank worlds; AdamW / AdaGrad with a larger eps (1e-3 /
 #: 1e-2) than their defaults, which would turn the reduction-order noise
 #: of a tiny gradient into a visible step (ROADMAP's parity traps)
 GSPMD_SMALL = {
@@ -4799,9 +4816,14 @@ GSPMD_SMALL = {
 }
 GSPMD_HYPER = {"sgd": dict(lr=0.1, momentum=0.9), "adamw": dict(lr=1e-3, eps=1e-3),
                "adagrad": dict(lr=1e-2, eps=1e-2)}
-#: [gspmd]: full width, (data 2, model 2), momentum SGD, 4 x 512 tokens
-GSPMD_FULL = dict(opt="sgd", full=True)
+#: [gspmd]: full width, (data 2, model 2), momentum SGD, 4 x 512 tokens;
+#: 8 of the 24 layers (cut from the whole depth to pay for phase 15's
+#: [gspmd:families] c))
+GSPMD_FULL = dict(opt="sgd", full=True, depth=8)
 GSPMD_FULL_BATCH = 4
+#: [multidevice]: the example's steps (its default 12 cut to keep the smoke
+#: in its time; the exchange at step 0)
+MULTIDEVICE_STEPS = 4
 
 
 def _gspmd_axes(shape) -> tuple:
@@ -4822,6 +4844,8 @@ def _gspmd_case(case):
     cfg = get_config("qwen2-0.5b")
     cfg = dataclasses.replace(cfg if case.get("full") else reduced(cfg),
                               seq_shard_activations=case.get("seq_shard", False))
+    if case.get("depth"):
+        cfg = dataclasses.replace(cfg, num_layers=case["depth"])
     model = build_model(cfg)
     opt = sgd_mod.get_optimizer(case["opt"], **GSPMD_HYPER[case["opt"]])
     C = case.get("clients", 1)
@@ -4889,20 +4913,6 @@ def _gspmd_run(mesh, case) -> dict:
     return rec
 
 
-def _gspmd_rank(mesh, cases) -> list:
-    """One rank of phase 15 (a spawned process, the card shared)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return [_gspmd_run(mesh, case) for case in cases]
-
-
-def _gspmd_spawn(shape, cases) -> list:
-    from repro_torch.launch.mesh import spawn_ranks
-
-    return spawn_ranks(_gspmd_rank, shape, _gspmd_axes(shape), backend="gloo",
-                       device="cuda", args=(cases,))
-
-
 def _gspmd_check_zero_launches(label, recs) -> None:
     for r, rec in enumerate(recs):
         if any(rec["launches"].values()):
@@ -4926,19 +4936,14 @@ def _gspmd_hold_state(label, got, want) -> float:
     return worst
 
 
-def phase_gspmd_small(dev, card) -> dict:
+def phase_gspmd_small(card, ranks) -> dict:
     """[gspmd:small]: the reduced model's GSPMD step as gloo ranks on the
     card, each case held against the one-process per-leaf step on the
-    card: losses and the gathered final state within rtol 1e-5."""
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(GSPMD_SMALL)) as ex:
-        futs = {shape: ex.submit(_gspmd_spawn, shape, cases)
-                for shape, cases in GSPMD_SMALL.items()}
-        ranks = {shape: f.result() for shape, f in futs.items()}
-    wall = time.perf_counter() - t0
-    log(f"[gspmd:small] gloo ranks {list(GSPMD_SMALL)} on the card, spawned side by "
-        f"side: {sum(map(len, GSPMD_SMALL.values()))} cases in {wall:.1f} s | {card}")
-    report = {"wall_s": wall}
+    card: losses and the gathered final state within rtol 1e-5.
+    ``ranks``: layout -> each rank's records, in case order, from the 4-rank
+    worlds of [gspmd:families] a) (``phase_gspmd_families_small``), each
+    layout on its own mesh over one of them."""
+    report = {}
     for shape, cases in GSPMD_SMALL.items():
         for i, case in enumerate(cases):
             label = f"[gspmd:small] {_gspmd_label(shape, case)}"
@@ -4965,17 +4970,17 @@ def phase_gspmd_small(dev, card) -> dict:
     return report
 
 
-def phase_gspmd(dev, card) -> dict:
+def phase_gspmd(card, per_rank) -> dict:
     """[gspmd]: full-width qwen2-0.5b as 4 gloo ranks (data 2, model 2) on
     the card, 3 momentum-SGD steps, against the one-process per-leaf step
-    on the same batches (losses within rtol 1e-4)."""
+    on the same batches (losses within rtol 1e-4). ``per_rank``: each
+    rank's record from the spawn it shares with [gspmd:families] b) and c)
+    (``spawn_full_width``), where it ran first."""
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = _gspmd_spawn((2, 2), [GSPMD_FULL])
-    wall = time.perf_counter() - t0
-    per_rank = [r[0] for r in ranks]
+    wall = per_rank[0]["wall_s"]
     want = _gspmd_run(None, GSPMD_FULL)
-    label = "[gspmd] (data 2, model 2) mpi_sgd sgd, full-width qwen2-0.5b"
+    label = (f"[gspmd] (data 2, model 2) mpi_sgd sgd, full-width qwen2-0.5b at "
+             f"{GSPMD_FULL['depth']} of 24 layers")
     _gspmd_check_zero_launches(label, per_rank + [want])
     rel = 0.0
     for r, rec in enumerate(per_rank):
@@ -4986,7 +4991,8 @@ def phase_gspmd(dev, card) -> dict:
         if not rec["losses"][-1] < rec["losses"][0]:
             raise AssertionError(f"{label}: loss did not fall {rec['losses']}")
     log(f"{label}: 4 ranks, {GSPMD_STEPS} steps of {GSPMD_FULL_BATCH} x 512 in "
-        f"{wall:.1f} s (spawn, start-up, init, runs); losses {per_rank[0]['losses']} "
+        f"{wall:.1f} s (mesh, init, runs; spawned with b) and c)); losses "
+        f"{per_rank[0]['losses']} "
         f"(one process {want['losses']}, max rel {rel:.2e} <= 1e-4); the 14 kernels "
         f"launched 0 times in every rank; one-process step_ms "
         f"{[round(x, 1) for x in want['step_ms']]}, peak "
@@ -5007,12 +5013,14 @@ def phase_gspmd(dev, card) -> dict:
 
 
 def phase_multidevice(card) -> dict:
-    """``python -m repro_torch.launch.multidevice_train`` on the card: 8
-    gloo ranks (pod 2, data 2, model 2), the reduced model, mpi-ESGD with
-    C = 2; the loss falls and the consensus line is printed."""
+    """``python -m repro_torch.launch.multidevice_train --steps
+    MULTIDEVICE_STEPS`` on the card: 8 gloo ranks (pod 2, data 2, model 2),
+    the reduced model, mpi-ESGD with C = 2; the loss falls and the
+    consensus line is printed."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.multidevice_train"],
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.multidevice_train",
+                           "--steps", str(MULTIDEVICE_STEPS)],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -5020,14 +5028,14 @@ def phase_multidevice(card) -> dict:
     lines = proc.stdout.strip().splitlines()
     losses = [float(m.group(1)) for m in
               (re.match(r"step\s+\d+ loss (\S+) replica spread", ln) for ln in lines) if m]
-    if len(losses) != 12 or not losses[-1] < losses[0]:
+    if len(losses) != MULTIDEVICE_STEPS or not losses[-1] < losses[0]:
         raise AssertionError(f"[multidevice] losses {losses}")
     if not lines[-1].startswith("consensus model:"):
         raise AssertionError(f"[multidevice] last line {lines[-1]!r}")
     for ln in lines:
         log(f"[multidevice] {ln}")
     log(f"[multidevice] 8 gloo ranks on the card in {wall:.1f} s (spawn, start-up, "
-        f"12 steps); loss {losses[0]:.4f} -> {losses[-1]:.4f} | {card}")
+        f"{MULTIDEVICE_STEPS} steps); loss {losses[0]:.4f} -> {losses[-1]:.4f} | {card}")
     return {"wall_s": wall, "losses": losses, "last": lines[-1]}
 
 
@@ -5038,6 +5046,10 @@ def phase_multidevice(card) -> dict:
 #: [gspmd:families] a): the CPU tests' cases, run by their rank workers
 #: (tests/_torch_gspmd_families.py, which imports no JAX) on the card
 FAM_RTOL = 1e-5
+#: a)'s decode on the card: an 8-token prompt, then 4 greedy tokens (the
+#: CPU tests' 16 + 8 cut to keep the smoke in its time; 12 of the 24 cache
+#: slots still cross a 4-way sequence shard's boundary)
+FAM_SMALL_DECODE = (8, 4)
 #: zamba2's state after steps 1 and 3, as a share of a leaf's scale: its
 #: gradients amplify noise — a 1e-7 relative change of the initial params
 #: moves the state by 1.4e-5 after one step and 3.4e-4 after three (CPU),
@@ -5051,20 +5063,47 @@ FAM_STATE_BAND = {"zamba2-1.2b": (1e-4, 1e-2)}
 #: (1.4e-3 and 4.9e-3 of the loss on the card), the SSM drift ROADMAP's
 #: parity traps record for their decode. A decode step on the mesh costs
 #: 0.2–3 s (4 processes time-slice one card, ~10 staged collectives a
-#: layer), so each case decodes 4 + 4 tokens, qwen2-0.5b 8 + 8.
+#: layer), so each case decodes 2 + 2 tokens, qwen2-0.5b 4 + 4 (cut from
+#: 4 + 4 and 8 + 8 to pay for c)); mamba2 and qwen2-0.5b run 8 of their 24
+#: layers (cut from the whole depth for the same).
 FAM_MOE_AXES, FAM_DENSE_AXES = ("data", "expert", "tp"), ("data", "model")
 GSPMD_FAMILIES_FULL = (
     dict(name="qwen2-moe-a2.7b", depth=2, mesh=(2, 2, 1), axes=FAM_MOE_AXES,
-         train=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+         train=(4, 512), batch=4, prompt=2, new=2, dtype="bfloat16"),
     dict(name="mixtral-8x7b", depth=2, mesh=(1, 2, 2), axes=FAM_MOE_AXES,
-         train=None, batch=4, prompt=4, new=4, dtype="bfloat16"),
-    dict(name="mamba2-130m", depth=24, mesh=(2, 2), axes=FAM_DENSE_AXES,
-         train=(4, 512), batch=4, prompt=4, new=4, dtype="float32"),
+         train=None, batch=4, prompt=2, new=2, dtype="bfloat16"),
+    dict(name="mamba2-130m", depth=8, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=(4, 512), batch=4, prompt=2, new=2, dtype="float32"),
     dict(name="zamba2-1.2b", depth=6, mesh=(2, 2), axes=FAM_DENSE_AXES,
-         train=(2, 512), batch=4, prompt=4, new=4, dtype="float32"),
-    dict(name="qwen2-0.5b", depth=24, mesh=(1, 4), axes=FAM_DENSE_AXES,
-         train=None, batch=4, prompt=8, new=8, dtype="bfloat16"),
+         train=(2, 512), batch=4, prompt=2, new=2, dtype="float32"),
+    dict(name="qwen2-0.5b", depth=8, mesh=(1, 4), axes=FAM_DENSE_AXES,
+         train=None, batch=4, prompt=4, new=4, dtype="bfloat16"),
 )
+#: [gspmd:families] c): the encoder-decoder, the VLM and the dense
+#: decoders with biases, qk-norm and 40 / 10 heads at full width in bf16,
+#: in the same spawn as b), each on its own layout of the world. whisper
+#: at full depth (6 + 6) and paligemma at 2 of 18 layers train 3 steps
+#: (4 x 448 tokens with 1500 frames; 4 x (256 image + 256 text)); the
+#: dense trio at 2 layers (of 36, 36, 40) only prefills and decodes.
+#: Each prefills its (batch, sequence) and decodes B 4, 4 + 4 tokens;
+#: whisper's cache holds a nonzero encoder output set by hand
+#: (``init_cache`` makes zeros, as the reference's).
+GSPMD_FAMILIES_C = (
+    dict(name="whisper-base", depth=6, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=(4, 448), prefill=(4, 448), batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="paligemma-3b", depth=2, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=(4, 512), prefill=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="qwen2.5-3b", depth=2, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=None, prefill=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="qwen3-4b", depth=2, mesh=(2, 2), axes=FAM_DENSE_AXES,
+         train=None, prefill=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+    dict(name="phi3-medium-14b", depth=2, mesh=(1, 4), axes=FAM_DENSE_AXES,
+         train=None, prefill=(4, 512), batch=4, prompt=4, new=4, dtype="bfloat16"),
+)
+#: a c) prefill's logits against one process, over the last positions
+#: only (the whole (4, 512, 257,216) bf16 block of paligemma is 1 GB a
+#: rank to gather): within the serve phases' 4 % bf16 band of max |logit|
+FAM_PREFILL_TAIL, FAM_PREFILL_BAND = 8, 0.04
 #: training losses on the mesh against the one-process step
 FAM_FULL_LOSS_RTOL = 1e-3
 
@@ -5077,17 +5116,57 @@ def _fam_harness():
     return GF
 
 
-def _fam_small_rank(mesh, jobs) -> dict:
-    """One rank of [gspmd:families] a): its jobs, the 14 kernels'
-    launches (their counts set to 0 just before) and the bytes staged by
-    collective."""
+def _fam_small_paths(GF, seconds: dict | None = None) -> dict:
+    """The harness's paths with a) 's shorter decode (``FAM_SMALL_DECODE``);
+    each job's wall seconds go into ``seconds`` when it is given."""
+    prompt, new = FAM_SMALL_DECODE
+    paths = dict(GF.PATHS, decode=lambda mesh, case, device: GF.decode(
+        mesh, case, device, prompt=prompt, new=new))
+    if seconds is None:
+        return paths
+
+    def timed(path, fn):
+        def run(mesh, case, device):
+            t0 = time.perf_counter()
+            out = fn(mesh, case, device)
+            seconds[f"{path} {case}"] = round(time.perf_counter() - t0, 2)
+            return out
+        return run
+    return {path: timed(path, fn) for path, fn in paths.items()}
+
+
+def _fam_small_rank(world, jobs, gspmd_jobs=()) -> dict:
+    """One rank of a [gspmd:families] a) world: its jobs, each on its
+    case's own layout of the world (``world_rank``), the 14 kernels'
+    launches (their counts set to 0 just before), the bytes staged by
+    collective over all its layouts and each job's wall seconds; then the
+    [gspmd:small] ``(shape, case)`` jobs, each shape on a mesh of its own
+    over the world (one process start for both)."""
+    from repro_torch.launch.mesh import _mesh_over_world
+
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     GF = _fam_harness()
-    mesh.link.stats.reset()
     reset_counts()
-    out = GF.rank(mesh, jobs, device="cuda")
-    return {"jobs": out, "launches": counts(ALL_KERNELS),
-            "staged": dict(mesh.link.stats.by_op)}
+    meshes, seconds = {}, {}
+    out = GF.world_rank(world, jobs, device="cuda", meshes=meshes,
+                        paths=_fam_small_paths(GF, seconds))
+    launches = counts(ALL_KERNELS)
+    staged = {}
+    for mesh in meshes.values():
+        for k, v in mesh.link.stats.by_op.items():
+            staged[k] = staged.get(k, 0) + v
+    gspmd, gmeshes = [], {}
+    for shape, case in gspmd_jobs:
+        t0 = time.perf_counter()
+        if shape not in gmeshes:
+            gmeshes[shape] = _mesh_over_world(shape, _gspmd_axes(shape), world.device,
+                                              "[gspmd:small]")
+        gspmd.append(_gspmd_run(gmeshes[shape], case))
+        seconds[f"[gspmd:small] {_gspmd_label(shape, case)}"] = round(
+            time.perf_counter() - t0, 2)
+    return {"jobs": out, "launches": launches, "staged": staged, "seconds": seconds,
+            "gspmd": gspmd}
 
 
 def _fam_close(label, a, b, rtol) -> float:
@@ -5155,62 +5234,82 @@ def _fam_mesh_label(shape, axes) -> str:
     return "(" + ", ".join(f"{a} {n}" for a, n in zip(axes, shape)) + ")"
 
 
-def phase_gspmd_families_small(card) -> dict:
+def phase_gspmd_families_small(card) -> tuple[dict, dict]:
     """[gspmd:families] a): the CPU tests' reduced cases (f32) as gloo
-    ranks sharing the card — mesh A (data 2, expert 2, tp 2) for the MoE,
-    B (data 2, model 2) for mamba2 / zamba2 and qwen2-0.5b's KV-head
-    cache, C (data 1, model 4) for its sequence-sharded cache, spawned
-    side by side — each held against the one-process run on the card."""
+    ranks sharing the card, in three worlds spawned side by side, each
+    case on its own layout (``GF.CASES``) — 8 ranks for the MoE on (data
+    2, expert 2, tp 2); 4 for mamba2 / zamba2 and qwen2-0.5b's KV-head
+    cache on (data 2, model 2) and its sequence-sharded cache on (data 1,
+    model 4); 4 for whisper, paligemma, qwen2.5-3b, qwen3-4b and phi3 on
+    (2, 2) and qwen2.5-3b on (1, 4) — each held against the one-process
+    run on the card. The two 4-rank worlds then run [gspmd:small]'s
+    layouts, (2, 2) and (2, 1, 2): fewer processes for the host's 8 cores.
+    -> (a)'s report, [gspmd:small]'s records by layout)."""
     from repro_torch.launch.mesh import spawn_ranks
 
     GF = _fam_harness()
-    groups = {}
-    for name, mesh in GF.MESHES.items():
-        groups.setdefault(mesh, []).extend(
-            [("train", name), ("prefill", name), ("decode", name)])
-    for case, (_, mesh) in GF.DECODE.items():
-        if case not in GF.MESHES:
-            groups.setdefault(mesh, []).append(("decode", case))
+    paths = ("train", "prefill", "decode")
+    moe = [(p, c) for c, m in GF.MESHES.items() if m[1] == GF.MOE_AXES for p in paths]
+    ssm_qwen2 = ([(p, c) for c, m in GF.MESHES.items() if m[1] != GF.MOE_AXES for p in paths]
+                 + [("decode", c) for c in GF.DECODE if c not in GF.MESHES])
+    encdec_vlm_dense = [(p, c) for c in {**GF.ENCDEC_VLM, **GF.DENSE} for p in paths]
+    # three worlds side by side: the MoE's 8 ranks, and two of 4 that split
+    # the (data, model) cases so neither holds up the others
+    worlds = [(8, moe), (4, ssm_qwen2), (4, encdec_vlm_dense)]
+    small = {1: (2, 2), 2: (2, 1, 2)}       # world -> its [gspmd:small] layout
+    gspmd_jobs = [[(small[w], c) for c in GSPMD_SMALL[small[w]]] if w in small else []
+                  for w in range(len(worlds))]
+    if sorted(small.values()) != sorted(GSPMD_SMALL):
+        raise AssertionError(f"[gspmd:small] layouts {list(GSPMD_SMALL)} vs {small}")
+    one_process = _fam_small_paths(GF)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(groups)) as ex:
-        futs = {mesh: ex.submit(spawn_ranks, _fam_small_rank, mesh[0], mesh[1],
-                                backend="gloo", device="cuda", args=(jobs,))
-                for mesh, jobs in groups.items()}
-        # meanwhile, the one-process runs on the card
-        wants = {}
-        for jobs in groups.values():
+    with ThreadPoolExecutor(len(worlds)) as ex:
+        futs = [ex.submit(spawn_ranks, _fam_small_rank, (n,), ("world",),
+                          backend="gloo", device="cuda", args=(jobs, gj))
+                for (n, jobs), gj in zip(worlds, gspmd_jobs)]
+        # meanwhile, the one-process runs on the card, once an arch
+        by_arch = {}
+        for _, jobs in worlds:
             for path, case in jobs:
+                key = (path, GF.arch_of(case))
+                if key in by_arch:
+                    continue
                 reset_counts()
-                wants[(path, case)] = GF.PATHS[path](None, case, "cuda")
+                by_arch[key] = one_process[path](None, case, "cuda")
                 if any(counts(ALL_KERNELS).values()):
                     raise AssertionError(f"[gspmd:families] one-process {path} {case} "
                                          f"launched {counts(ALL_KERNELS)}")
-        ranks = {mesh: f.result() for mesh, f in futs.items()}
+        wants = {(path, case): by_arch[(path, GF.arch_of(case))]
+                 for _, jobs in worlds for path, case in jobs}
+        ranks = [f.result() for f in futs]
     wall = time.perf_counter() - t0
-    n = sum(math.prod(m[0]) for m in groups)
-    log(f"[gspmd:families] a) {n} gloo ranks on the card in {len(groups)} meshes, "
+    n = sum(w for w, _ in worlds)
+    log(f"[gspmd:families] a) {n} gloo ranks on the card in {len(worlds)} worlds, "
         f"spawned side by side, the one-process runs meanwhile: "
-        f"{sum(map(len, groups.values()))} runs in {wall:.1f} s | {card}")
+        f"{sum(len(j) for _, j in worlds)} runs and [gspmd:small]'s "
+        f"{sum(map(len, gspmd_jobs))} in {wall:.1f} s | {card}")
     report = {"wall_s": wall}
-    for mesh, jobs in groups.items():
-        per_rank = ranks[mesh]
-        ml = _fam_mesh_label(*mesh)
+    gspmd = {small[w]: [rec["gspmd"] for rec in ranks[w]] for w in small}
+    for (size, jobs), per_rank in zip(worlds, ranks):
         for r, rec in enumerate(per_rank):
             if any(rec["launches"].values()):
-                raise AssertionError(f"[gspmd:families] {ml} rank {r} launched "
-                                     f"{rec['launches']}")
+                raise AssertionError(f"[gspmd:families] a) world of {size} rank {r} "
+                                     f"launched {rec['launches']}")
         for path, case in jobs:
             want = wants[(path, case)]
+            ml = _fam_mesh_label(*GF.CASES[case][1])
             label = f"[gspmd:families] a) {path} {case} {ml}"
             notes = [_fam_hold(GF, f"{label} rank {r}", path, case, rec["jobs"][(path, case)],
                                want) for r, rec in enumerate(per_rank)]
             log(f"{label}: every rank == one process on the card: {notes[0]}")
             report[label] = notes[0]
-        log(f"[gspmd:families] a) {ml}: the 14 kernels launched 0 times in every rank; "
-            f"rank 0 staged {per_rank[0]['staged']} B by collective over its "
-            f"{len(jobs)} runs | {card}")
-        report[f"staged {ml}"] = per_rank[0]["staged"]
-    return report
+        cases = sorted({c for _, c in jobs})
+        log(f"[gspmd:families] a) world of {size} ({', '.join(cases)}): the 14 kernels "
+            f"launched 0 times in every rank; rank 0 staged {per_rank[0]['staged']} B by "
+            f"collective over its {len(jobs)} runs; rank 0's seconds a run "
+            f"{per_rank[0]['seconds']} | {card}")
+        report[f"staged world of {size}: {', '.join(cases)}"] = per_rank[0]["staged"]
+    return report, gspmd
 
 
 def _fam_full_cfg(case: dict):
@@ -5229,9 +5328,13 @@ def _fam_delta(before: dict, after: dict) -> dict:
 def _fam_full_run(mesh, case) -> dict:
     """A full-width case, on ``mesh`` (a rank) or in one process: the
     training steps (timed, split, bytes staged by collective, the MoE's
-    routes of the first step's forward), then the decode (every step
+    routes of the first step's forward), the prefill (timed, its staged
+    bytes, the last positions' logits), then the decode (every step
     timed, its staged bytes, its logits on rank 0 / one process, the
-    greedy tokens). The 14 kernels' counts are set to 0 first."""
+    greedy tokens). Batches carry every ``input_specs`` key (the stub
+    audio frames / image embeddings, ``batches_for``). The 14 kernels'
+    counts are set to 0 first."""
+    GF = _fam_harness()
     name, depth, train = case["name"], case["depth"], case["train"]
     B, P, new = case["batch"], case["prompt"], case["new"]
     cfg = _fam_full_cfg(case)
@@ -5242,9 +5345,7 @@ def _fam_full_run(mesh, case) -> dict:
         Bt, S = train
         opt = sgd_optimizer(0.1, momentum=0.9)
         sync = SyncConfig(fused_update=False, flat_exchange=False)
-        batches = [TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=S,
-                                            batch_size=Bt)).batch_at(0, i)
-                   for i in range(GSPMD_STEPS)]
+        batches = GF.batches_for(model, Bt, S, GSPMD_STEPS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = make_train_state(model, opt, sync, 0, mesh=mesh)
@@ -5290,7 +5391,11 @@ def _fam_full_run(mesh, case) -> dict:
     if mesh is not None:
         with mesh.dtensor_collectives():
             params = distribute(params, param_specs(params, mesh), mesh)
+    if case.get("prefill"):
+        rec["prefill"] = _fam_full_prefill(GF, mesh, model, params, case)
     cache = model.init_cache(B, P + new, "cuda")
+    if "enc" in cache:
+        cache["enc"].copy_(GF.enc_output(model, B))
     step = make_serve_step(model, mesh)
     prompts = TokenPipeline(DataConfig(seed=1, vocab_size=256, seq_len=P,
                                        batch_size=B)).batch_at(0, 0)["tokens"].cuda()
@@ -5329,23 +5434,64 @@ def _fam_full_run(mesh, case) -> dict:
     return rec
 
 
-def _fam_full_rank(world, cases) -> list:
-    """One rank of [gspmd:families] b) (a spawned process, the card
-    shared): every case in turn on its own layout of the same 4-rank world
-    (one process start for all of them), each case's wall seconds
-    beside its record."""
+def _fam_full_prefill(GF, mesh, model, params, case) -> dict:
+    """``make_prefill_step`` over the first batch of ``case["prefill"]``'s
+    shape (its labels left out), twice: the first call warm, the second
+    timed with its staged bytes; the last ``FAM_PREFILL_TAIL`` positions'
+    logits (whole, on the host) and the logits' shape."""
+    from repro_torch.launch.serve import make_prefill_step
+
+    Bp, S = case["prefill"]
+    batch = {k: v for k, v in GF.batches_for(model, Bp, S, 1)[0].items() if k != "labels"}
+    step = make_prefill_step(model, mesh)
+    ctx = mesh.dtensor_collectives() if mesh is not None else contextlib.nullcontext()
+    out = {}
+    for _ in range(2):
+        before = _fam_staged(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["staged"] = _fam_delta(before, _fam_staged(mesh))
+        with torch.no_grad(), ctx:
+            tail = logits[:, -FAM_PREFILL_TAIL:]
+            tail = tail.full_tensor() if mesh is not None else tail
+            tail = tail[..., :model.cfg.vocab_size].float().cpu()
+        out["shape"] = tuple(logits.shape)
+        del logits
+    if not bool(torch.isfinite(tail).all()):
+        raise AssertionError(f"{case['name']} prefill: non-finite logits")
+    out["tail"] = tail
+    return out
+
+
+def _fam_full_rank(world, cases, gspmd_case=None) -> dict:
+    """One rank of [gspmd] and [gspmd:families] b) and c) (a spawned
+    process, the card shared): ``gspmd_case`` first on (data 2, model 2),
+    then every case in turn on its own layout of the same 4-rank world
+    (one process start for all of them), each run's wall seconds beside
+    its record."""
     from repro_torch.launch.mesh import _mesh_over_world
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = []
+    out = {"gspmd": None, "families": []}
+    if gspmd_case is not None:
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        mesh = _mesh_over_world((2, 2), _gspmd_axes((2, 2)), world.device, "[gspmd]")
+        rec = _gspmd_run(mesh, gspmd_case)
+        torch.distributed.barrier()
+        rec["wall_s"] = time.perf_counter() - t0
+        out["gspmd"] = rec
     for case in cases:
         t0 = time.perf_counter()
         mesh = _mesh_over_world(case["mesh"], case["axes"], world.device,
-                                "[gspmd:families] b)")
+                                "[gspmd:families] b) and c)")
         rec = _fam_full_run(mesh, case)
         torch.distributed.barrier()
         rec["wall_s"] = time.perf_counter() - t0
-        out.append(rec)
+        out["families"].append(rec)
     return out
 
 
@@ -5363,32 +5509,47 @@ def _fam_route_diffs(case, rank_rec, want) -> tuple:
     return diff, total
 
 
-def phase_gspmd_families(card) -> dict:
-    """[gspmd:families] b): the full-width cases as 4 gloo ranks sharing the
-    card (one spawn; each case on its own layout of the world), then each
-    in one process on the card from the same seed: training
-    losses within rtol 1e-3 (the difference printed; for the MoE how many
-    (token, k) routes differ), greedy decode tokens equal
-    wherever the one-process top-2 margin exceeds twice the logit band
-    measured over the teacher-forced prompt (``_logit_margins``, the serve
-    phases' rule); per rank the step ms and its split, ms a decode token,
-    bytes staged a step and a token by collective, peak memory and the
-    card's used MiB."""
+def spawn_full_width(card) -> list:
+    """[gspmd]'s and [gspmd:families] b)'s and c)'s full-width runs in one
+    spawn of 4 gloo ranks sharing the card (one process start for all):
+    each rank's ``_fam_full_rank`` record."""
     from repro_torch.launch.mesh import spawn_ranks
 
-    n = {math.prod(c["mesh"]) for c in GSPMD_FAMILIES_FULL}.pop()
+    cases = GSPMD_FAMILIES_FULL + GSPMD_FAMILIES_C
+    n = {math.prod(c["mesh"]) for c in cases}
+    if n != {4}:        # [gspmd]'s (data 2, model 2) too
+        raise AssertionError(f"[gspmd:families] the full-width cases need {n} ranks")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    all_ranks = spawn_ranks(_fam_full_rank, (n,), ("world",), backend="gloo",
-                            device="cuda", args=(GSPMD_FAMILIES_FULL,))
-    log(f"[gspmd:families] b) {n} gloo ranks on the card ran the {len(GSPMD_FAMILIES_FULL)} "
-        f"cases in {time.perf_counter() - t0:.1f} s (spawn and start-up once) | {card}")
+    ranks = spawn_ranks(_fam_full_rank, (4,), ("world",), backend="gloo",
+                        device="cuda", args=(cases, GSPMD_FULL))
+    log(f"[gspmd] and [gspmd:families] b) and c): 4 gloo ranks on the card ran the "
+        f"{1 + len(cases)} full-width cases in {time.perf_counter() - t0:.1f} s (spawn "
+        f"and start-up once) | {card}")
+    return ranks
+
+
+def phase_gspmd_families(card, all_ranks) -> dict:
+    """[gspmd:families] b) and c): the full-width cases as 4 gloo ranks
+    sharing the card (``spawn_full_width``; each case on its own layout of
+    the world), then each in one process on the card from the same seed:
+    training losses within rtol 1e-3 (the difference printed; for the MoE
+    how many (token, k) routes differ), c)'s prefill logits over the last
+    positions within 4 % of max |logit|, greedy decode tokens equal
+    wherever the one-process top-2 margin exceeds twice the logit band
+    measured over the teacher-forced prompt (``_logit_margins``, the serve
+    phases' rule); per rank the step ms and its split, the prefill ms, ms
+    a decode token, bytes staged a step, a prefill and a token by
+    collective, peak memory and the card's used MiB."""
+    cases = GSPMD_FAMILIES_FULL + GSPMD_FAMILIES_C
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {}
-    for i, case in enumerate(GSPMD_FAMILIES_FULL):
+    for i, case in enumerate(cases):
         name, depth, shape, axes = case["name"], case["depth"], case["mesh"], case["axes"]
         train, B, P, new = case["train"], case["batch"], case["prompt"], case["new"]
         ml = _fam_mesh_label(shape, axes)
-        label = f"[gspmd:families] b) {name} ({depth} layers, {case['dtype']}) {ml}"
+        sub = "c)" if case in GSPMD_FAMILIES_C else "b)"
+        label = f"[gspmd:families] {sub} {name} ({depth} layers, {case['dtype']}) {ml}"
         ranks = [r[i] for r in all_ranks]
         wall = ranks[0]["wall_s"]
         torch.cuda.empty_cache()
@@ -5422,6 +5583,22 @@ def phase_gspmd_families(card) -> dict:
                 f"{[round(x, 1) for x in want['train']['step_ms']]}, peak "
                 f"{want['train']['peak_mem_bytes'] / 2**30:.2f} GiB | {card}")
             out.update(loss_rel=rel, losses=ranks[0]["train"]["losses"], want_losses=wl)
+        if case.get("prefill"):
+            wp = want["prefill"]
+            pscale = float(wp["tail"].abs().max())
+            pband = max(float((rec["prefill"]["tail"] - wp["tail"]).abs().max())
+                        for rec in ranks)
+            shapes = {rec["prefill"]["shape"] for rec in ranks}
+            if shapes != {wp["shape"]}:
+                raise AssertionError(f"{label}: prefill logits {shapes} vs {wp['shape']}")
+            if not pband <= FAM_PREFILL_BAND * pscale:
+                raise AssertionError(f"{label}: prefill logits off by {pband} (max |logit| "
+                                     f"{pscale}, band {FAM_PREFILL_BAND})")
+            log(f"{label} prefill {case['prefill'][0]} x {case['prefill'][1]}: logits "
+                f"{wp['shape']}, the last {FAM_PREFILL_TAIL} positions within {pband:.4f} "
+                f"({pband / pscale:.2e} of max |logit| {pscale:.2f}, <= {FAM_PREFILL_BAND}) "
+                f"of one process in every rank; one-process ms {wp['ms']:.1f} | {card}")
+            out.update(prefill_band=pband, prefill_scale=pscale, want_prefill_ms=wp["ms"])
         # decode: the band over the teacher-forced prompt, then the greedy tokens
         got_l, want_l = ranks[0]["decode"]["logits"], want["decode"]["logits"]
         band = float((got_l[:P] - want_l[:P]).abs().max())
@@ -5471,6 +5648,11 @@ def phase_gspmd_families(card) -> dict:
                         f"staged a step {tr_['staged'][-1]} B; train peak "
                         f"{tr_['peak_mem_bytes'] / 2**30:.2f} GiB, card used "
                         f"{tr_['card_used_mib']:.0f} MiB; ")
+            if case.get("prefill"):
+                row.update(prefill_ms=rec["prefill"]["ms"],
+                           prefill_staged=rec["prefill"]["staged"])
+                msg += (f"prefill {rec['prefill']['ms']:.1f} ms, staged "
+                        f"{rec['prefill']['staged']} B; ")
             msg += (f"decode peak {rec['decode']['peak_mem_bytes'] / 2**30:.2f} GiB, card "
                     f"used {rec['decode']['card_used_mib']:.0f} MiB | {card}")
             log(msg)
@@ -5501,7 +5683,7 @@ def phase_remat(dev, card) -> dict:
     steady step (steps 2 on) of each run, and one profiled step of the
     remat run (device busy, top kernels); ``sgd_momentum_flat`` once a
     step, held on one more step's operands."""
-    base = get_config("qwen2-0.5b")
+    base = _run_cfg()
     opt, sync = sgd_optimizer(0.1, momentum=0.9), SyncConfig()
     pipe = TokenPipeline(DataConfig(seed=0, vocab_size=256, seq_len=REMAT_SEQ,
                                     batch_size=REMAT_BATCH), device=dev)
@@ -5515,7 +5697,8 @@ def phase_remat(dev, card) -> dict:
         runs[remat] = dict(model=model, state=state,
                            step=make_train_step(model, opt, sync, device=dev),
                            losses=[], step_ms=[], peak=[], resident=[])
-    label = f"[remat] qwen2-0.5b full width, {REMAT_BATCH} x {REMAT_SEQ}"
+    label = (f"[remat] qwen2-0.5b full width, {base.num_layers} of 24 layers, "
+             f"{REMAT_BATCH} x {REMAT_SEQ}")
     reset_counts()
     for batch in batches:
         for remat in (True, False):
@@ -5780,30 +5963,29 @@ def main() -> None:
     sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], mesh_err)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # the two correctness runs side by side (their wall times are not
-    # measurements), then the full-width one alone
+    # the correctness runs side by side (their wall times are not
+    # measurements: the host's 8 cores bind them), then the full-width
+    # ones in one spawn
     with ThreadPoolExecutor(1) as ex:
         multi = ex.submit(phase_multidevice, card)
-        gspmd_small = phase_gspmd_small(dev, card)
+        fam_small, small_ranks = phase_gspmd_families_small(card)
         multidevice = multi.result()
+    gspmd_small = phase_gspmd_small(card, small_ranks)
+    del small_ranks
     log("[gspmd:small] " + json.dumps(gspmd_small, default=str))
     log("[multidevice] " + json.dumps(multidevice, default=str))
-    log(f"[gspmd:small] and [multidevice] took {time.perf_counter() - t0:.1f} s | {card}")
-    t1 = time.perf_counter()
-    gspmd = phase_gspmd(dev, card)
-    log("[gspmd] " + json.dumps(gspmd, default=str))
-    log(f"[gspmd] took {time.perf_counter() - t1:.1f} s | {card}")
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    fam_small = phase_gspmd_families_small(card)
     log("[gspmd:families] a) " + json.dumps(fam_small, default=str))
-    log(f"[gspmd:families] a) took {time.perf_counter() - t1:.1f} s | {card}")
-    t2 = time.perf_counter()
-    fam = phase_gspmd_families(card)
-    log("[gspmd:families] b) " + json.dumps(fam, default=str))
-    log(f"[gspmd:families] b) took {time.perf_counter() - t2:.1f} s; [gspmd:families] "
-        f"took {time.perf_counter() - t1:.1f} s; phase 15 took "
+    log(f"[gspmd:small], [multidevice] and [gspmd:families] a) took "
         f"{time.perf_counter() - t0:.1f} s | {card}")
+    t1 = time.perf_counter()
+    full = spawn_full_width(card)
+    gspmd = phase_gspmd(card, [r["gspmd"] for r in full])
+    log("[gspmd] " + json.dumps(gspmd, default=str))
+    fam = phase_gspmd_families(card, [r["families"] for r in full])
+    del full
+    log("[gspmd:families] b) and c) " + json.dumps(fam, default=str))
+    log(f"[gspmd] and [gspmd:families] b) and c) took {time.perf_counter() - t1:.1f} s; "
+        f"phase 15 took {time.perf_counter() - t0:.1f} s | {card}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     remat = phase_remat(dev, card)

@@ -24,7 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, remat, rms_norm
-from repro_torch.sharding.rules import fit_heads, on_local_cache, on_local_heads
+from repro_torch.sharding.rules import (fit_heads, grad_as_forward, on_local_cache,
+                                        on_local_heads)
 
 NEG_INF = -1e30
 
@@ -158,6 +159,9 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     kv_positions = torch.arange(Sk, device=dev)[None, :]
     q, k, v = _project_qkv(params, x, x_kv, spec, positions, kv_positions)
     KV, G, D = spec.num_kv_heads, spec.num_heads // spec.num_kv_heads, spec.head_dim
+    # on a mesh whose head axis does not divide the KV heads, the q heads
+    # are gathered before their split into KV groups (k / v were, above)
+    q = fit_heads(q, KV, dim=2)
     q = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)   # (B, KV, G, Sq, D)
     k = k.permute(0, 2, 1, 3)[:, :, None]                   # (B, KV, 1, Sk, D)
     v = v.permute(0, 2, 1, 3)[:, :, None]
@@ -183,7 +187,7 @@ def multi_head_attention(params: dict, x: torch.Tensor, spec: AttnSpec, *,
     # and each rank's local chunks are the ones rematerialised
     out = on_local_heads(core, q, k, v)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, spec.num_heads * D)
-    return out @ params["wo"]
+    return grad_as_forward(out) @ params["wo"]
 
 
 def reference_attention(params: dict, x: torch.Tensor, spec: AttnSpec,

@@ -22,6 +22,9 @@ in-place cache write at a traced index), the piece runs on each rank's
 local shards: ``on_local_shards`` / ``on_local_heads`` (attention, the
 SSD scan, the convs), ``on_local_cache`` (decode attention),
 ``local_rows`` / ``rows_like`` (the MoE's per-row routing and dispatch).
+Where a head axis does not divide the heads, ``fit_heads`` gathers them
+before they are split, and ``grad_as_forward`` hands the gradient back
+in the forward's layout before DTensor views it as heads again.
 """
 from __future__ import annotations
 
@@ -447,20 +450,21 @@ def local_expert_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.redistribute(mesh, placements(spec, mesh)).to_local()
 
 
-def fit_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
-    """``x`` (..., heads·head_dim) ready to split its last dim into
-    ``heads``: a DTensor whose last dim is sharded over more ways than
-    divide ``heads`` (a 4-way 'model' over 2 KV heads; the param rules
-    shard the columns wherever the axis divides them) is gathered over
-    that dim first — a shard that splits a head cannot be viewed as
-    heads. Unchanged otherwise."""
+def fit_heads(x: torch.Tensor, heads: int, dim: int = -1) -> torch.Tensor:
+    """``x`` ready to split its dim ``dim`` (the last: heads·head_dim)
+    into ``heads`` groups: a DTensor whose dim is sharded over more ways
+    than divide ``heads`` (a 4-way 'model' over 2 KV heads; the param
+    rules shard the columns wherever the axis divides them) is gathered
+    over that dim first — a shard that splits a head, or a group of query
+    heads, cannot be viewed so. Unchanged otherwise."""
     if not _is_dtensor(x):
         return x
     from torch.distributed.tensor import Shard
 
+    dim = dim % x.ndim
     ways = math.prod(n for n, pl in zip(x.device_mesh.shape, x.placements)
-                     if isinstance(pl, Shard) and pl.dim % x.ndim == x.ndim - 1)
-    return x if heads % ways == 0 else unshard_dim(x, -1)
+                     if isinstance(pl, Shard) and pl.dim % x.ndim == dim)
+    return x if heads % ways == 0 else unshard_dim(x, dim)
 
 
 def on_local_heads(fn, *xs: torch.Tensor) -> torch.Tensor:
@@ -588,6 +592,35 @@ def on_local_cache(fn, q, k_new, v_new, k_cache, v_cache, index):
     out_pl = [Shard(0) if r == "batch" else Shard(1) if r == "heads"
               else Replicate() for r in roles]
     return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def grad_as_forward(x: torch.Tensor) -> torch.Tensor:
+    """``x`` unchanged; on a DTensor its gradient is laid out as ``x`` is
+    before the ops upstream take it. Attention's output, its heads
+    gathered where the head axis does not divide the KV heads, is viewed
+    from (B, KV, G, S, D) as (B, S, heads·D) columns; the product with
+    ``wo`` (rows on the head axis) hands back a gradient whose columns are
+    sharded 4 ways, which DTensor on the card cannot view back as 2 KV
+    heads. A plain tensor unchanged."""
+    if not _is_dtensor(x):
+        return x
+    return _GradAsForward.apply(x)
+
+
+class _GradAsForward(torch.autograd.Function):
+    """Identity whose backward lays the gradient out in the forward
+    input's placements (``grad_as_forward``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) == ctx.placements:
+            return grad
+        return grad.redistribute(ctx.mesh, ctx.placements)
 
 
 class _ContiguousGrad(torch.autograd.Function):

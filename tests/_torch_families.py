@@ -235,6 +235,99 @@ def check_greedy(name, P=6, new=8):
     return srv
 
 
+def _spec_tuples(tree, is_leaf):
+    return [tuple(s) for s in tree_leaves(tree, is_leaf)]
+
+
+def check_mesh_specs(name, mesh, full):
+    """On ``mesh`` (anything with a ``.shape`` dict): ``param_specs``,
+    ``cache_specs`` (whisper's ``enc`` among them), the train batch's
+    specs (every ``input_specs`` key: ``audio_frames`` / ``image_embeds``
+    among them) and ``token_specs`` equal the reference's, path by path,
+    at the reduced or the full config; every one is placeable on the
+    mesh."""
+    from jax.sharding import PartitionSpec
+
+    from repro.launch import serve as jserve
+    from repro.sharding.rules import param_specs as jparam_specs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import serve as tserve
+    from repro_torch.sharding import rules as trules
+
+    tcfg, jcfg = get_config(name), jget_config(name)
+    if not full:
+        tcfg, jcfg = reduced(tcfg), jreduced(jcfg)
+    tm, jm = build_model(tcfg), jbuild_model(jcfg)
+    jspec = lambda x: isinstance(x, PartitionSpec)
+    meta = tm.init(device="meta")
+    ps = trules.param_specs(meta, mesh)
+    jps = jparam_specs(jax.eval_shape(jm.init, jax.random.key(0)), mesh)
+    assert _spec_tuples(ps, trules.is_spec) == _spec_tuples(jps, jspec)
+    B, S = 8, 64
+    cache = tm.init_cache(B, S, "meta")
+    cs = tserve.cache_specs(cache, mesh)
+    assert [p for p, _ in tree_flatten_with_path(cache)[0]] == [
+        p for p, _ in tree_flatten_with_path(cs, is_leaf=trules.is_spec)[0]]
+    jcs = jserve.cache_specs(jax.eval_shape(lambda: jm.init_cache(B, S)), mesh)
+    assert _spec_tuples(cs, trules.is_spec) == _spec_tuples(jcs, jspec)
+    shape = InputShape("t", 2 * tcfg.num_image_tokens + 64, B, "train")
+    bs = ttrain.batch_specs(tm, shape, mesh, SyncConfig(fused_update=False))
+    jbs = jtrain.batch_specs(jm, shape, mesh, JSyncConfig(fused_update=False))
+    assert sorted(bs) == sorted(jbs) == sorted(tm.input_specs(shape))
+    assert {k: tuple(v) for k, v in bs.items()} == {k: tuple(v) for k, v in jbs.items()}
+    assert tuple(tserve.token_specs((B, 1), mesh)) == tuple(jserve.token_specs((B, 1), mesh))
+    for spec in (tree_leaves(ps, trules.is_spec) + tree_leaves(cs, trules.is_spec)
+                 + list(bs.values())):
+        trules.placements(spec, mesh)
+    return ps, cs
+
+
+def mesh_paths_against_reference(name, batches, toks, enc=None, max_seq=None):
+    """The one-process paths the family-on-a-mesh tests hold the ranks to,
+    on bridged weights beside ``jax.jit`` of the reference's: per-leaf
+    momentum-SGD steps over ``batches`` (torch tensors of the model's
+    ``input_specs`` keys), ``forward`` over the first of them (labels
+    left out) and the serve step over the (B, T) ``toks`` from empty
+    caches (whisper's ``enc`` set to ``enc`` in both). Returns {"losses",
+    "logits", "serve"}, each (port, reference)."""
+    jm, tm, jp, tp = bridged(name)
+    jb = [{k: jnp.asarray(v.numpy()) for k, v in b.items()} for b in batches]
+    jopt = jsgd.sgd(0.1, momentum=0.9)
+    jsync = JSyncConfig(mode="mpi_sgd", fused_update=False, flat_exchange=False)
+    jstate = jtrain.make_train_state(jm, jopt, jsync, jax.random.key(0))
+    jstate["params"] = jax.tree.map(jnp.asarray, jp)
+    jstep = jax.jit(jtrain.make_train_step(jm, jopt, jsync, None))
+    opt = tsgd.sgd(0.1, 0.9)
+    sync = SyncConfig(mode="mpi_sgd", fused_update=False, flat_exchange=False)
+    state = ttrain.make_train_state(tm, opt, sync, device="cpu")
+    state["params"] = tp
+    step = ttrain.make_train_step(tm, opt, sync, None, device="cpu")
+    jl, tl = [], []
+    for b, j in zip(batches, jb):
+        jstate, jmet = jstep(jstate, j)
+        state, met = step(state, b)
+        jl.append(float(jmet["loss"]))
+        tl.append(float(met["loss"]))
+    fwd = lambda b: {k: v for k, v in b.items() if k != "labels"}
+    want = f32(jax.jit(jm.forward)(jp, fwd(jb[0])))
+    with torch.no_grad():
+        got = f32(tm.forward(tp, fwd(batches[0])))
+    B, T = toks.shape
+    max_seq = max_seq or T
+    jc, tc = jm.init_cache(B, max_seq), tm.init_cache(B, max_seq, "cpu")
+    if enc is not None:
+        jc = dict(jc, enc=jnp.asarray(enc.numpy()))
+        tc["enc"].copy_(enc)
+    jserve = jax.jit(jm.serve_step)
+    js, ts = [], []
+    for t in range(T):
+        a, jc = jserve(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+        b, tc = tm.serve_step(tp, tc, torch.from_numpy(toks[:, t:t + 1]))
+        js.append(f32(a))
+        ts.append(f32(b))
+    return {"losses": (tl, jl), "logits": (got, want), "serve": (ts, js)}
+
+
 def param_numel(tree) -> int:
     return sum(a.numel() for a in tree_leaves(tree))
 

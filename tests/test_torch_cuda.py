@@ -1015,3 +1015,26 @@ def test_moe_on_the_card_mesh_equals_one_process(cuda):
         close(r["decode"]["logits"], want["decode"]["logits"])
         for a, b in zip(tree_leaves(r["decode"]["cache"]), tree_leaves(want["decode"]["cache"])):
             close(a, b)
+
+
+def test_encdec_on_the_card_mesh_equals_one_process(cuda):
+    """The reduced whisper-base on 4 gloo ranks of the card laid out
+    (data 2, model 2) — the encoder stack, cross-attention over the
+    encoder output, the decode step's ``enc`` cache leaf (batch on 'data',
+    d on 'model', set to a nonzero encoder output), every DTensor
+    collective staged — against the one-process run on the card: one
+    momentum-SGD step (loss and the gathered state within rtol 1e-5 of
+    the value and of each leaf's scale) and one decode token (logits and
+    cache within the same)."""
+    import _torch_gspmd_families as G
+    from repro_torch.launch.mesh import spawn_ranks
+
+    ranks = spawn_ranks(G.card_case, (2, 2), G.DENSE_AXES, backend="gloo",
+                        device="cuda", args=("cuda", "whisper-base"))
+    want = G.card_case(None, "cuda", "whisper-base")
+    for r in ranks:
+        torch.testing.assert_close(torch.tensor(r["train"]["losses"]),
+                                   torch.tensor(want["train"]["losses"]), rtol=1e-5, atol=0)
+        G.close_trees(r["train"]["state"], want["train"]["state"])
+        G.close(r["decode"]["logits"], want["decode"]["logits"])
+        G.close_trees(r["decode"]["cache"], want["decode"]["cache"])

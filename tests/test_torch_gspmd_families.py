@@ -53,7 +53,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.sharding import rules as trules  # noqa: E402
-from repro_torch.tree import tree_flatten_with_path, tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 jsgd = importlib.import_module("repro.optim.sgd")
 
@@ -122,21 +122,6 @@ def runs():
     return ranks, one, ref
 
 
-def _close(a, b, rtol=RTOL):
-    """Within rtol of the value and of the leaf's scale."""
-    a, b = a.float().numpy(), b.float().numpy()
-    scale = float(np.abs(b).max()) if b.size else 0.0
-    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * scale)
-
-
-def _close_trees(got, want, rtol=RTOL):
-    gl, wl = tree_flatten_with_path(got)[0], tree_flatten_with_path(want)[0]
-    assert [p for p, _ in gl] == [p for p, _ in wl]
-    for (path, a), (_, b) in zip(gl, wl):
-        assert a.shape == b.shape and a.dtype == b.dtype, path
-        _close(a, b, rtol)
-
-
 @pytest.mark.parametrize("name", G.FAMILIES)
 def test_train_on_mesh_equals_one_process(runs, name):
     ranks, one, _ = runs
@@ -147,8 +132,8 @@ def test_train_on_mesh_equals_one_process(runs, name):
             assert set(got_m) == set(want_m)
             for k in want_m:
                 np.testing.assert_allclose(got_m[k], want_m[k], rtol=RTOL, err_msg=k)
-        _close_trees(r["first"], want["first"])
-        _close_trees(r["state"], want["state"], STATE_BAND.get(name, RTOL))
+        G.close_trees(r["first"], want["first"])
+        G.close_trees(r["state"], want["state"], STATE_BAND.get(name, RTOL))
 
 
 def test_moe_aux_term_is_trained(runs):
@@ -166,7 +151,7 @@ def test_prefill_on_mesh_equals_one_process(runs, name):
     want = one[("prefill", name)]["logits"]
     assert want.shape == (G.BATCH, G.SEQ, G.model(name).cfg.padded_vocab)
     for r in ranks[("prefill", name)]:
-        _close(r["logits"], want)
+        G.close(r["logits"], want)
 
 
 @pytest.mark.parametrize("name", MOE)

@@ -38,9 +38,8 @@ import _torch_gspmd_families as G  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 from repro_torch.sharding import rules as trules  # noqa: E402
-from repro_torch.tree import tree_flatten_with_path, tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
-RTOL = 1e-5
 ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x7b", "mamba2-130m", "zamba2-1.2b", "qwen2-0.5b")
 
 
@@ -88,31 +87,13 @@ def runs():
     return ranks, one, ref
 
 
-def _close(a, b, rtol=RTOL):
-    """Within rtol of the value and of the scale (max |value|)."""
-    a, b = a.float().numpy(), b.float().numpy()
-    scale = float(np.abs(b).max()) if b.size else 0.0
-    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * scale)
-
-
 @pytest.mark.parametrize("case", list(G.DECODE))
 def test_decode_on_mesh_equals_one_process(runs, case):
     ranks, one, _ = runs
     want = one[case]
     assert want["logits"].shape[0] == G.PROMPT + G.NEW
     for r in ranks[case]:
-        for t in range(G.PROMPT + G.NEW):
-            _close(r["logits"][t], want["logits"][t])
-        assert torch.equal(r["tokens"], want["tokens"])
-        got_c = tree_flatten_with_path(r["cache"])[0]
-        want_c = tree_flatten_with_path(want["cache"])[0]
-        assert [p for p, _ in got_c] == [p for p, _ in want_c]
-        for (path, a), (_, b) in zip(got_c, want_c):
-            assert a.shape == b.shape and a.dtype == b.dtype, path
-            if b.dtype == torch.int32:
-                assert torch.equal(a, b), path
-            else:
-                _close(a, b)
+        G.hold("decode", r, want)
 
 
 class _Mesh:
