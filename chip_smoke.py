@@ -252,7 +252,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  qwen3-4b and phi3-medium-14b on (data 2, model 2) and
                  qwen2.5-3b on (data 1, model 4): 3 steps (losses, metrics,
                  the state after steps 1 and 3), a prefill (logits, the
-                 MoE's slots and keeps of each rank's rows) and an 8 + 4
+                 MoE's slots and keeps of each rank's rows) and a 4 + 4
                  token decode (logits, greedy tokens, cache) each within
                  rtol 1e-5 of the one-process run on the card (zamba2's
                  state within 1e-4 / 1e-2 of a leaf's scale after steps 1 /
@@ -283,6 +283,20 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  rank step ms and its split, ms a token, bytes staged a
                  step, a prefill and a token by collective, peak memory and
                  the card's used MiB
+              e) [dryrun] slice 18: one CPU subprocess (no card, no
+                 kernel; at the lowest priority, so the ranks keep the
+                 cores; started with the correctness block, read after
+                 the full-width spawn) runs launch/dryrun's CLI on a fake
+                 256-rank pod (qwen2-0.5b train_4k without the
+                 extrapolation, and long_500k, which
+                 the skip rule keeps out; both exit 0), then traces on
+                 fake worlds of 4, at each case's config, depth, dtype,
+                 batch and mesh, [gspmd]'s step, c)'s two training steps
+                 and all five c) prefills and decode tokens: each traced
+                 collective, as staged bytes by op, == rank 0's
+                 LinkStats.by_op in every measured step, prefill and
+                 token; the traced argument + temp bytes of a step
+                 printed beside the rank's measured peak
  16. remat    slice 15, each sub-phase's wall time printed, then the whole
               smoke's:
               a) [remat] full-width qwen2-0.5b (8 of its 24 layers), one
@@ -326,6 +340,7 @@ in other processes and are not counted here.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -4876,13 +4891,14 @@ def _gspmd_run(mesh, case) -> dict:
     split = {} if mesh is not None else None
     step = make_train_step(model, opt, sync, mesh, split=split,
                            microbatch=case.get("microbatch", 1))
-    rec = {"losses": [], "step_ms": [], "split": [], "staged": []}
+    rec = {"losses": [], "step_ms": [], "split": [], "staged": [], "staged_by_op": []}
     if mesh is not None:
         mesh.link.stats.reset()
     reset_counts()
     for b in batches:
         before = (mesh.link.stats.d2h_bytes + mesh.link.stats.h2d_bytes
                   if mesh is not None else 0)
+        by_op = _fam_staged(mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, b)
@@ -4894,6 +4910,7 @@ def _gspmd_run(mesh, case) -> dict:
             split.clear()
             rec["staged"].append(mesh.link.stats.d2h_bytes + mesh.link.stats.h2d_bytes
                                  - before)
+            rec["staged_by_op"].append(_fam_delta(by_op, _fam_staged(mesh)))
     rec["launches"] = counts(ALL_KERNELS)
     rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     if mesh is not None:
@@ -5046,10 +5063,11 @@ def phase_multidevice(card) -> dict:
 #: [gspmd:families] a): the CPU tests' cases, run by their rank workers
 #: (tests/_torch_gspmd_families.py, which imports no JAX) on the card
 FAM_RTOL = 1e-5
-#: a)'s decode on the card: an 8-token prompt, then 4 greedy tokens (the
-#: CPU tests' 16 + 8 cut to keep the smoke in its time; 12 of the 24 cache
-#: slots still cross a 4-way sequence shard's boundary)
-FAM_SMALL_DECODE = (8, 4)
+#: a)'s decode on the card: a 4-token prompt, then 4 greedy tokens (the
+#: CPU tests' 16 + 8 cut to keep the smoke in its time; the greedy tokens
+#: write cache slots 4-7 of 24, so slots 6 and 7 lie past a 4-way sequence
+#: shard's boundary — 4 + 2 would not reach it)
+FAM_SMALL_DECODE = (4, 4)
 #: zamba2's state after steps 1 and 3, as a share of a leaf's scale: its
 #: gradients amplify noise — a 1e-7 relative change of the initial params
 #: moves the state by 1.4e-5 after one step and 3.4e-4 after three (CPU),
@@ -5663,6 +5681,160 @@ def phase_gspmd_families(card, all_ranks) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15 e: the dry run, its traced bytes held against the ranks' staged ones
+# ---------------------------------------------------------------------------
+
+#: [dryrun] a): the dry run's CLI on the 256-rank production pod, a combo
+#: and one the skip rule keeps out
+DRYRUN_CLI = (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--mesh", "pod",
+               "--no-extrapolate"],
+              ["--arch", "qwen2-0.5b", "--shape", "long_500k", "--mesh", "pod"])
+
+
+def _dryrun_trace(cfg, shape, mesh, sync) -> dict:
+    from repro_torch.launch.dryrun import lower_module
+
+    tr = lower_module(cfg, shape, mesh, sync)
+    rec = tr.recorder
+    return {"staged": rec.staged_by_op(), "schedule": rec.counts(),
+            "temp": rec.peak, "argument": tr.argument_bytes, "s": tr.seconds}
+
+
+def _dryrun_worker(out_path: str) -> None:
+    """The [dryrun] subprocess (no card, no kernel; ``meta`` tensors only):
+    a) the CLI runs of ``DRYRUN_CLI``, in this process one after the other;
+    b) on a fake world of 4, ``lower_module`` over each mesh case phase 15
+    measures, on its config, depth, dtype, batch and mesh: [gspmd]'s step,
+    c)'s training steps, and every c) case's prefill and decode token.
+    Writes the records to ``out_path`` as JSON."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _mesh_over_world, join_trace_world
+
+    out = {"cli": [], "traces": {}}
+    for i, argv in enumerate(DRYRUN_CLI):
+        path = f"{out_path}.cli{i}.json"
+        t0 = time.perf_counter()
+        rc = dryrun.main(argv + ["--out", path])
+        out["cli"].append({"argv": argv, "rc": rc, "s": time.perf_counter() - t0,
+                           "result": json.loads(Path(path).read_text())})
+    join_trace_world(4)
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        if (shape, axes) not in meshes:
+            meshes[(shape, axes)] = _mesh_over_world(shape, axes, "meta", "[dryrun]")
+        return meshes[(shape, axes)]
+
+    model, _, sync, _ = _gspmd_case(GSPMD_FULL)
+    out["traces"]["[gspmd] step"] = _dryrun_trace(
+        model.cfg, InputShape("train", 512, GSPMD_FULL_BATCH, "train"),
+        mesh_of((2, 2), _gspmd_axes((2, 2))), sync)
+    sync = SyncConfig(fused_update=False, flat_exchange=False)
+    for case in GSPMD_FAMILIES_C:
+        cfg, mesh = _fam_full_cfg(case), mesh_of(case["mesh"], case["axes"])
+        if case["train"]:
+            B, S = case["train"]
+            out["traces"][f"{case['name']} step"] = _dryrun_trace(
+                cfg, InputShape("train", S, B, "train"), mesh, sync)
+        B, S = case["prefill"]
+        out["traces"][f"{case['name']} prefill"] = _dryrun_trace(
+            cfg, InputShape("prefill", S, B, "prefill"), mesh, sync)
+        out["traces"][f"{case['name']} token"] = _dryrun_trace(
+            cfg, InputShape("decode", case["prompt"] + case["new"], case["batch"],
+                            "decode"), mesh, sync)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def start_dryrun() -> tuple:
+    """The [dryrun] subprocess, started at the lowest priority (it
+    takes the cores the ranks leave idle; its output to a log beside its
+    records, under build/): -> (process, records path, log path)."""
+    work = ROOT / "build" / "dryrun"
+    work.mkdir(parents=True, exist_ok=True)
+    path, log_path = work / "records.json", work / "dryrun.log"
+    for f in work.iterdir():
+        f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import os; os.nice(19); import chip_smoke; "
+             f"chip_smoke._dryrun_worker({str(path)!r})"],
+            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    # a phase that fails before [dryrun] reads it leaves no process behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, log_path
+
+
+def _dryrun_hold(label, traced: dict, measured: list) -> None:
+    for j, got in enumerate(measured):
+        if got != traced:
+            raise AssertionError(f"{label} {j}: the ranks staged {got} B, the dry run "
+                                 f"traced {traced} B")
+
+
+def phase_dryrun(card, job, gspmd0, fam0) -> dict:
+    """[dryrun]: the subprocess of ``start_dryrun`` (``job``) must have
+    exited 0 with a) both CLI runs at 0 (the combo traced, the skip combo
+    skipped) and b) every traced case's collectives, as staged bytes by
+    op, ``==`` rank 0's ``LinkStats.by_op`` for each measured step,
+    prefill and token: [gspmd]'s (``gspmd0``, its record) and c)'s
+    (``fam0``, rank 0's records of b) and c) in case order). The traced
+    argument + temp bytes of a step are printed beside the rank's measured
+    peak, as a figure only."""
+    proc, path, log_path = job
+    rc = proc.wait(timeout=600)
+    text = log_path.read_text()
+    for line in text.splitlines():
+        if line.startswith("[dryrun]"):
+            log(f"{line} | CPU trace on the card's host")
+    if rc != 0:
+        raise AssertionError(f"[dryrun] the subprocess exited {rc}:\n{text[-4000:]}")
+    rec = json.loads(path.read_text())
+    for cli in rec["cli"]:
+        res = cli["result"][0]
+        if cli["rc"] != 0 or "error" in res:
+            raise AssertionError(f"[dryrun] {cli['argv']} exited {cli['rc']}: {res}")
+    combo, skip = (c["result"][0] for c in rec["cli"])
+    if "skipped" not in skip or "skipped" in combo:
+        raise AssertionError(f"[dryrun] skip rule: {skip}, combo {combo.get('skipped')}")
+    log(f"[dryrun] a) {combo['arch']} {combo['shape']} on {combo['chips']} fake ranks "
+        f"{combo['mesh']}: traced in {combo['lower_s']} s, schedule "
+        f"{combo['collective_schedule']}, memory {combo['memory']}; {skip['arch']} "
+        f"{skip['shape']} skipped ({skip['skipped']}); CLI seconds "
+        f"{[round(c['s'], 1) for c in rec['cli']]}")
+    traces = rec["traces"]
+    measured = {"[gspmd] step": (gspmd0["staged_by_op"], gspmd0["peak_mem_bytes"])}
+    cases = GSPMD_FAMILIES_FULL + GSPMD_FAMILIES_C
+    for case in GSPMD_FAMILIES_C:
+        r = fam0[cases.index(case)]
+        if case["train"]:
+            measured[f"{case['name']} step"] = (r["train"]["staged"],
+                                                r["train"]["peak_mem_bytes"])
+        measured[f"{case['name']} prefill"] = ([r["prefill"]["staged"]], None)
+        measured[f"{case['name']} token"] = (r["decode"]["staged"], None)
+    if set(measured) != set(traces):
+        raise AssertionError(f"[dryrun] traced {sorted(traces)} vs measured {sorted(measured)}")
+    report = {"cli": [{k: c[k] for k in ("argv", "rc", "s")} for c in rec["cli"]],
+              "combo": combo}
+    for name, (runs, peak) in measured.items():
+        tr = traces[name]
+        label = f"[dryrun] b) {name}"
+        _dryrun_hold(label, tr["staged"], runs)
+        mem = (f"; traced argument + temp {(tr['argument'] + tr['temp']) / 2**30:.2f} GiB "
+               f"beside the rank's measured peak {peak / 2**30:.2f} GiB (a figure only)"
+               if peak is not None else "")
+        log(f"{label}: traced staged bytes {tr['staged']} == rank 0's LinkStats.by_op "
+            f"in all {len(runs)} measured run(s); schedule {tr['schedule']}; traced in "
+            f"{tr['s']:.1f} s{mem} | {card}")
+        report[name] = {"staged": tr["staged"], "runs": len(runs), "schedule": tr["schedule"],
+                        "temp": tr["temp"], "argument": tr["argument"], "peak": peak,
+                        "trace_s": tr["s"]}
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 16: remat honoured, and the reference's three examples as modules
 # ---------------------------------------------------------------------------
 
@@ -5963,9 +6135,10 @@ def main() -> None:
     sgd_row["max_abs_err"] = max(sgd_row["max_abs_err"], mesh_err)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # the correctness runs side by side (their wall times are not
-    # measurements: the host's 8 cores bind them), then the full-width
-    # ones in one spawn
+    # the dry run's subprocess (CPU only) beside the correctness runs,
+    # which run side by side (their wall times are not measurements: the
+    # host's 8 cores bind them), then the full-width ones in one spawn
+    dry = start_dryrun()
     with ThreadPoolExecutor(1) as ex:
         multi = ex.submit(phase_multidevice, card)
         fam_small, small_ranks = phase_gspmd_families_small(card)
@@ -5982,10 +6155,15 @@ def main() -> None:
     gspmd = phase_gspmd(card, [r["gspmd"] for r in full])
     log("[gspmd] " + json.dumps(gspmd, default=str))
     fam = phase_gspmd_families(card, [r["families"] for r in full])
-    del full
     log("[gspmd:families] b) and c) " + json.dumps(fam, default=str))
-    log(f"[gspmd] and [gspmd:families] b) and c) took {time.perf_counter() - t1:.1f} s; "
-        f"phase 15 took {time.perf_counter() - t0:.1f} s | {card}")
+    log(f"[gspmd] and [gspmd:families] b) and c) took {time.perf_counter() - t1:.1f} s | "
+        f"{card}")
+    t1 = time.perf_counter()
+    dryrun = phase_dryrun(card, dry, full[0]["gspmd"], full[0]["families"])
+    del full
+    log("[dryrun] " + json.dumps(dryrun, default=str))
+    log(f"[dryrun] waited {time.perf_counter() - t1:.1f} s for its subprocess; phase 15 "
+        f"took {time.perf_counter() - t0:.1f} s | {card}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     remat = phase_remat(dev, card)

@@ -85,8 +85,7 @@ class ModelConfig:
     # residual stream's seq dim over 'model' between blocks
     # (sharding.rules.maybe_seq_shard)
     seq_shard_activations: bool = False
-    # activation checkpointing per layer in the reference; not yet honoured
-    # by the port (ROADMAP Queue 3)
+    # activation checkpointing of each layer body (models/layers.remat)
     remat: bool = True
 
     @property

@@ -6,8 +6,10 @@ roofline (``repro/launch/analysis.py``).
     collective term = wire_bytes / (chips × link bandwidth)
 
 ``parse_collectives`` reads optimized HLO text (a pure string function)
-and charges each collective its ring wire cost on the group it runs over;
-the roofline's FLOP and byte counts come from the caller's cost analysis.
+and charges each collective its ring wire cost on the group it runs over
+(``collective_cost``, which ``launch.dryrun``'s trace of the port's own
+collectives calls too); the roofline's FLOP and byte counts come from the
+caller's cost analysis.
 
 The rates are the card's, not the reference's: every function that
 reads one takes it as a keyword whose default is the NVIDIA H100 SXM
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import asdict, dataclass, field
+from typing import Optional
 
 #: NVIDIA H100 SXM (80GB HBM3, 700 W) data sheet, dense bf16 FLOP/s
 PEAK_FLOPS = 989e12
@@ -60,8 +63,22 @@ def _shape_bytes(dtype: str, dims: str) -> int:
     return n * _DTYPE_BYTES.get(dtype, 4)
 
 
-def parse_collectives(hlo_text: str) -> CollectiveStats:
-    """Sum per-device collective bytes from optimized HLO text.
+#: torch's collective ops (``_c10d_functional`` / ``_dtensor``, by schema
+#: name) -> the kind of collective, by the reference's HLO names
+TORCH_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+def collective_cost(op: str, nbytes: float, group_size: int) -> tuple[str, float]:
+    """``(kind, wire bytes)`` of one collective: ``op`` is a kind (an HLO
+    name) or a torch collective op's schema name, ``nbytes`` its result's
+    bytes on one device, ``group_size`` g (0 when unknown).
 
     Wire-cost convention (ring algorithms, group size g):
       all-reduce        2·(g−1)/g · bytes   (reduce-scatter + all-gather)
@@ -69,9 +86,27 @@ def parse_collectives(hlo_text: str) -> CollectiveStats:
       reduce-scatter    (g−1)/g · in_bytes  (result type is the shard => ·(g−1))
       all-to-all        (g−1)/g · bytes
       collective-permute  bytes
-    Group size is parsed per op from replica_groups; ops with unknown
-    groups assume g→∞ (factor 1).
-    """
+    An unknown group (g = 0) is taken as g→∞ (factor 1)."""
+    kind = TORCH_COLLECTIVE_KINDS.get(op, op)
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"{op!r} is no collective this analysis prices")
+    g = group_size
+    frac = (g - 1) / g if g > 1 else 1.0
+    if kind == "all-reduce":
+        wire = 2 * frac * nbytes
+    elif kind == "reduce-scatter":
+        wire = (g - 1) * nbytes if g > 1 else nbytes
+    elif kind == "collective-permute":
+        wire = nbytes
+    else:  # all-gather, all-to-all
+        wire = frac * nbytes
+    return kind, wire
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    """Sum per-device collective bytes from optimized HLO text, each op
+    charged ``collective_cost``'s ring wire bytes on its group, whose size
+    is parsed per op from replica_groups."""
     stats = CollectiveStats()
     for line in hlo_text.splitlines():
         m = _COLL_RE.search(line)
@@ -79,18 +114,7 @@ def parse_collectives(hlo_text: str) -> CollectiveStats:
             continue
         dtype, dims, kind = m.groups()
         nbytes = _shape_bytes(dtype, dims)
-        g = _group_size(line)
-        frac = (g - 1) / g if g > 1 else 1.0
-        if kind == "all-reduce":
-            wire = 2 * frac * nbytes
-        elif kind == "all-gather":
-            wire = frac * nbytes
-        elif kind == "reduce-scatter":
-            wire = (g - 1) * nbytes if g > 1 else nbytes
-        elif kind == "all-to-all":
-            wire = frac * nbytes
-        else:  # collective-permute
-            wire = nbytes
+        kind, wire = collective_cost(kind, nbytes, _group_size(line))
         stats.counts[kind] = stats.counts.get(kind, 0) + 1
         stats.operand_bytes[kind] = stats.operand_bytes.get(kind, 0) + nbytes
         stats.wire_bytes += wire
@@ -115,21 +139,26 @@ class Roofline:
     wire_bytes: float           # whole-job collective wire bytes
     compute_s: float
     memory_s: float
-    collective_s: float
+    collective_s: Optional[float]     # None: no link rate was given
     model_flops: float = 0.0
 
-    @property
-    def dominant(self) -> str:
+    def _terms(self) -> dict:
         terms = {
             "compute": self.compute_s,
             "memory": self.memory_s,
             "collective": self.collective_s,
         }
+        return {k: v for k, v in terms.items() if v is not None}
+
+    @property
+    def dominant(self) -> str:
+        """The largest of the terms that have a rate."""
+        terms = self._terms()
         return max(terms, key=terms.get)
 
     @property
     def bound_s(self) -> float:
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        return max(self._terms().values())
 
     @property
     def useful_flops_ratio(self) -> float:
@@ -145,14 +174,15 @@ class Roofline:
 def roofline_from_analysis(cost: dict, coll: CollectiveStats, chips: int,
                            model_flops: float = 0.0,
                            wire_dtype: "str | None" = None, *,
-                           link_bw: float,
+                           link_bw: Optional[float],
                            peak_flops: float = PEAK_FLOPS,
                            hbm_bw: float = HBM_BW) -> Roofline:
     """The three terms from a per-device cost analysis (``"flops"``,
     ``"bytes accessed"``) and the parsed collectives. ``wire_dtype``
     projects the low-precision wire onto a module traced at full
     precision (``cost_model.wire_ratio`` of the f32 bytes per hop);
-    ``link_bw`` (bytes/s per link) has no default."""
+    ``link_bw`` (bytes/s per link) has no default: None leaves the
+    collective term unpriced (``collective_s`` None)."""
     from repro_torch.core.cost_model import wire_ratio
 
     per_dev_flops = float(cost.get("flops", 0.0))
@@ -165,7 +195,7 @@ def roofline_from_analysis(cost: dict, coll: CollectiveStats, chips: int,
         wire_bytes=per_dev_wire * chips,
         compute_s=per_dev_flops / peak_flops,
         memory_s=per_dev_bytes / hbm_bw,
-        collective_s=per_dev_wire / link_bw,
+        collective_s=None if link_bw is None else per_dev_wire / link_bw,
         model_flops=model_flops,
     )
 

@@ -15,7 +15,11 @@ group.
 
 The backend is named by the caller, never switched: "gloo" (host
 transport; any number of ranks on one card, card tensors staged through
-pinned host memory) or "nccl" (one card a rank).
+pinned host memory) or "nccl" (one card a rank). A world joined over
+torch's "fake" backend (``join_trace_world``: one process that plays one
+rank of a world of any size and sends nothing) is laid out as a
+``TraceMesh``: its tensors are ``meta`` and its DTensors live on a mesh
+of the traced device type, for ``launch.dryrun``.
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ class Mesh:
         self.backend = backend
         self.device = torch.device(device)
         self.coords = dict(zip(self.axes, device_mesh.get_coordinate()))
-        self.link = Link(backend, self.device)
+        self.link = self._make_link()
         self._groups: dict = {}
         self._dtensor_meshes: dict = {}
         for a in self.axes:
@@ -66,6 +70,15 @@ class Mesh:
             g = self.get_group(a)
             if dist.get_group_rank(g, dist.get_rank()) != self.coords[a]:
                 raise RuntimeError(f"axis {a!r}: group rank != coordinate")
+
+    def _make_link(self):
+        return Link(self.backend, self.device)
+
+    @property
+    def dtensor_device_type(self) -> str:
+        """The device type of the ``DeviceMesh`` this world's DTensors live
+        on: this rank's."""
+        return self.device.type
 
     @property
     def index(self) -> int:
@@ -117,7 +130,8 @@ class Mesh:
         axes = tuple(axes)
         if list(axes) != [a for a in self.axes if a in axes]:
             raise ValueError(f"axes {axes} are not in mesh order {self.axes}")
-        if axes == self.axes and self.device_mesh.device_type == self.device.type:
+        dev_type = self.dtensor_device_type
+        if axes == self.axes and self.device_mesh.device_type == dev_type:
             return self.device_mesh
         if axes not in self._dtensor_meshes:
             from torch.distributed.device_mesh import DeviceMesh
@@ -127,7 +141,7 @@ class Mesh:
                 for a in self.axes)]
             self._dtensor_meshes[axes] = DeviceMesh.from_group(
                 [self.device_mesh.get_group(a) for a in axes],
-                self.device.type, mesh=ranks, mesh_dim_names=axes)
+                dev_type, mesh=ranks, mesh_dim_names=axes)
         return self._dtensor_meshes[axes]
 
     def dtensor_collectives(self):
@@ -151,6 +165,49 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, backend={self.backend!r}, "
                 f"device={self.device}, coords={self.coords})")
+
+
+class TraceMesh(Mesh):
+    """A ``Mesh`` over a "fake" world (``join_trace_world``) that traces:
+    this process plays rank 0 of the world and moves nothing. Its tensors
+    are ``meta`` — shapes and dtypes, no storage — and its DTensors live on
+    a ``DeviceMesh`` of ``TRACED_DEVICE_TYPE``, the device the traced
+    deployment runs on, so DTensor plans the collectives it would plan
+    there (a CPU mesh turns DTensor's all-to-all into an all-gather). No
+    ``Link``: no tensor is staged, and ``dtensor_collectives`` does
+    nothing — a tracer (``launch.dryrun``'s recorder) sees the collectives
+    as they are issued."""
+
+    def __init__(self, device_mesh, *, backend: str, device):
+        if torch.device(device).type != "meta":
+            raise ValueError(f"a trace mesh holds meta tensors, not {device}")
+        super().__init__(device_mesh, backend=backend, device=device)
+
+    def _make_link(self):
+        return None
+
+    @property
+    def dtensor_device_type(self) -> str:
+        return TRACED_DEVICE_TYPE
+
+    def dtensor_collectives(self):
+        return contextlib.nullcontext()
+
+
+#: the device type a ``TraceMesh``'s DTensors are laid out for
+TRACED_DEVICE_TYPE = "cuda"
+
+
+def join_trace_world(world_size: int) -> None:
+    """Join this process, as rank 0, to a "fake" world of ``world_size``
+    ranks: every collective returns at once and moves nothing (a trace
+    records it instead). The production meshes then build over it as
+    ``TraceMesh``es, on ``device="meta"``."""
+    # importing it registers the backend (torch's own default for "fake")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 def _rank_device(device, rank: int) -> torch.device:
@@ -181,7 +238,8 @@ def _mesh_over_world(shape: Sequence[int], axes: Sequence[str], device,
     device = _rank_device(device, dist.get_rank())
     dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
                           tuple(shape), mesh_dim_names=tuple(axes))
-    return Mesh(dm, backend=backend, device=device)
+    cls = TraceMesh if backend == "fake" else Mesh
+    return cls(dm, backend=backend, device=device)
 
 
 def init_mesh(shape: Sequence[int], axes: Sequence[str], *, rank: int,

@@ -701,9 +701,12 @@ def make_mesh_step(model: Model, engine, sync: SyncConfig, mesh, *,
                              params=tree_map(from_client, new_p, state["params"]),
                              opt=tree_map(from_client, new_o, state["opt"]),
                              step=state["step"] + 1)
-            # the pre-increment step gates the exchange, after the update
-            if sync.mode == "mpi_esgd" and bool(
-                    should_elastic_sync(state["step"].to_local(), sync.esgd_interval)):
+            # the pre-increment step gates the exchange, after the update; a
+            # meta step (a trace) has no value and takes the exchange, whose
+            # collectives the reference's compiled cond holds too
+            step_now = state["step"].to_local()
+            if sync.mode == "mpi_esgd" and (step_now.is_meta or bool(
+                    should_elastic_sync(step_now, sync.esgd_interval))):
                 with implicit_replication(), timer("exchange"):
                     p2, c2 = engine.exchange_multiclient(
                         new_state["params"], new_state["center"],

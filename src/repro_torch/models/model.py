@@ -51,7 +51,7 @@ from repro_torch.models.transformer import (
     init_stack,
     init_stack_cache,
 )
-from repro_torch.sharding.rules import embedding_lookup, unshard_dim
+from repro_torch.sharding.rules import embedding_lookup, local_rows, rows_like, unshard_dim
 from repro_torch.tree import tree_map
 
 XENT_CHUNK = 512
@@ -170,8 +170,10 @@ def _xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     # torch.gather on the sharded dim leaves a pending form that fails
     logits = unshard_dim(logits, -1).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.sum(lse - gold)
+    # the gold logit of each rank's own rows: DTensor's gather backward
+    # scatters into zeros of the whole global chunk on every rank
+    gold = torch.gather(local_rows(logits), -1, local_rows(labels).long()[..., None])
+    return torch.sum(lse - rows_like(gold[..., 0], logits))
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

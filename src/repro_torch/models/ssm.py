@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.sharding.rules import on_local_shards, unshard_dim
+from repro_torch.sharding.rules import grad_as_forward, on_local_shards, unshard_dim
 
 
 def _segsum(dA: torch.Tensor) -> torch.Tensor:
@@ -230,7 +230,9 @@ def mamba_block(params: dict, x: torch.Tensor, *, expand: int, head_dim: int,
         (xs, dt, A, Bm, Cm, h0),
         [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1)], [(0, 2), (0, 1)])
     y = y + params["D"].to(y.dtype)[None, None, :, None] * xs
-    y = y.reshape(B, L, d_inner)
+    # where the head axis does not divide the heads, the gradient comes
+    # back with its channels split inside a head: laid out as y first
+    y = grad_as_forward(y.reshape(B, L, d_inner))
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
     return y @ params["out_proj"], (h, conv_state)
 

@@ -186,9 +186,10 @@ def init_enc_layer(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dic
 
 def apply_enc_layer(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
-    x = x + multi_head_attention(p["attn"], h, attn_spec(cfg, causal=False))
+    x = shard_batch_dim(x + multi_head_attention(p["attn"], h,
+                                                 attn_spec(cfg, causal=False)))
     h = layer_norm(x, p["ffn_norm"], p["ffn_norm_b"])
-    return x + mlp_ffn(p["mlp"], h)
+    return shard_batch_dim(x + mlp_ffn(p["mlp"], h))
 
 
 def init_dec_layer(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dict:
@@ -207,16 +208,16 @@ def init_dec_layer(gen, cfg: ModelConfig, dtype, device, layers: int = 1) -> dic
 def _cross_and_mlp(p: dict, x: torch.Tensor, enc: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     h = layer_norm(x, p["cross_norm"], p["cross_norm_b"])
-    x = x + multi_head_attention(p["cross"], h, attn_spec(cfg, cross=True),
-                                 x_kv=enc)
+    x = shard_batch_dim(x + multi_head_attention(p["cross"], h, attn_spec(cfg, cross=True),
+                                                 x_kv=enc))
     h = layer_norm(x, p["ffn_norm"], p["ffn_norm_b"])
-    return x + mlp_ffn(p["mlp"], h)
+    return shard_batch_dim(x + mlp_ffn(p["mlp"], h))
 
 
 def apply_dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
-    x = x + multi_head_attention(p["attn"], h, attn_spec(cfg))
+    x = shard_batch_dim(x + multi_head_attention(p["attn"], h, attn_spec(cfg)))
     return _cross_and_mlp(p, x, enc, cfg)
 
 
@@ -227,7 +228,7 @@ def decode_dec_layer(p: dict, x: torch.Tensor, enc: torch.Tensor, cache: dict,
     the reference does."""
     h = layer_norm(x, p["attn_norm"], p["attn_norm_b"])
     a, cache = decode_attention(p["attn"], h, cache, attn_spec(cfg))
-    return _cross_and_mlp(p, x + a, enc, cfg), cache
+    return _cross_and_mlp(p, shard_batch_dim(x + a), enc, cfg), cache
 
 
 def apply_enc_stack(stacked: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -30,9 +30,16 @@ from repro_torch.core.collectives import Link
 from repro_torch.tree import tree_leaves, tree_map
 
 #: op namespaces whose ops are collectives
-_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
 #: ops of those namespaces that move nothing
-_PASS_THROUGH = ("wait_tensor", "_wrap_tensor_autograd")
+PASS_THROUGH = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def staged_bytes(func, operand_bytes: int, result_bytes: int) -> int:
+    """The bytes ``StagedCollectives`` stages for one collective op: every
+    operand to the host, then the results back (an in-place op: its
+    operands back into place)."""
+    return operand_bytes + (operand_bytes if func._schema.is_mutable else result_bytes)
 
 
 class StagedCollectives(TorchDispatchMode):
@@ -59,9 +66,9 @@ class StagedCollectives(TorchDispatchMode):
         dev = self.link.device.type
         on_card = any(isinstance(t, torch.Tensor) and t.device.type == dev
                       for t in tree_leaves([list(args), kwargs]))
-        if ns not in _COLLECTIVE_NAMESPACES or not on_card:
+        if ns not in COLLECTIVE_NAMESPACES or not on_card:
             return func(*args, **kwargs)
-        if name in _PASS_THROUGH:
+        if name in PASS_THROUGH:
             # staged results are complete: there is no work to wait for
             return args[0] if name == "wait_tensor" else func(*args, **kwargs)
         stats = self.link.stats
