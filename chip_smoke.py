@@ -324,7 +324,13 @@ their one-call yardstick, ``torch.mul(codes.view(nb, B), scales.view(nb,
 1))``, held equal to the plain version first. The CUDA C++
 elastic_center_flat is held ``==`` its plain version at the (2, 2)
 driver's full-width shards (f32 and bf16 c) and, in phase 5, on each
-(2, 2) run's own exchange operands.
+(2, 2) run's own exchange operands. Slice 19's per-hop int8 codec (CUDA
+C++ wire_encode, wire_decode, wire_decode_add_encode) is held ``==`` its
+plain version at the p = 4 int8 driver's hop shapes (4 x chunk; the
+allgather's strided per-ring shard) and on the edge (ragged and strided
+rows, bf16 local, the all-zero / tie / huge-among-tiny buckets), and
+timed in turns against it; phase 5 times that driver's int8 gradient
+legs in turns against the f32 wire's and the plain codec's.
 
 Prints a ``kernels`` JSON line, the card line, and last the ok line. A
 row's ``launches`` are its main path's (the slice-1 steps, the [ps] int8
@@ -335,8 +341,11 @@ whisper-base and paligemma-3b, slice 11's [net] dist_esgd int8 run
 (sgd_momentum_flat, elastic_client_flat, elastic_server_flat 8 each), and
 slice 12's full-width [launch] run (sgd_momentum_flat 3) and slice 13's
 [mesh] runs, counted in each rank and returned (sgd_momentum_flat 4 ranks x
-3 steps x 2 runs). The launches of [launch:small]'s child processes happen
-in other processes and are not counted here.
+3 steps x 2 runs). The per-hop codec's rows count the int8 runs of
+[esgd] (the (2, 2) and p = 4 drivers), [overlap] (with and without
+overlap), [resnet] and [net] (``HOP_RUNS``), each held exactly to its
+schedule's count; every f32 run of those phases must launch none. The launches of [launch:small]'s child processes
+happen in other processes and are not counted here.
 """
 from __future__ import annotations
 
@@ -367,6 +376,7 @@ import torch  # noqa: E402
 from repro_torch.checkpoint.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES, TrainSettings, get_config, reduced  # noqa: E402
 from repro_torch.core import algorithms as alg, cost_model, flatbuf  # noqa: E402
+from repro_torch.core import collectives as collectives_mod  # noqa: E402
 from repro_torch.core.collectives import WireMeter  # noqa: E402
 from repro_torch.core.comm import CollectivePolicy, sync_comms  # noqa: E402
 from repro_torch.core.hierarchy import SyncConfig  # noqa: E402
@@ -496,6 +506,31 @@ FAULT_KERNELS = {
         replaces="src/repro/kernels/fused_elastic/fused_elastic.py:69"),
 }
 ALL_KERNELS = {**KERNELS, **ELASTIC_KERNELS, **PS_KERNELS, **FAULT_KERNELS}
+#: slice 19's per-hop int8 codec (CUDA C++; it replaces no Pallas kernel:
+#: the reference's inline ``jnp`` codec, which XLA fuses into each hop),
+#: every output held ``==`` its plain version. Its launches stay out of
+#: ALL_KERNELS' per-run counts: ``_hop_launches`` holds them exactly per run
+#: (``_hop_want``) and the int8 runs the kernels line counts are kept in
+#: ``HOP_RUNS``
+HOP_KERNELS = {
+    "wire_encode": dict(
+        wrapper=qb.wire_encode, plain=qb.wire_encode_plain,
+        source="src/repro_torch/csrc/wire_hop.cu", route="cuda",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:114",
+        flops_per_elem=5),
+    "wire_decode": dict(
+        wrapper=qb.wire_decode, plain=qb.wire_decode_plain,
+        source="src/repro_torch/csrc/wire_hop.cu", route="cuda",
+        replaces="src/repro/kernels/quant_bucket/quant_bucket.py:137",
+        flops_per_elem=1),
+    "wire_decode_add_encode": dict(
+        wrapper=qb.wire_decode_add_encode, plain=qb.wire_decode_add_encode_plain,
+        source="src/repro_torch/csrc/wire_hop.cu", route="cuda",
+        replaces="src/repro/core/collectives.py:181",
+        flops_per_elem=7),
+}
+#: label -> the per-hop launches of each int8 run the kernels line counts
+HOP_RUNS: dict = {}
 #: the full-width qwen2-0.5b of the slice, [esgd], [ps], [faults],
 #: [overlap], [mesh] and [remat]: 8 of its 24 layers (cut to keep the smoke
 #: in its time; phase 2's kernels and the serve phases keep all 24)
@@ -533,12 +568,36 @@ def log(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for k in ALL_KERNELS.values():
+    for k in (*ALL_KERNELS.values(), *HOP_KERNELS.values()):
         k["wrapper"].launches = 0
 
 
 def counts(kernels=KERNELS) -> dict:
     return {name: k["wrapper"].launches for name, k in kernels.items()}
+
+
+def _hop_want(p: int, rings: int, rs: int, ag: "int | None" = None) -> dict:
+    """The per-hop launches of ``rs`` int8 reduce-scatters and ``ag``
+    (default ``rs``) allgathers over ``p`` ranks in ``rings`` rings: a
+    reduce-scatter encodes once a ring and fuses each of its p - 1 hops; an
+    allgather encodes once a ring and decodes the owner's shard and each of
+    its p - 1 hops."""
+    ag = rs if ag is None else ag
+    return {"wire_encode": (rs + ag) * rings, "wire_decode": ag * p * rings,
+            "wire_decode_add_encode": rs * (p - 1) * rings}
+
+
+def _hop_launches(label, want=None) -> dict:
+    """The per-hop kernels' launches since the last ``reset_counts``,
+    held exactly: an int8 run the kernels line counts must have launched
+    ``want`` (kept in ``HOP_RUNS``); any other run, none."""
+    got = counts(HOP_KERNELS)
+    expect = want or dict.fromkeys(HOP_KERNELS, 0)
+    if got != expect:
+        raise AssertionError(f"{label}: per-hop launches {got}, want {expect}")
+    if want:
+        HOP_RUNS[label] = got
+    return got
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -596,7 +655,8 @@ def _ptxas_entries(report: str) -> list[tuple[str, int, int, int]]:
 
 def _kernel_label(demangled: str) -> str:
     """``kernel<template arguments>`` of a demangled signature, the
-    fused_elastic.cu equation named (``(Eq)2`` -> ``center``)."""
+    fused_elastic.cu equation named (``(Eq)2`` -> ``center``) and the
+    wire_hop.cu mode (``(Mode)2`` -> ``hop``)."""
     name = demangled.replace("(anonymous namespace)::", "").removeprefix("void ")
     depth = 0
     for i, ch in enumerate(name):
@@ -604,6 +664,8 @@ def _kernel_label(demangled: str) -> str:
         if ch == "(" and depth == 0:
             name = name[:i]
             break
+    name = re.sub(r"\(Mode\)(\d)",
+                  lambda m: ("encode", "decode", "hop", "last")[int(m[1])], name)
     return re.sub(r"\(Eq\)(\d)", lambda m: ("client", "server", "center")[int(m[1])],
                   name)
 
@@ -1127,6 +1189,61 @@ class _CenterHold:
         elastic_mod.elastic_center_flat = self._orig
 
 
+class _PlainCodec:
+    """The rings' per-hop codec (``core.collectives``' names) swapped for
+    its plain versions, to time the int8 legs as they ran before the hop
+    kernels: the same hops in the same order, the same results."""
+
+    NAMES = ("wire_encode", "wire_decode", "wire_decode_add_encode")
+
+    def __enter__(self):
+        self._orig = {name: getattr(collectives_mod, name) for name in self.NAMES}
+        for name in self.NAMES:
+            setattr(collectives_mod, name, getattr(qb, f"{name}_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(collectives_mod, name, fn)
+
+
+def _legs_in_turns(grad_comm, g_buf, nr, label, rounds: int = 3) -> dict:
+    """The gradient leg (reduce-scatter + allgather of ``g_buf``) over the
+    int8 wire through the hop kernels, over the f32 wire, and over the int8
+    wire through the plain codec, timed in turns on the card (``rounds``
+    rounds of f32, kernels, plain, plain, kernels, f32; 2 calls a block):
+    ms per leg, median [min–max]. The kernels' leg is held ``==`` the plain
+    codec's first."""
+    f32_comm = grad_comm.with_policy(wire_dtype=None)
+    legs = lambda comm: (lambda: comm.allgather(
+        comm.reduce_scatter(g_buf, num_rings=nr), num_rings=nr))
+    kernels, f32 = legs(grad_comm), legs(f32_comm)
+
+    def plain():
+        with _PlainCodec():
+            return kernels()
+
+    _hold_exact(f"{label} int8 legs (kernels vs plain codec)", kernels(), plain())
+    fns = {"f32": f32, "int8 kernels": kernels, "int8 plain codec": plain}
+    order = ("f32", "int8 kernels", "int8 plain codec", "int8 plain codec",
+             "int8 kernels", "f32")
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(cuda_ms(fns[name], reps=2, warmup=0))
+    stats = {name: {"median": float(np.median(t)), "min": min(t), "max": max(t),
+                    "blocks": len(t)} for name, t in times.items()}
+    ratio = stats["int8 kernels"]["median"] / stats["f32"]["median"]
+    log(f"[esgd] {label}: RS + AG legs in turns ({rounds} rounds): f32 "
+        f"{spread(stats['f32'])} ms, int8 through the hop kernels "
+        f"{spread(stats['int8 kernels'])} ms (x{ratio:.3f} of f32), int8 through "
+        f"the plain codec {spread(stats['int8 plain codec'])} ms; the kernels' legs "
+        f"== the plain codec's")
+    return stats
+
+
 def _driver_split(model, opt, sync, p, state, shard, spec, label) -> dict:
     """One driver step's pieces, each timed alone: forward + backward of
     every device, the gradient leg's collectives (reduce-scatter +
@@ -1151,6 +1268,8 @@ def _driver_split(model, opt, sync, p, state, shard, spec, label) -> dict:
             lambda: grad_comm.allgather(grad_comm.reduce_scatter(g_buf, num_rings=nr),
                                         num_rings=nr), reps=2, warmup=1)
         g_shard = grad_comm.reduce_scatter(g_buf, num_rings=nr)
+        if grad_comm.wire == "int8" and p == 4:
+            out["collectives_turns_ms"] = _legs_in_turns(grad_comm, g_buf, nr, label)
     else:
         out["collectives_ms"] = 0.0
         g_shard = g_buf
@@ -1262,18 +1381,20 @@ def phase_esgd(dev) -> tuple[dict, dict]:
         ("driver (2, 2) mpi_esgd f32", "driver", _esgd_sync("mpi_esgd", 2, None), (2, 2),
          {"elastic_client_diff_flat": half, "elastic_center_flat": half,
           "sgd_momentum_flat": ESGD_STEPS}),
+        # per-hop codec: each step's gradient legs over a client's 2
+        # devices and each exchange's over the 2 clients, 2 rings each
         ("driver (2, 2) mpi_esgd int8", "driver", _esgd_sync("mpi_esgd", 2, "int8"), (2, 2),
          {"elastic_client_diff_flat": half, "elastic_center_flat": half,
-          "sgd_momentum_flat": ESGD_STEPS}),
+          "sgd_momentum_flat": ESGD_STEPS}, _hop_want(2, 2, ESGD_STEPS + half)),
         ("driver p=4 mpi_sgd int8", "driver", _esgd_sync("mpi_sgd", 1, "int8"), 4,
-         {"sgd_momentum_flat": ESGD_STEPS}),
+         {"sgd_momentum_flat": ESGD_STEPS}, _hop_want(4, 2, ESGD_STEPS)),
     ]
     log(f"[esgd] full-width {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
         f"{cfg.dtype}; FlatBuffer size={spec.size}; global batch 8 x 512 "
         f"(C=2: 4 x 512 per client; 4 devices: 2 x 512 per device); "
         f"momentum SGD lr {ESGD_LR}, alpha 0.5, interval 2, {ESGD_STEPS} steps")
     launches, report = {}, {}
-    for label, kind, sync, p, want in runs:
+    for label, kind, sync, p, want, *hop_want in runs:
         meter = WireMeter()
         if kind == "train":
             state = make_train_state(model, opt, sync, device=dev)
@@ -1302,6 +1423,7 @@ def phase_esgd(dev) -> tuple[dict, dict]:
                 raise AssertionError(f"{label} step {i}: {meter.bytes} wire "
                                      f"bytes counted, cost model {want_bytes}")
         got = counts(ALL_KERNELS)
+        hop = _hop_launches(f"[esgd] {label}", *hop_want)
         peak = torch.cuda.max_memory_allocated()
         _check_launches(label, got, want)
         if not all(x == x and abs(x) != float("inf") for x in losses):
@@ -1322,10 +1444,12 @@ def phase_esgd(dev) -> tuple[dict, dict]:
         report[label] = {"losses": losses, "step_ms": step_ms,
                          "steady_step_ms": sum(steady) / len(steady),
                          "peak_mem_bytes": peak, "wire_bytes_per_step": wire,
-                         "launches": {k: v for k, v in got.items() if v}, **br}
+                         "launches": {k: v for k, v in got.items() if v},
+                         "hop_launches": hop, **br}
         log(f"[esgd] {label}: losses {[round(x, 4) for x in losses]} step_ms "
             f"{[round(x, 2) for x in step_ms]} peak_mem {peak / 2**30:.2f} GiB "
-            f"launches {report[label]['launches']} wire bytes/step {wire} "
+            f"launches {report[label]['launches']} per-hop codec {hop} "
+            f"wire bytes/step {wire} "
             f"(cost model: {legs:.0f} + {exch:.0f} on exchange steps)")
         log(f"[esgd] {label} split: fwd+bwd {br['grad_ms']:.2f} ms, collectives "
             f"(RS + AG) {br['collectives_ms']:.2f} ms, update kernel "
@@ -1839,6 +1963,129 @@ def phase_fault_kernels(model, spec, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (slice 19): the per-hop int8 codec at the p = 4 driver's ring hops
+# ---------------------------------------------------------------------------
+
+def _hop_geometry() -> tuple[int, int, int]:
+    """(padded buffer length, rings, chunk) of the p = 4 int8 driver's
+    gradient rings at RUN_DEPTH layers: each hop moves a (4, chunk) stack,
+    and the allgather encodes a (4, rings · chunk) shard ring by ring."""
+    spec = grad_spec(build_model(_run_cfg()))
+    sync = _esgd_sync("mpi_sgd", 1, "int8")
+    grad_comm, _ = sync_comms(sync, sd.driver_world(sync, 4))
+    nr = grad_comm.rings_for(spec.nbytes)
+    _, total = flatbuf.shard_geometry(spec.size, grad_comm.static_size, nr)
+    return total, nr, total // (4 * nr)
+
+
+def _hop_values(rows, n, dev, seed, dtype=torch.float32):
+    """Normal values with the edge buckets at every row's front: all zeros,
+    127 and ±k.5 (scale 1: every code a tie that rounds half to even), and
+    one huge value among tiny ones."""
+    x = torch.randn(rows, n, generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    edge = torch.cat([torch.zeros(128), torch.tensor([127.0]),
+                      torch.arange(-63, 64) + 0.5, torch.tensor([3e4]),
+                      torch.full((127,), 1e-3)]).to(dev)
+    k = min(n, edge.numel())
+    x[:, :k] = edge[:k]
+    return x.to(dtype)
+
+
+def phase_hop_kernels(dev) -> dict:
+    """The per-hop codec (``csrc/wire_hop.cu``) at the p = 4 int8 driver's
+    hop shapes — the reduce-scatter's first encode, its fused hops and last
+    step, the allgather's strided per-ring encode and its decodes — and on
+    the edge: ragged rows, strided rows, bf16 local. Every output held
+    ``==`` its plain version; each entry point timed in turns against it."""
+    total, nr, chunk = _hop_geometry()
+    log(f"[kernels] slice 19 operands: the p = 4 int8 driver's buffer {total} "
+        f"values, {nr} rings of 4 x {chunk} chunks a hop")
+    x = _hop_values(4, chunk, dev, 5)
+    shard = _hop_values(4, nr * chunk, dev, 6)
+    local = _hop_values(4, chunk, dev, 7) * 3
+    sent = qb.wire_encode_plain(_hop_values(4, chunk, dev, 8))
+    cases = {       # name: (args, kwargs) of the timed main-path call
+        "wire_encode": ((x,), {}),
+        "wire_decode": ((*sent, chunk), {}),
+        "wire_decode_add_encode": ((*sent, local, chunk), {}),
+        "wire_decode_add_encode last": ((*sent, local, chunk), {"last": True}),
+    }
+    err = {name: 0.0 for name in HOP_KERNELS}
+    for name, (args, kw) in cases.items():
+        k = HOP_KERNELS[name.split()[0]]
+        t0 = time.perf_counter()
+        got = k["wrapper"](*args, **kw)        # the first call loads the library
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        err[name.split()[0]] = max(err[name.split()[0]],
+                                   _hold_exact(name, got, k["plain"](*args, **kw)))
+        outs = got if isinstance(got, tuple) else (got,)
+        moved = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(*outs)
+        del got, outs
+        t = interleaved_ms(lambda: k["wrapper"](*args, **kw),
+                           lambda: k["plain"](*args, **kw), rounds=5, reps=5)
+        library_ms, note = None, ("no library yardstick: no one PyTorch call computes "
+                                  "the per-128-bucket absmax int8 encode")
+        if kw.get("last"):
+            note = "no library yardstick timed: the kernels line's row is the fused hop's"
+        if name == "wire_decode":      # codes × scale, one bucket a row
+            nb = sent[1].numel()
+            mul = lambda: torch.mul(sent[0].view(nb, qb.WIRE_BLOCK), sent[1].view(nb, 1))
+            _hold_yardstick(name, mul().view(4, -1)[:, :chunk], k["plain"](*args))
+            _, library_ms, note = cuda_ms_pair(lambda: k["wrapper"](*args), mul)
+            note += (f"; library torch.mul(codes.view({nb}, {qb.WIRE_BLOCK}), "
+                     f"scales.view({nb}, 1)), held == plain")
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = k["flops_per_elem"] * 4 * chunk / F32_FLOPS_PER_S * 1e3
+        log(f"[kernels] {name} (4, {chunk}) first call {first_s:.2f} s: outputs == "
+            f"plain; in turns kernel {spread(t['kernel'])} ms, plain "
+            f"{spread(t['library'])} ms; bytes={moved} bound_ms="
+            f"{max(bytes_ms, ops_ms):.4f} ({bytes_ms / t['kernel']['median']:.1%} "
+            f"of it); library_ms={library_ms} {note}")
+        if name in HOP_KERNELS:
+            HOP_KERNELS[name]["row"] = {
+                "name": name, "route": "cuda", "source": k["source"],
+                "replaces": k["replaces"], "launches": None, "max_abs_err": 0.0,
+                "ms": t["kernel"]["median"], "plain_ms": t["library"]["median"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms}
+    # the allgather's per-ring shard, rows strided by the ring count
+    view = shard.reshape(4, nr, chunk).select(-2, nr - 1)
+    err["wire_encode"] = max(err["wire_encode"], _hold_exact(
+        "wire_encode strided", qb.wire_encode(view), qb.wire_encode_plain(view)))
+    del x, shard, local, sent, view
+    torch.cuda.empty_cache()
+    # the edge: ragged rows, strided rows, bf16 local, a lone row
+    edges = []
+    for n, rows, dtype in ((100_003, 3, torch.float32), (100_003, 3, torch.bfloat16),
+                           (129, 1, torch.float32), (8192, 4, torch.bfloat16)):
+        vals = _hop_values(2 * rows, n, dev, n, dtype).reshape(rows, 2, n).select(-2, 1)
+        codes, scales = qb.wire_encode(vals)
+        err["wire_encode"] = max(err["wire_encode"], _hold_exact(
+            "wire_encode edge", (codes, scales), qb.wire_encode_plain(vals)))
+        err["wire_decode"] = max(err["wire_decode"], _hold_exact(
+            "wire_decode edge", qb.wire_decode(codes, scales, n),
+            qb.wire_decode_plain(codes, scales, n)))
+        loc = _hop_values(2 * rows, n, dev, n + 1, dtype).reshape(rows, 2, n).select(-2, 0)
+        for last in (False, True):
+            err["wire_decode_add_encode"] = max(err["wire_decode_add_encode"], _hold_exact(
+                "wire_decode_add_encode edge",
+                qb.wire_decode_add_encode(codes, scales, loc, n, last=last),
+                qb.wire_decode_add_encode_plain(codes, scales, loc, n, last=last)))
+        edges.append(f"({rows}, {n}) {str(dtype)[6:]} strided")
+    log(f"[kernels] per-hop codec on the edge ({'; '.join(edges)}; each row's "
+        f"front: an all-zero bucket, ±k.5 ties, one huge value among tiny ones): "
+        f"codes, scales, values and sums == plain")
+    rows = {}
+    for name, e in err.items():
+        rows[name] = HOP_KERNELS[name].pop("row")
+        rows[name]["max_abs_err"] = e
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 7: slice 4 — faults and elastic membership
 # ---------------------------------------------------------------------------
 
@@ -2249,13 +2496,14 @@ def phase_overlap_small(dev) -> dict:
         for b, n in enumerate(sched.sizes):
             gen = torch.Generator().manual_seed(b)
             x = torch.randn((4, n), generator=gen).to(d)
-            got[-1] += [*qb.wire_encode(x), comm.reduce_scatter_bucket(x, sched, b)]
+            got[-1] += [*qb.wire_encode_plain(x), comm.reduce_scatter_bucket(x, sched, b)]
     for a, b in zip(*got):
         if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
             raise AssertionError("[overlap:small] int8 codes / bucket legs: "
                                  "card != cpu on identical inputs")
-    log(f"[overlap:small] int8 wire at p = 4, buckets {sched.sizes}: codes, "
-        f"scales and every bucket's reduce-scatter leg card == cpu; kernel "
+    log(f"[overlap:small] int8 wire at p = 4, buckets {sched.sizes}: the plain "
+        f"codec's codes and scales and every bucket's reduce-scatter leg (the "
+        f"per-hop kernels on the card) card == cpu; kernel "
         f"holds on the card runs' operands: max_abs_err {errs}")
     return errs
 
@@ -2425,6 +2673,16 @@ def _overlap_split(model, opt, sync, p, state, batch) -> dict:
     return out
 
 
+def _overlap_hop_want(sync, p, steps) -> "dict | None":
+    """The per-hop launches of an int8 run of ``steps`` steps: a
+    single-ring reduce-scatter a schedule bucket (one a step without
+    overlap) and one single-ring allgather a step."""
+    if sync.policy.wire_dtype != "int8":
+        return None
+    buckets = OVERLAP_BUCKETS if sync.overlap else 1
+    return _hop_want(p, 1, buckets * steps, steps)
+
+
 def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
     """One full-width run of ``len(batches)`` steps: the launch counts set
     to 0 just before and read just after; the per-step wire bytes and the
@@ -2455,6 +2713,7 @@ def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
             if sync.overlap:
                 shares.append(issue.step_share(OVERLAP_BUCKETS))
         got = counts(ALL_KERNELS)
+    hop = _hop_launches(f"[overlap] {label}", _overlap_hop_want(sync, p, len(batches)))
     peak = torch.cuda.max_memory_allocated()
     _check_launches(label, got, want, len(batches))
     if not all(math.isfinite(x) for x in losses):
@@ -2463,7 +2722,7 @@ def _overlap_run(label, model, opt, sync, p, batches, want) -> dict:
         raise AssertionError(f"{label}: loss did not fall {losses}")
     rec = {"losses": losses, "step_ms": step_ms, "peak_mem_bytes": peak,
            "wire_bytes_per_step": wire, "issue_share_per_step": shares,
-           "launches": {k: v for k, v in got.items() if v}}
+           "launches": {k: v for k, v in got.items() if v}, "hop_launches": hop}
     if sync.overlap:
         with _KernelHold() as hold:       # one more step, not timed
             step(state, split(batches[0]))
@@ -3393,6 +3652,8 @@ def phase_resnet(dev) -> tuple[dict, dict, dict]:
                 "sgd_momentum_flat": 2 * PS_ITERS}
         label = f"[resnet] mpi_esgd wire={wire or 'f32'}"
         _check_launches(label, got, want, 2 * PS_ITERS)
+        # each client step's gradient legs over its 2 workers, 2 rings
+        hop = _hop_launches(label, _hop_want(2, 2, 2 * PS_ITERS) if wire else None)
         if wire:
             launches = dict(want)
         if not all(math.isfinite(x) for x in hist.losses + hist.metrics):
@@ -3417,7 +3678,8 @@ def phase_resnet(dev) -> tuple[dict, dict, dict]:
             errs[name] = max(errs.get(name, 0.0), e)
         log(f"{label}: losses {[round(x, 5) for x in hist.losses]} center eval loss "
             f"{start:.5f} -> {hist.metrics[-1]:.5f}; launches "
-            f"{ {k: v for k, v in got.items() if v} }; PS wire bytes {hist.pushed_bytes} "
+            f"{ {k: v for k, v in got.items() if v} }, per-hop codec {hop}; PS wire "
+            f"bytes {hist.pushed_bytes} "
             f"== cost model{f' (less {pushes} x {pad} pad codes)' if wire else ''}; "
             f"PS-tier kernels == "
             f"plain on the last exchange's operands, "
@@ -3570,6 +3832,14 @@ def _net_losses(mode, outs, steps_per_epoch) -> list:
         return [float(np.mean([outs[r]["losses"][i] for r in ranks])) for i in range(n)]
     return [float(np.mean([outs[r]["losses"][i] for i in range(e, e + steps_per_epoch)
                            for r in ranks])) for e in range(0, n, steps_per_epoch)]
+
+
+def _net_hop_want(steps, workers=2) -> dict:
+    """The per-hop launches of a dist_esgd int8 socket run: an exchange per
+    step per worker, whose push and reply are each encoded once and
+    decoded once."""
+    frames = 2 * workers * steps
+    return {"wire_encode": frames, "wire_decode": frames, "wire_decode_add_encode": 0}
 
 
 def _net_want(mode, steps, workers=2) -> dict:
@@ -3863,6 +4133,7 @@ def phase_net(dev, card) -> tuple[dict, dict, dict]:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             got = {k: v for k, v in counts(ALL_KERNELS).items() if v}
+            hop = _hop_launches(label, _net_hop_want(steps) if wd == "int8" else None)
             peak = torch.cuda.max_memory_allocated()
             stats = tier.stats()
             # the center the server ends with (dist_sgd: the params every
@@ -3876,7 +4147,8 @@ def phase_net(dev, card) -> tuple[dict, dict, dict]:
             log(f"{label}: losses {[[round(x, 5) for x in o['losses']] for o in outs.values()]}"
                 f"; loss on the first step's 32 images {start:.5f} -> {final:.5f}"
                 + (f"; on 64 held-out images {start_held:.5f} -> {held_out:.5f}"
-                   if held_out is not None else "") + f"; launches {got}")
+                   if held_out is not None else "") + f"; launches {got}, per-hop "
+                f"codec {hop}")
             want = _net_want(mode, steps)
             if got != want:
                 raise AssertionError(f"{label}: launches {got}, want {want}")
@@ -6024,6 +6296,7 @@ def main() -> None:
     kernels.update(phase_elastic_kernels(spec, dev))
     kernels.update(phase_ps_kernels(spec, dev))
     kernels.update(phase_fault_kernels(build_model(get_config("qwen2-0.5b")), spec, dev))
+    kernels.update(phase_hop_kernels(dev))
     log(f"[kernels] phases 1-2 took {time.perf_counter() - T_START:.1f} s since start")
     t0 = time.perf_counter()
     phase_small_reference(dev)
@@ -6177,6 +6450,9 @@ def main() -> None:
     log(f"[examples] took {time.perf_counter() - t1:.1f} s; phase 16 took "
         f"{time.perf_counter() - t0:.1f} s | {card}")
     log(f"[smoke] phases 1-16 took {time.perf_counter() - T_START:.1f} s | {card}")
+    log("[kernels] per-hop codec launches on the int8 runs: " + json.dumps(HOP_RUNS))
+    for name in HOP_KERNELS:        # the int8 runs of [esgd], [overlap], [resnet], [net]
+        launches[name] = sum(run[name] for run in HOP_RUNS.values())
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

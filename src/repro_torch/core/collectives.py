@@ -30,11 +30,19 @@ bit (``stack.sum(0)`` would reduce in another order).
   "int8"      each hop sends int8 codes + one f32 scale per 128 values
               (``kernels.quant_bucket.wire_encode``, ~0.258x the bytes)
 
-A reduce-scatter hop dequantizes what it receives and adds it to an f32
-accumulator (dequant-accumulate-requant); an allgather encodes each shard
-ONCE, forwards its codes verbatim, and the owner round-trips its own
-shard through the codec too, so every device holds identical values. With
-a wire the results are f32 whatever the input dtype.
+An int8 reduce-scatter encodes its first send once; every later hop
+dequantizes what it receives, adds the local chunk in f32 and requantizes
+the sum for the next hop in ONE call (``wire_decode_add_encode``), and the
+last hop keeps the f32 sum. An allgather encodes each shard ONCE, forwards
+its codes verbatim, and the owner round-trips its own shard through the
+codec too, so every device holds identical values. With a wire the
+results are f32 whatever the input dtype.
+
+The per-hop codec is a hand-written CUDA C++ kernel on the card
+(``csrc/wire_hop.cu``: the fusion XLA makes of the reference's inline
+``jnp`` codec) and its plain PyTorch version on the CPU; both compute the
+reference's eager arithmetic, so the codes, scales and sums are the same
+bit for bit.
 
 A ``WireMeter`` passed as ``meter=`` counts the bytes each device puts on
 the wire per hop (the ring family; ``psum`` and the binomial tree are not
@@ -69,7 +77,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.kernels.quant_bucket.quant_bucket import wire_decode, wire_encode
+from repro_torch.kernels.quant_bucket.quant_bucket import (
+    wire_decode, wire_decode_add_encode, wire_encode)
 
 METHODS = ("ring", "multi_ring", "tree", "psum", "per_leaf", "scatter_gather")
 #: wire dtypes of the low-precision protocol; None and "f32" are the
@@ -315,18 +324,16 @@ def gather_members(x: torch.Tensor, axes: Sequence[RankAxis], group,
 
 def _hop(x: torch.Tensor, ax, wire: Optional[str],
          meter: Optional[WireMeter]) -> torch.Tensor:
-    """One forward ring hop of ``x`` under the wire protocol: the
-    receiver's high-precision (f32) view of what crossed the wire."""
+    """One forward ring hop of ``x`` over the f32 or bf16 wire: the
+    receiver's view of what crossed it (f32 for bf16). The int8 hop is
+    ``ring_reduce_scatter``'s own: it fuses the decode into the next
+    encode."""
     if wire is None:
         _count(meter, x)
         return ax.permute(x)[0]
-    if wire == "bf16":
-        sent = x.to(torch.bfloat16)
-        _count(meter, sent)
-        return ax.permute(sent)[0].float()
-    codes, scales = wire_encode(x)
-    _count(meter, codes, scales)
-    return wire_decode(*ax.permute(codes, scales), x.shape[-1])
+    sent = x.to(torch.bfloat16)
+    _count(meter, sent)
+    return ax.permute(sent)[0].float()
 
 
 def _count(meter: Optional[WireMeter], *parts: torch.Tensor) -> None:
@@ -365,9 +372,17 @@ def ring_reduce_scatter(x: torch.Tensor, dim: int, *, num_rings: int = 1,
     for s in range(p - 1):
         for r in range(nr):
             ring = bufs.select(-3, r)
+            local = ax.take(ring, s + 2)
+            if wire == "int8":
+                # acc holds the (codes, scales) this step sends; the last
+                # step keeps the f32 sum (hp accumulator)
+                sent = wire_encode(ax.take(ring, s + 1)) if s == 0 else acc[r]
+                _count(meter, *sent)
+                acc[r] = wire_decode_add_encode(*ax.permute(*sent), local, chunk,
+                                                last=s == p - 2)
+                continue
             send = ax.take(ring, s + 1) if s == 0 else acc[r]
             recv = _hop(send, ax, wire, meter)
-            local = ax.take(ring, s + 2)
             if wire is not None:
                 local = local.float()   # hp accumulator
             acc[r] = local + recv

@@ -35,7 +35,8 @@ def testbed() -> NetParams:
 
 #: f32 -> wire byte ratio per wire dtype. int8 counts the codes (1 byte
 #: per value) plus one f32 scale per WIRE_BLOCK = 128 bucket, matching
-#: ``kernels.quant_bucket.wire_encode``: (1 + 4/128)/4 = 0.2578125.
+#: ``kernels.quant_bucket.wire_encode`` (the per-hop codec: a CUDA kernel
+#: on the card, plain PyTorch on the CPU): (1 + 4/128)/4 = 0.2578125.
 WIRE_RATIO = {
     None: 1.0,
     "f32": 1.0,

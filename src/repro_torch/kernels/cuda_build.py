@@ -57,6 +57,19 @@ SIGNATURES = {
         "elastic_server_flat_cuda": _ELASTIC,
         "elastic_center_flat_cuda": _ELASTIC,
     },
+    "wire_hop": {
+        # x, x row stride, x_bf16, codes, scales, rows, n, stream
+        "wire_encode_cuda": (c_void_p, c_longlong, c_int, c_void_p, c_void_p,
+                             c_longlong, c_longlong, c_void_p),
+        # codes, scales, out, rows, n, buckets a row, stream
+        "wire_decode_cuda": (c_void_p, c_void_p, c_void_p, c_longlong, c_longlong,
+                             c_longlong, c_void_p),
+        # codes, scales, local, local row stride, local_bf16, out codes (or
+        # null), out scales, out sum, rows, n, stream
+        "wire_decode_add_encode_cuda": (c_void_p, c_void_p, c_void_p, c_longlong,
+                                        c_int, c_void_p, c_void_p, c_void_p,
+                                        c_longlong, c_longlong, c_void_p),
+    },
 }
 
 

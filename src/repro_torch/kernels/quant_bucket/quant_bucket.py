@@ -8,12 +8,15 @@ Ports ``repro/kernels/quant_bucket/quant_bucket.py``:
                                            (``ops.compress`` /
                                            ``decompress``), hand-written
                                            Triton kernels
-  wire_encode / wire_decode  (:120, :141)  the per-hop codec a quantized
+  wire_encode / wire_decode  (:114, :137)  the per-hop codec a quantized
                                            ring hop runs; the reference
                                            writes it in plain ``jnp`` so
-                                           XLA fuses it into each hop, and
-                                           plain PyTorch is its faithful
-                                           counterpart here
+                                           XLA fuses it into each hop; here
+                                           a hand-written CUDA C++ kernel
+                                           (``csrc/wire_hop.cu``) does that
+                                           fusion, with the hop's f32
+                                           accumulate in
+                                           ``wire_decode_add_encode``
   quantize_wire              (:168)        the streaming pair for the
   dequantize_wire            (:199)        hop-free one-shot wire: the
                                            packed PS push
@@ -32,6 +35,20 @@ not, called directly or under the jitted ``ops.compress``) into that
 multiplication, which moves about 4 % of the scales by one ulp. So the
 int8 codes and the scales of every form equal the reference's bit for
 bit, on the CPU and on the card.
+
+**The per-hop kernels** (``csrc/wire_hop.cu``, built by
+``kernels/cuda_build`` at first use): ``wire_encode`` (values -> codes and
+scales), ``wire_decode`` (codes and scales -> f32 values trimmed to n) and
+``wire_decode_add_encode`` (received codes and scales plus the local chunk
+-> the f32 sum re-encoded for the next hop, or the sum itself on a
+reduce-scatter's last step), each one pass over ``(…, n)`` rows that are
+padded on their own to whole buckets: ``wire_encode``'s layout. The
+values' rows may be evenly strided (each row contiguous), so an
+allgather's per-ring shard needs no copy. One warp takes one bucket, its
+absmax a warp-shuffle max; the arithmetic is the plain codec's, IEEE
+division included, so codes, scales and sums equal the plain versions
+bit for bit. A CPU tensor takes the plain versions (``*_plain``), the
+card's reference too.
 
 **The streaming kernels.** Bound on Hopper: HBM bytes. ``quantize_wire``
 reads 4 B and writes 1 + 4/128 B per value for two divisions, a
@@ -67,10 +84,12 @@ per leaf, not by HBM.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.common import ceil_div, on_cpu, triton
 
 #: values per int8 scale of the per-leaf PS-push codec
@@ -103,7 +122,7 @@ def wire_padded(n: int) -> int:
     return ceil_div(n, WIRE_TILE) * WIRE_TILE
 
 
-def wire_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def wire_encode_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(…, n)`` float -> (codes ``(…, n_pad)`` int8, scales
     ``(…, n_pad/128)`` f32). Padding to whole WIRE_BLOCK buckets is zeros,
     which never raise a bucket's absmax; an all-zero bucket has scale
@@ -123,14 +142,23 @@ def wire_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return codes.reshape(lead + (-1,)), scale[..., 0]
 
 
-def wire_decode(codes: torch.Tensor, scales: torch.Tensor,
-                n: int | None = None) -> torch.Tensor:
-    """Inverse of ``wire_encode``: -> ``(…, n)`` f32 (``n`` trims the
-    encoder's bucket padding)."""
+def wire_decode_plain(codes: torch.Tensor, scales: torch.Tensor,
+                      n: int | None = None) -> torch.Tensor:
+    """Inverse of ``wire_encode_plain``: -> ``(…, n)`` f32 (``n`` trims
+    the encoder's bucket padding)."""
     lead = tuple(codes.shape[:-1])
     out = (codes.reshape(lead + (-1, WIRE_BLOCK)).float()
            * scales.unsqueeze(-1)).reshape(lead + (-1,))
     return out if n is None else out[..., :n]
+
+
+def wire_decode_add_encode_plain(codes: torch.Tensor, scales: torch.Tensor,
+                                 local: torch.Tensor, n: int, *, last: bool = False):
+    """One int8 ring hop's accumulate: ``local`` (``(…, n)`` float) plus
+    the decoded received ``codes`` / ``scales``, in f32 — re-encoded as
+    the next hop's (codes, scales), or the f32 sum itself when ``last``."""
+    total = local.float() + wire_decode_plain(codes, scales, n)
+    return total if last else wire_encode_plain(total)
 
 
 # -- plain versions of the kernels: the CPU path and the card's reference ----
@@ -167,7 +195,7 @@ def quantize_wire_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_wire_plain(codes: torch.Tensor, scales: torch.Tensor, n: int,
                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return wire_decode(codes, scales, n).to(dtype)
+    return wire_decode_plain(codes, scales, n).to(dtype)
 
 
 # -- Triton kernels ----------------------------------------------------------
@@ -361,7 +389,146 @@ def dequantize_wire(codes: torch.Tensor, scales: torch.Tensor, n: int,
     return out
 
 
+# -- the per-hop codec: CUDA C++ (csrc/wire_hop.cu) ----------------------------
+
+def _row_stride(name: str, t: torch.Tensor) -> int:
+    """The element stride between consecutive rows of ``t`` (``(…, n)``,
+    its leading dims flattened into rows); raises unless every row is
+    contiguous and the rows are evenly strided, the layout the kernels
+    take."""
+    if t.dim() == 0:
+        raise ValueError(f"{name}: want a (…, n) tensor, got a scalar")
+    n = t.shape[-1]
+    if n > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: rows not contiguous (stride {t.stride()})")
+    dims = [(size, stride) for size, stride in zip(t.shape[:-1], t.stride()[:-1])
+            if size > 1]
+    if not dims:
+        return n
+    step = dims[-1][1]
+    want = step
+    for size, stride in reversed(dims):
+        if stride != want:
+            raise ValueError(f"{name}: rows not evenly strided "
+                             f"(shape {tuple(t.shape)}, stride {t.stride()})")
+        want = stride * size
+    return step
+
+
+def _check_values(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {t.dtype}, want float32 or bfloat16")
+    return _row_stride(name, t)
+
+
+def _check_wire(codes: torch.Tensor, scales: torch.Tensor) -> int:
+    """Check an encoded ``(…, nb·128)`` int8 / ``(…, nb)`` f32 pair (both
+    contiguous, one lead shape); returns nb."""
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"codes / scales: dtypes {codes.dtype} / {scales.dtype}, "
+                         "want int8 / float32")
+    if codes.dim() == 0 or codes.shape[:-1] != scales.shape[:-1] or (
+            codes.shape[-1] != scales.shape[-1] * WIRE_BLOCK):
+        raise ValueError(f"codes {tuple(codes.shape)} / scales {tuple(scales.shape)}: "
+                         f"want (…, nb·{WIRE_BLOCK}) / (…, nb)")
+    if not (codes.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("codes / scales: not contiguous")
+    return scales.shape[-1]
+
+
+def _launch(fn: str, *args) -> None:
+    """One launch of ``csrc/wire_hop.cu``'s ``fn`` on the current stream
+    of the current device; raises on a refused launch."""
+    lib = cuda_build.load_library("wire_hop")
+    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(lib, err, fn)
+
+
+def wire_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(…, n)`` float -> (codes ``(…, n_pad)`` int8, scales
+    ``(…, n_pad/128)`` f32), each row padded on its own to whole
+    WIRE_BLOCK buckets (zeros, which never raise a bucket's absmax; an
+    all-zero bucket has scale ~7.9e-15 and decodes to exactly 0.0). A CPU
+    tensor takes the plain version; a CUDA tensor (f32 or bf16, rows
+    contiguous and evenly strided) launches the kernel of
+    ``csrc/wire_hop.cu``."""
+    if on_cpu(x):
+        return wire_encode_plain(x)
+    stride = _check_values("x", x)
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    nb = ceil_div(n, WIRE_BLOCK)
+    codes = torch.empty(lead + (nb * WIRE_BLOCK,), dtype=torch.int8, device=x.device)
+    scales = torch.empty(lead + (nb,), dtype=torch.float32, device=x.device)
+    rows = math.prod(lead)
+    if rows * n:
+        with torch.cuda.device(x.device):
+            _launch("wire_encode_cuda", x.data_ptr(), stride,
+                    int(x.dtype == torch.bfloat16), codes.data_ptr(),
+                    scales.data_ptr(), rows, n)
+        wire_encode.launches += 1
+    return codes, scales
+
+
+def wire_decode(codes: torch.Tensor, scales: torch.Tensor,
+                n: int | None = None) -> torch.Tensor:
+    """Inverse of ``wire_encode``: -> ``(…, n)`` f32 (``n`` trims the
+    encoder's bucket padding). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel of ``csrc/wire_hop.cu``."""
+    if on_cpu(codes, scales):
+        return wire_decode_plain(codes, scales, n)
+    nb = _check_wire(codes, scales)
+    n = codes.shape[-1] if n is None else n
+    if not 0 <= n <= codes.shape[-1]:
+        raise ValueError(f"n = {n} outside the {codes.shape[-1]} encoded values a row")
+    lead = tuple(codes.shape[:-1])
+    out = torch.empty(lead + (n,), dtype=torch.float32, device=codes.device)
+    rows = math.prod(lead)
+    if rows * n:
+        with torch.cuda.device(codes.device):
+            _launch("wire_decode_cuda", codes.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), rows, n, nb)
+        wire_decode.launches += 1
+    return out
+
+
+def wire_decode_add_encode(codes: torch.Tensor, scales: torch.Tensor,
+                           local: torch.Tensor, n: int, *, last: bool = False):
+    """One int8 ring hop's accumulate in one pass: the received ``codes`` /
+    ``scales`` decoded and added to ``local`` (``(…, n)``, f32 or bf16)
+    in f32, re-encoded as the next hop's (codes, scales) — or, when
+    ``last``, the ``(…, n)`` f32 sum. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel of ``csrc/wire_hop.cu`` (the sum
+    never reaches memory unless ``last``)."""
+    if on_cpu(codes, scales, local):
+        return wire_decode_add_encode_plain(codes, scales, local, n, last=last)
+    nb = _check_wire(codes, scales)
+    stride = _check_values("local", local)
+    if local.shape[-1] != n or tuple(local.shape[:-1]) != tuple(codes.shape[:-1]) or (
+            nb != ceil_div(n, WIRE_BLOCK)):
+        raise ValueError(f"local {tuple(local.shape)}, codes {tuple(codes.shape)}: want "
+                         f"(…, {n}) and (…, {ceil_div(n, WIRE_BLOCK) * WIRE_BLOCK})")
+    lead = tuple(local.shape[:-1])
+    dev = local.device
+    if last:
+        out = (torch.empty(lead + (n,), dtype=torch.float32, device=dev),)
+        ptrs = (None, None, out[0].data_ptr())
+    else:
+        out = (torch.empty_like(codes), torch.empty_like(scales))
+        ptrs = (out[0].data_ptr(), out[1].data_ptr(), None)
+    rows = math.prod(lead)
+    if rows * n:
+        with torch.cuda.device(dev):
+            _launch("wire_decode_add_encode_cuda", codes.data_ptr(), scales.data_ptr(),
+                    local.data_ptr(), stride, int(local.dtype == torch.bfloat16),
+                    *ptrs, rows, n)
+        wire_decode_add_encode.launches += 1
+    return out[0] if last else out
+
+
 quantize_flat.launches = 0
 dequantize_flat.launches = 0
 quantize_wire.launches = 0
 dequantize_wire.launches = 0
+wire_encode.launches = 0
+wire_decode.launches = 0
+wire_decode_add_encode.launches = 0

@@ -11,8 +11,9 @@ the reference's); the payload is the tensor bytes.
 
 Payloads are FlatBuffer-packed f32 buffers (core/flatbuf.py) encoded per
 wire dtype with the per-hop codec the in-process collectives use
-(kernels/quant_bucket ``wire_encode`` / ``wire_decode``, op by op — the
-divide form, not the streaming kernel's reciprocal):
+(kernels/quant_bucket ``wire_encode`` / ``wire_decode``: the CUDA kernels
+of ``csrc/wire_hop.cu`` for a buffer on the card, their plain versions on
+the CPU; both the divide form, not the streaming kernel's reciprocal):
 
   f32   raw little-endian f32             4n bytes
   bf16  bfloat16 cast (round to nearest   2n bytes

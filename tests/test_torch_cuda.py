@@ -444,6 +444,112 @@ def test_emulated_int8_reduce_scatter_card_equals_cpu(cuda):
     assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
 
 
+# -- the per-hop codec (csrc/wire_hop.cu) ---------------------------------------
+
+HOP_SIZES = (1, 127, 128, 129, 8193, 100_003)
+
+
+def _hop_rows(n, rows, device, dtype, seed):
+    """``rows`` rows of ``_wire_values``-like values (the edge buckets in
+    front), each scaled apart so the rows' buckets differ."""
+    return torch.stack([_wire_values(n, device, torch.float32) * (seed + r + 1)
+                        for r in range(rows)]).to(dtype)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("n", HOP_SIZES)
+def test_wire_encode_decode_kernels_match_plain(cuda, n, rows, dtype, strided):
+    """``wire_encode`` (rows padded on their own to whole buckets; rows
+    evenly strided, as ``select(-2, r)`` leaves them) and ``wire_decode``:
+    codes, scales and values equal the plain versions'."""
+    x = _hop_rows(n, rows * (2 if strided else 1), cuda, dtype, 0)
+    if strided:
+        x = x.reshape(rows, 2, n).select(-2, 1)
+    before = (qb.wire_encode.launches, qb.wire_decode.launches)
+    codes, scales = qb.wire_encode(x)
+    out = qb.wire_decode(codes, scales, n)
+    torch.cuda.synchronize()
+    assert (qb.wire_encode.launches, qb.wire_decode.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    pc, ps = qb.wire_encode_plain(x)
+    assert codes.dtype == torch.int8 and codes.shape == pc.shape
+    assert torch.equal(codes, pc) and torch.equal(scales, ps)
+    want = qb.wire_decode_plain(pc, ps, n)
+    assert out.dtype == torch.float32 and out.shape == want.shape
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["hop", "last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("n", HOP_SIZES)
+def test_wire_decode_add_encode_kernel_matches_plain(cuda, n, rows, dtype, last):
+    """The fused hop: received codes and scales plus the local chunk (f32
+    or bf16, rows strided) -> the re-encoded sum, or the f32 sum when
+    ``last``; equal to the plain composition."""
+    codes, scales = qb.wire_encode_plain(_hop_rows(n, rows, cuda, torch.float32, 1))
+    local = _hop_rows(n, 2 * rows, cuda, dtype, 5).reshape(rows, 2, n).select(-2, 0)
+    before = qb.wire_decode_add_encode.launches
+    got = qb.wire_decode_add_encode(codes, scales, local, n, last=last)
+    torch.cuda.synchronize()
+    assert qb.wire_decode_add_encode.launches == before + 1
+    want = qb.wire_decode_add_encode_plain(codes, scales, local, n, last=last)
+    got, want = ((got,), (want,)) if last else (got, want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+def test_wire_hop_kernels_reject_bad_layouts(cuda):
+    x = torch.randn(2, 300, device=cuda)
+    codes, scales = qb.wire_encode(x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qb.wire_encode(x.half())
+    with pytest.raises(ValueError, match="evenly strided"):
+        qb.wire_encode(torch.randn(2, 4, 300, device=cuda)[:, :3])
+    with pytest.raises(ValueError, match="want"):
+        qb.wire_decode(codes[:, :256], scales, 256)
+    with pytest.raises(ValueError, match="outside"):
+        qb.wire_decode(codes, scales, 400)
+    with pytest.raises(ValueError, match="several devices"):
+        qb.wire_decode_add_encode(codes, scales, x.cpu(), 300)
+    with pytest.raises(ValueError, match="want"):
+        qb.wire_decode_add_encode(codes, scales, x[:, :200], 200)
+
+
+def test_emulated_int8_rings_card_equal_cpu_through_the_hop_kernels(cuda):
+    """The emulated int8 reduce-scatter and allgather over a p = 4 world
+    with 2 rings (ragged chunks, strided per-ring shards): the card's
+    shards and buffers equal the CPU's, the wire bytes too, and the card
+    run went through the hop kernels."""
+    from repro_torch.core import collectives as TC
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 2 * 4 * 4096 + 1037, generator=gen)
+    out, launches = {}, None
+    for dev in ("cpu", "cuda"):
+        meter = TC.WireMeter()
+        before = (qb.wire_encode.launches, qb.wire_decode.launches,
+                  qb.wire_decode_add_encode.launches)
+        rs = TC.ring_reduce_scatter(x.to(dev), 0, num_rings=2, wire_dtype="int8",
+                                    meter=meter)
+        ag = TC.ring_allgather(rs, 0, num_rings=2, wire_dtype="int8", meter=meter)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(
+            (qb.wire_encode.launches, qb.wire_decode.launches,
+             qb.wire_decode_add_encode.launches), before))
+        out[dev] = (rs.cpu(), ag.cpu(), meter.bytes)
+        if dev == "cpu":
+            assert launches == (0, 0, 0)
+    # RS: one encode and 3 fused hops a ring; AG: one encode and 1 + 3
+    # decodes a ring
+    assert launches == (2 + 2, 2 * 4, 2 * 3)
+    assert out["cuda"][2] == out["cpu"][2]
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
 def test_wrappers_reject_bad_layouts(cuda):
     p = torch.zeros(10, device=cuda)
     hp = torch.zeros(2, device=cuda)
